@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's zero-shot serving path on one CUDA card.
+"""Drive the PyTorch port's serving and FT-training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -9,20 +9,37 @@ non-zero):
 1. device: the card's name and power limit, torch / CUDA versions; build
    every CUDA kernel from eventclip_tpu_torch/csrc (one nvcc per source, all
    at once).
-2. kernels vs plain on the card, at the main path's shapes: the event
-   histogram (exact) on N-Caltech / N-Cars / N-ImageNet geometries, the
-   fused-qkv attention on the ViT-L/14 (bf16, no mask), text tower (f32,
-   causal mask) and tiny-tower (dh 32 / 16) shapes. Each prints kernel ms,
-   plain ms, the bound and one library call's ms as a yardstick.
-3. main path: configs/zsclip/zsclip_ncaltech_params.py through the port's
+2. kernels vs plain on the card, at the main paths' shapes: the event
+   histogram K1 (exact) on N-Caltech serving, N-Cars and the N-ImageNet
+   training batch [256, 70000, 3] @ 480x640; the fused-qkv attention
+   forward K2 and its backward K3 on the ViT-L/14 (bf16, no mask; serving
+   and training batches), text tower (f32, causal mask) and tiny-tower
+   (dh 32 / 16) shapes; K4, the [B, H, S, dh] attention, forward and
+   backward. Each prints kernel ms, plain ms, the bound and one library
+   call's ms as a yardstick.
+3. serving: configs/zsclip/zsclip_ncaltech_params.py through the port's
    loader, random ViT-L/14 towers from a seeded generator, text features
    for 101 synthetic prompts through the text tower, a Predictor at
    batch 32 answering requests of 32 x 225k, 8 x 30-60k and 1 x 5k events,
    three times each. Launch counters are zeroed just before these timed
    requests and read just after them (the text tower's and the warm-up's
    counts are printed apart); then one request is profiled.
-4. whole path card vs CPU: one short stream through the same towers on the
+4. serving card vs CPU: one short stream through the same towers on the
    CPU (float32, plain kernels); cosine of the view features.
+5. FT training: configs/ftclip/ft_text_fsclip_nin_params.py (ViT-L/14 full
+   fine-tune with prompt tuning, N-ImageNet 480x640, N = 70000, batch 128
+   x 2 views, bf16, remat) with random towers from a seeded generator, on
+   an in-memory synthetic N-ImageNet set made per item from (seed, idx),
+   built with augment=False (on-device RandAugment is not ported). The
+   EventCLIPTrainer runs its sanity eval, then one epoch of 4 steps with
+   the launch counters zeroed just before and read just after (K1 1, K2 48,
+   K3 24 per step); then one step is profiled, trained and frozen leaves
+   are checked, the trainable checkpoint is saved, the parameters moved by
+   one more step, the checkpoint reloaded and evaluated to the same
+   counters.
+6. FT update card vs CPU: a 2-layer ViT-L/14 at full width, f32, one
+   update on the same small batch with the kernels on the card and the
+   plain versions on the CPU; gradient cosine and relative differences.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Imports nothing
@@ -31,11 +48,13 @@ of JAX. Fails when no CUDA device is present or the port is missing.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -127,8 +146,20 @@ def check_histogram(gen, name, M, N, H, W, dev):
     log(f"K1 histogram {name} [{M}, {N}, 3] int16 @ {H}x{W}: exact; "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bincount "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes)")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="bytes", library_ms=library_ms)
+    return dict(shape=f"[{M}, {N}, 3] int16 @ {H}x{W}", max_abs_err=0.0,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+                library_ms=library_ms)
+
+
+def attention_bound(nbytes, flops, tname):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[tname] * 1e3
+    return max((t_bytes, "bytes"), (t_ops, "operations"))
+
+
+def max_err(got, want):
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, want))
 
 
 def check_attention(gen, name, B, S, heads, dh, dtype, causal, dev):
@@ -145,7 +176,7 @@ def check_attention(gen, name, B, S, heads, dh, dtype, causal, dev):
     got = fused_qkv_attention(qkv, heads, mask)
     want = qkv_attention_plain(qkv, heads, mask)
     torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
+    err = max_err([got], [want])
     tname = str(dtype).split(".")[-1]
     if not err <= ATOL[tname]:
         raise AssertionError(
@@ -159,15 +190,109 @@ def check_attention(gen, name, B, S, heads, dh, dtype, causal, dev):
         q, k, v, is_causal=causal))
     esize = qkv.element_size()
     nbytes = (B * S * 3 * D + B * S * D) * esize + (S * S * 4 if causal else 0)
-    flops = 4 * B * heads * S * S * dh
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[tname] * 1e3
-    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    bound_ms, bound_by = attention_bound(nbytes, 4 * B * heads * S * S * dh,
+                                         tname)
     log(f"K2 attention {name} [{B}, {S}, {3 * D}] {tname} heads={heads} "
         f"dh={dh} mask={'causal' if causal else 'none'}: max_abs_err {err:.3g}"
         f" (atol {ATOL[tname]}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
         f" sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    return dict(shape=f"[{B}, {S}, {3 * D}] {tname}", max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
+def check_attention_bwd(gen, name, B, S, heads, dh, dtype, causal, dev):
+    """K3 in the fused layout against its plain version; yardstick: the
+    backward alone of scaled_dot_product_attention (autograd.grad on a
+    kept graph)."""
+    import torch
+    import torch.nn.functional as F
+
+    from eventclip_tpu_torch.models.clip.model import causal_mask
+    from eventclip_tpu_torch.ops.attention import (qkv_attention_bwd,
+                                                   qkv_attention_bwd_plain)
+
+    D = heads * dh
+    qkv = torch.randn((B, S, 3 * D), generator=gen, device=dev).to(dtype)
+    g = torch.randn((B, S, D), generator=gen, device=dev).to(dtype)
+    mask = causal_mask(S, device=dev) if causal else None
+    got = qkv_attention_bwd(qkv, g, heads, mask)
+    again = qkv_attention_bwd(qkv, g, heads, mask)
+    want = qkv_attention_bwd_plain(qkv, g, heads, mask)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"attention bwd {name}: two runs differ")
+    err = max_err([got], [want])
+    tname = str(dtype).split(".")[-1]
+    if not err <= ATOL[tname]:
+        raise AssertionError(
+            f"attention bwd {name}: max |kernel - plain| {err} > "
+            f"{ATOL[tname]}")
+
+    q, k, v = (t.reshape(B, S, heads, dh).transpose(1, 2).contiguous()
+               .requires_grad_() for t in qkv.split(D, -1))
+    gh = g.reshape(B, S, heads, dh).transpose(1, 2).contiguous()
+    out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+    ms = cuda_ms(lambda: qkv_attention_bwd(qkv, g, heads, mask))
+    plain_ms = cuda_ms(lambda: qkv_attention_bwd_plain(qkv, g, heads, mask),
+                       iters=5)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (q, k, v), gh, retain_graph=True))
+    esize = qkv.element_size()
+    nbytes = B * S * 7 * D * esize + (S * S * 4 if causal else 0)
+    bound_ms, bound_by = attention_bound(
+        nbytes, 10 * B * heads * S * S * dh, tname)
+    log(f"K3 attention bwd {name} [{B}, {S}, {3 * D}] {tname} heads={heads} "
+        f"dh={dh} mask={'causal' if causal else 'none'}: max_abs_err "
+        f"{err:.3g} (atol {ATOL[tname]}), two runs bit-equal; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(shape=f"[{B}, {S}, {3 * D}] {tname} + g", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def check_bhsd_attention(gen, name, B, S, heads, dh, dtype, causal, dev):
+    """K4 (the [B, H, S, dh] forward) and its backward (K3 with these
+    strides) against their plain versions; yardstick: sdpa forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from eventclip_tpu_torch.models.clip.model import causal_mask
+    from eventclip_tpu_torch.ops.attention import (attention_bwd,
+                                                   attention_bwd_plain,
+                                                   attention_plain,
+                                                   multi_head_attention)
+
+    q, k, v, g = (torch.randn((B, heads, S, dh), generator=gen, device=dev)
+                  .to(dtype) for _ in range(4))
+    mask = causal_mask(S, device=dev) if causal else None
+    got = multi_head_attention(q, k, v, mask)
+    want = attention_plain(q, k, v, mask)
+    gots = attention_bwd(q, k, v, g, mask)
+    wants = attention_bwd_plain(q, k, v, g, mask)
+    torch.cuda.synchronize()
+    tname = str(dtype).split(".")[-1]
+    err, err_bwd = max_err([got], [want]), max_err(gots, wants)
+    if not max(err, err_bwd) <= ATOL[tname]:
+        raise AssertionError(
+            f"attention [B, H, S, dh] {name}: max |kernel - plain| forward "
+            f"{err}, backward {err_bwd} > {ATOL[tname]}")
+    ms = cuda_ms(lambda: multi_head_attention(q, k, v, mask))
+    plain_ms = cuda_ms(lambda: attention_plain(q, k, v, mask))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal))
+    bwd_ms = cuda_ms(lambda: attention_bwd(q, k, v, g, mask))
+    nbytes = 4 * B * heads * S * dh * q.element_size()
+    bound_ms, bound_by = attention_bound(nbytes, 4 * B * heads * S * S * dh,
+                                         tname)
+    log(f"K4 attention [{B}, {heads}, {S}, {dh}] {tname} {name}: forward "
+        f"max_abs_err {err:.3g}, backward (K3 on these strides) "
+        f"{err_bwd:.3g} (atol {ATOL[tname]}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} "
+        f"ms ({bound_by}); K3 backward here {bwd_ms:.4f} ms")
+    return dict(shape=f"[{B}, {heads}, {S}, {dh}] {tname}", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms)
 
 
@@ -198,16 +323,16 @@ def synth_prompts(rng, n_cls, context):
     return toks
 
 
-def profile_request(pred, label, streams):
-    """Device time by kernel over one request (torch.profiler), and the
-    device's busy share of the request's wall time."""
+def profile_call(tag, label, fn):
+    """Device time by kernel over one call of fn() (torch.profiler), and
+    the device's busy share of the call's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pred.predict(streams)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -219,17 +344,18 @@ def profile_request(pred, label, streams):
             us = evt.self_cuda_time_total
         rows.append((us / 1e3, evt.count, evt.key))
     if not rows:
-        log(f"[3 profile] request {label}: the profiler saw no device "
-            "time; device breakdown not measured")
-        return
+        log(f"[{tag}] {label}: the profiler saw no device time; device "
+            "breakdown not measured")
+        return None
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"[3 profile] request {label}: wall {wall_ms:.1f} ms, device busy "
-        f"{busy:.1f} ms ({100 * busy / wall_ms:.1f}%), idle "
+    log(f"[{tag}] {label}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+        f"({100 * busy / wall_ms:.1f}%), idle "
         f"{100 * (1 - busy / wall_ms):.1f}%")
     for ms, count, key in rows[:12]:
-        log(f"[3 profile]   {ms:9.3f} ms  {100 * ms / busy:5.1f}%  x{count:<5d}"
+        log(f"[{tag}]   {ms:9.3f} ms  {100 * ms / busy:5.1f}%  x{count:<5d}"
             f" {key[:90]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy)
 
 
 def check_probs(out, n, n_cls):
@@ -237,6 +363,256 @@ def check_probs(out, n, n_cls):
     assert probs.shape == (n, n_cls), probs.shape
     assert np.isfinite(probs).all(), "non-finite probs"
     assert np.allclose(probs.sum(-1), 1.0, atol=1e-3), probs.sum(-1)
+
+
+# -- phases 5-6: FT training ------------------------------------------------
+
+
+class SyntheticNImageNet:
+    """In-memory N-ImageNet stand-in (480x640, 1000 classes): item idx is
+    made on demand from (seed, idx), so nothing large is held — a blob
+    whose place and drift depend on the label, over uniform noise, 60k to
+    135k events (1 or 2 windows of N = 70000), centred as the dataset
+    readers centre them. No event-space augmentation."""
+
+    resolution = (480, 640)
+    max_t = 0.055
+    max_n = 135000
+    augmentation = False
+    num_shots = None
+
+    def __init__(self, n, seed, n_classes=1000):
+        self.n, self.seed = n, seed
+        self.classes = [f"class_{i}" for i in range(n_classes)]
+        self.root = f"synthetic/{seed}"
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, idx):
+        from eventclip_tpu_torch.data.host_ops import prepare_stream
+
+        rng = np.random.default_rng((self.seed, idx))
+        label = int(rng.integers(len(self.classes)))
+        n = int(rng.integers(self.max_n * 4 // 9, self.max_n + 1))
+        H, W = self.resolution
+        cx, cy = 100 + 440 * (label % 40) / 40, 80 + 320 * (label // 40) / 25
+        t = np.arange(n, dtype=np.float32) * (self.max_t / n)
+        noise = rng.random(n) < 0.3
+        x = np.where(noise, rng.integers(0, W, n),
+                     np.clip(cx + 60 * t / self.max_t
+                             + rng.normal(0, 30, n), 0, W - 1))
+        y = np.where(noise, rng.integers(0, H, n),
+                     np.clip(cy + rng.normal(0, 30, n), 0, H - 1))
+        p = np.where(rng.random(n) < 0.5, -1.0, 1.0)
+        events = np.stack([np.floor(x), np.floor(y), t, p], 1).astype(
+            np.float32)
+        return {"events": prepare_stream(events, self.resolution),
+                "label": label, "data_idx": idx}
+
+
+def leaf_snapshot(params):
+    """CPU copies of a trained and a frozen leaf of each kind."""
+    clip = params.clip
+    return {
+        "visual wqkv[0] (trained)": clip.visual.blocks.layers[0].attn.wqkv,
+        "visual proj (trained)": clip.visual.proj,
+        "text_feats (trained, prompt tuning)": params.text_feats,
+        "text wqkv[0] (frozen)": clip.text.blocks.layers[0].attn.wqkv,
+        "logit_scale (frozen)": clip.logit_scale,
+    }
+
+
+def train_phase(dev, n_steps=4):
+    """Phase 5: the FT slice through EventCLIPTrainer."""
+    import torch
+
+    from eventclip_tpu_torch import kernels
+    from eventclip_tpu_torch.data.event_windows import EventWindowDataset
+    from eventclip_tpu_torch.engine.checkpoint import load_checkpoint
+    from eventclip_tpu_torch.engine.trainer import EventCLIPTrainer
+    from eventclip_tpu_torch.utils.config import load_params
+
+    params = load_params(os.path.join(HERE, "configs", "ftclip",
+                                      "ft_text_fsclip_nin_params.py"))
+    bs = int(params.train_batch_size)
+    q = dict(params.quantize_args)
+    train_set = EventWindowDataset(SyntheticNImageNet(bs * n_steps, seed=1),
+                                   q, augment=False)
+    val_set = EventWindowDataset(
+        SyntheticNImageNet(int(params.val_batch_size), seed=2),
+        dict(q, max_imgs=10))
+    log(f"[5 train] {params.model} {params.clip_dict['arch']} "
+        f"{params.dataset} {train_set.resolution}, N {train_set.window}, "
+        f"views {train_set.max_imgs} (val {val_set.max_imgs}), batch {bs}; "
+        f"train set built with augment=False (the config's img_aug="
+        f"{params.get('img_aug')} asks for on-device RandAugment, not "
+        "ported yet)")
+    out = {}
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        t0 = time.perf_counter()
+        trainer = EventCLIPTrainer(params, train_set, val_set, ckpt_dir,
+                                   smoke=True, seed=0, device=dev)
+        cfg = trainer.cls_cfg
+        log(f"[5 train] trainer built in {time.perf_counter() - t0:.1f} s: "
+            f"ft_mode {cfg.ft_mode}, prompt_tuning {cfg.prompt_tuning}, "
+            f"dtype {cfg.dtype}, remat {cfg.remat}, accum {trainer.accum}, "
+            f"lr groups "
+            f"{[g['name'] for g in trainer.optimizer.torch_opt.param_groups]}")
+        kernels.reset_launches()
+        sanity = trainer.evaluate(max_steps=1)
+        log(f"[5 train] sanity eval (1 batch): launches "
+            f"{dict(kernels.LAUNCHES)}")
+
+        before = {k: v.detach().cpu().clone()
+                  for k, v in leaf_snapshot(trainer.model_params).items()}
+        torch.cuda.reset_peak_memory_stats(dev)
+        # the training run: counts zeroed just before, read just after
+        kernels.reset_launches()
+        stats = trainer.train_epoch(0)
+        torch.cuda.synchronize(dev)
+        launches = dict(kernels.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        steps = len(trainer.step_times)
+        L = trainer.clip_cfg.vision.layers
+        want = {"histogram": steps, "qkv_attention": 2 * L * steps,
+                "qkv_attention_bwd": L * steps}
+        log(f"[5 train] launches over the {steps} timed steps {launches} "
+            f"(per step: K1 1, K2 {2 * L} = {L} layers x forward + remat "
+            f"recompute, K3 {L} expected)")
+        if launches != want:
+            raise AssertionError(f"train launches {launches} != {want}")
+        step_ms = [s * 1e3 for _, s in trainer.step_times]
+        wait_ms = [w * 1e3 for w, _ in trainer.step_times]
+        med = statistics.median(step_ms)
+        host_share = sum(wait_ms) / (sum(wait_ms) + sum(step_ms))
+        loss = float(stats["total_loss"])
+        log(f"[5 train] steps (ms): {[round(x, 1) for x in step_ms]}; "
+            f"median {med:.1f} ms, {bs / (med / 1e3):.1f} samples/s; host "
+            f"loader wait {[round(x, 1) for x in wait_ms]} ms, "
+            f"{100 * host_share:.1f}% of the epoch's step time; peak memory "
+            f"{peak_gb:.2f} GiB; loss {loss:.4f}, train_acc "
+            f"{stats['train_acc']:.4f}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"non-finite training loss {loss}")
+        after = leaf_snapshot(trainer.model_params)
+        for name, old in before.items():
+            moved = not torch.equal(old, after[name].detach().cpu())
+            log(f"[5 train]   {name}: {'moved' if moved else 'unchanged'}")
+            if moved != ("trained" in name):
+                raise AssertionError(f"{name}: moved={moved}")
+
+        host_batch = next(iter(trainer.train_loader.epoch(1)))
+        batch = trainer.device_batch(host_batch)
+        prof = profile_call("5 profile", "one train step",
+                            lambda: trainer.train_step(batch))
+
+        val = trainer.evaluate()
+        trainer.ckpt.save(trainer.model_params, trainer.optimizer.count, val)
+        path = os.path.join(trainer.ckpt.dir, "best.npz")
+        trainer.train_step(batch)  # move the trained leaves once more
+        load_checkpoint(path, target=trainer.model_params)
+        again = trainer.evaluate()
+        log(f"[5 train] checkpoint {os.path.getsize(path) / 2 ** 20:.0f} MiB"
+            f" saved, parameters moved by one step, reloaded: eval {val} "
+            f"-> {again}")
+        for k in val:
+            if not np.isclose(val[k], again[k], rtol=1e-6, atol=1e-6):
+                raise AssertionError(f"eval after reload: {k} {val[k]} != "
+                                     f"{again[k]}")
+        out = dict(step_ms=step_ms, median_step_ms=med,
+                   samples_per_s=bs / (med / 1e3), host_wait_ms=wait_ms,
+                   host_share=host_share, peak_gib=peak_gb, loss=loss,
+                   launches_per_step={k: v // steps
+                                      for k, v in launches.items()},
+                   sanity_eval=sanity, eval=val, profile=prof)
+        del trainer
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def update_card_vs_cpu(dev, batch_size=4):
+    """Phase 6: one FT update of a 2-layer, full-width ViT-L/14 in f32 on
+    the card (kernels) and on the CPU (plain versions) from the same
+    parameters and batch."""
+    import torch
+
+    from eventclip_tpu_torch.data.event_windows import EventWindowDataset
+    from eventclip_tpu_torch.data.loader import collate
+    from eventclip_tpu_torch.engine.optim import OptimConfig, Optimizer
+    from eventclip_tpu_torch.engine.train import make_train_step
+    from eventclip_tpu_torch.models.classifier import (
+        build_classifier_config, init_classifier_params)
+    from eventclip_tpu_torch.models.clip.config import clip_arch_config
+    from eventclip_tpu_torch.ops.preprocess import ClipPreprocess
+    from eventclip_tpu_torch.utils.config import load_params
+
+    params = load_params(os.path.join(HERE, "configs", "ftclip",
+                                      "ft_text_fsclip_nin_params.py"))
+    full = clip_arch_config(params.clip_dict["arch"])
+    cut = dataclasses.replace(
+        full, vision=dataclasses.replace(full.vision, layers=2),
+        text=dataclasses.replace(full.text, layers=2))
+    cfg = build_classifier_config(params, cut, dtype=torch.float32)
+    ds = EventWindowDataset(SyntheticNImageNet(batch_size, seed=3),
+                            dict(params.quantize_args))
+    host = collate([ds[i] for i in range(batch_size)])
+    spec = ds.raster_spec()
+    pipeline = (spec, ClipPreprocess(in_height=spec.height,
+                                     in_width=spec.width,
+                                     image_size=cut.vision.image_size))
+    # the shipped clip_lr, no warmup: the first update is at the full rate
+    opt_cfg = OptimConfig(lr=float(params.lr), clip_lr=float(params.clip_lr),
+                          total_steps=10, warmup_steps_pct=0.0)
+    initial = init_classifier_params(
+        cfg, torch.Generator().manual_seed(0), n_classes=1000)
+    results = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        p = (init_classifier_params(cfg, torch.Generator().manual_seed(0),
+                                    n_classes=1000, device="cpu")
+             .to(device))
+        opt = Optimizer(cfg, opt_cfg, p)
+        step = make_train_step(cfg, p, opt, pipeline=pipeline)
+        batch = {k: torch.from_numpy(host[k]).to(device)
+                 for k in ("windows", "valid_mask", "label")}
+        t0 = time.perf_counter()
+        metrics = step(batch)
+        loss = float(metrics["total_loss"])
+        dt = time.perf_counter() - t0
+        visual = [(n, q) for n, q in p.named_parameters()
+                  if n.startswith("clip.visual.")]
+        results[name] = dict(
+            loss=loss, s=dt,
+            grad=torch.cat([q.grad.detach().cpu().reshape(-1)
+                            for _, q in visual]).double(),
+            weights=torch.cat([q.detach().cpu().reshape(-1)
+                               for _, q in visual]).double())
+    before = torch.cat([q.detach().reshape(-1) for n, q in
+                        initial.named_parameters()
+                        if n.startswith("clip.visual.")]).double()
+    a, b = results["card"], results["cpu"]
+    cos = float(a["grad"] @ b["grad"]
+                / (a["grad"].norm() * b["grad"].norm()))
+    grad_rel = float((a["grad"] - b["grad"]).abs().max()
+                     / b["grad"].abs().max())
+    w_rel = float((a["weights"] - b["weights"]).abs().max()
+                  / b["weights"].abs().max())
+    moved = float((b["weights"] - before).abs().max())
+    log(f"[6 card vs CPU] one FT update, 2-layer ViT-L/14 f32, batch "
+        f"{batch_size} x {ds.max_imgs} views: loss card {a['loss']:.6f} / "
+        f"CPU {b['loss']:.6f}; visual gradient cosine {cos:.8f}, max |diff| /"
+        f" max |grad| {grad_rel:.3g}; updated visual weights max |diff| / "
+        f"max |w| {w_rel:.3g} (the update moved them by up to {moved:.3g});"
+        f" CPU step {b['s']:.1f} s")
+    # Adam's first step moves each weight by about clip_lr * sign(g), so
+    # the weights tell only where a noise-level gradient flips its sign:
+    # printed, not held; the gradients are the test
+    if not (cos >= 0.99999 and grad_rel <= 1e-3):
+        raise AssertionError(
+            f"card vs CPU update: cosine {cos} (>= 0.99999), gradient "
+            f"{grad_rel} (<= 1e-3)")
+    return dict(grad_cosine=cos, grad_max_rel=grad_rel,
+                weights_max_rel=w_rel)
 
 
 def main() -> int:
@@ -269,12 +645,14 @@ def main() -> int:
 
     # -- 2 ---------------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
-    rec = {}
-    rec["histogram"] = check_histogram(gen, "N-Caltech", 320, 20000, 180, 240,
-                                       dev)
+    # each path's records at the shapes that path gives the kernel
+    rec = {"serve": {}, "train": {}, "none": {}}
+    rec["serve"]["histogram"] = check_histogram(
+        gen, "N-Caltech serving", 320, 20000, 180, 240, dev)
     check_histogram(gen, "N-Cars", 32, 30000, 100, 120, dev)
-    check_histogram(gen, "N-ImageNet", 64, 70000, 480, 640, dev)
-    rec["qkv_attention"] = check_attention(
+    rec["train"]["histogram"] = check_histogram(
+        gen, "N-ImageNet training", 256, 70000, 480, 640, dev)
+    rec["serve"]["qkv_attention"] = check_attention(
         gen, "ViT-L/14", 320, 257, 16, 64, torch.bfloat16, False, dev)
     text = check_attention(gen, "text ViT-L/14", 101, 77, 12, 64,
                            torch.float32, True, dev)
@@ -284,6 +662,26 @@ def main() -> int:
                     False, dev)
     check_attention(gen, "text ViT-T/8@32", 101, 77, 2, 16, torch.float32,
                     True, dev)
+    rec["train"]["qkv_attention"] = check_attention(
+        gen, "ViT-L/14 training", 256, 257, 16, 64, torch.bfloat16, False,
+        dev)
+    rec["train"]["qkv_attention_bwd"] = check_attention_bwd(
+        gen, "ViT-L/14 training", 256, 257, 16, 64, torch.bfloat16, False,
+        dev)
+    check_attention_bwd(gen, "text ViT-L/14", 101, 77, 12, 64, torch.float32,
+                        True, dev)
+    check_attention_bwd(gen, "ViT-T/8@32", 80, 17, 2, 32, torch.float32,
+                        False, dev)
+    check_attention_bwd(gen, "ViT-T/8@32 bf16", 80, 17, 2, 32,
+                        torch.bfloat16, False, dev)
+    check_attention_bwd(gen, "text ViT-T/8@32", 101, 77, 2, 16,
+                        torch.float32, True, dev)
+    rec["none"]["attention"] = check_bhsd_attention(
+        gen, "ViT-L/14", 320, 257, 16, 64, torch.bfloat16, False, dev)
+    check_bhsd_attention(gen, "text, causal", 101, 77, 12, 64, torch.float32,
+                         True, dev)
+    check_bhsd_attention(gen, "ViT-T/8@32", 80, 17, 2, 32, torch.float32,
+                         False, dev)
 
     # -- 3 ---------------------------------------------------------------
     params = load_params(os.path.join(HERE, "configs", "zsclip",
@@ -350,7 +748,8 @@ def main() -> int:
     for k in ("histogram", "qkv_attention"):
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"main path never launched the {k} kernel")
-    profile_request(pred, *requests[0])
+    profile_call("3 profile", f"request {requests[0][0]}",
+                 lambda: pred.predict(requests[0][1]))
 
     # -- 4 ---------------------------------------------------------------
     cpu_params = load_params(os.path.join(HERE, "configs", "zsclip",
@@ -372,17 +771,35 @@ def main() -> int:
     if not cos >= 0.99:
         raise AssertionError(f"card vs CPU feature cosine {cos} < 0.99")
 
+    # -- 5, 6 ---------------------------------------------------------------
+    train, train_launches = train_phase(dev)
+    update = update_card_vs_cpu(dev)
+
     sources = {
         "histogram": ("eventclip_tpu_torch/csrc/histogram.cu",
                       "eventclip_tpu/ops/rasterize.py:123"),
         "qkv_attention": ("eventclip_tpu_torch/csrc/attention.cu",
                           "eventclip_tpu/ops/attention.py:325"),
+        "qkv_attention_bwd": ("eventclip_tpu_torch/csrc/attention_bwd.cu",
+                              "eventclip_tpu/ops/attention.py:215"),
+        "attention": ("eventclip_tpu_torch/csrc/attention.cu",
+                      "eventclip_tpu/ops/attention.py:115"),
     }
+    # each kernel's row: this slice's path, FT training, with launches, ms
+    # and bound from that path (K4 is on no path: its own check's shape);
+    # by_path holds each path's own row
+    counts = {"serve": launches, "train": train_launches}
+    by_path = {p: {k: dict(launches=counts[p].get(k, 0), **r)
+                   for k, r in recs.items()}
+               for p, recs in rec.items() if p in counts}
     line = {"kernels": [
-        dict(name=k, route="cuda", source=sources[k][0],
-             replaces=sources[k][1], launches=launches[k], **rec[k])
-        for k in ("histogram", "qkv_attention")
-    ], "text_attention": text, "requests": per_request}
+        dict(name=k, route="cuda", source=src, replaces=tpu,
+             launches=train_launches.get(k, 0),
+             **(rec["train"].get(k) or rec["none"][k]),
+             by_path={p: rows[k] for p, rows in by_path.items() if k in rows})
+        for k, (src, tpu) in sources.items()
+    ], "text_attention": text, "requests": per_request, "train": train,
+        "update_card_vs_cpu": update}
     log(json.dumps(line))
     log(card)
     print(json.dumps({"ok": True, "device": {

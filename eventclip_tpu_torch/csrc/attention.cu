@@ -1,16 +1,21 @@
-// Fused-qkv multi-head attention forward for Hopper (sm_90a).
+// Multi-head attention forward for Hopper (sm_90a), in any layout given by
+// strides.
 //
-// Replaces the TPU kernel eventclip_tpu/ops/attention.py::_qkv_attention_forward
-// (kernel body _qkv_kernel). Input qkv [B, S, 3D] (q | k | v column blocks,
-// head h at columns h*dh .. h*dh+dh of each block), optional additive f32
-// mask [S, S]; output [B, S, D] with the same head columns. Per head, in the
-// TPU kernel's order:
+// Replaces two TPU kernels of eventclip_tpu/ops/attention.py:
+//   K2 _qkv_attention_forward (kernel body _qkv_kernel): fused qkv [B, S, 3D]
+//      (q | k | v column blocks, head h at columns h*dh .. h*dh+dh of each
+//      block) -> [B, S, D] with the same head columns;
+//   K4 _attention_forward (kernel body _attn_kernel): q, k, v [B, H, S, dh]
+//      -> [B, H, S, dh].
+// The launcher takes q, k, v and out pointers with the element strides of a
+// row, a head and a batch (attn::Strides), so both layouts run this one
+// kernel; heads are read straight out of their columns and no relayout is
+// ever written. Optional additive f32 mask [S, S]. Per head, in the TPU
+// kernels' order:
 //   s = (q . k^T) in f32, then * scale (after the dot, not before), + mask;
 //   p = exp(s - rowmax) / rowsum over the whole row (no online softmax);
 //   p is rounded to the input dtype, then o = p @ v accumulated in f32 and
 //   rounded to the output dtype.
-// Heads are read straight out of their dh-wide columns: no [B, H, S, dh]
-// relayout is ever written.
 //
 // Design (simple and right first): one block per (batch, head, tile of 64
 // query rows). The block stages that head's K (rows padded by one 32-bit
@@ -28,64 +33,33 @@
 // re-reads K and V once per query tile, so it sits far from either bound;
 // wgmma tiles, TMA staging and an online softmax are later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
+
+using namespace attn;
 
 constexpr int kTileRows = 64;   // query rows per block
 constexpr int kRowsPerWarp = 4; // rows a warp carries at once
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// K rows are padded by one 32-bit word: lane j reads row j, and the padding
-// puts consecutive rows in consecutive banks
-template <typename T, int DH>
-struct Layout {
-  static constexpr int kStride = DH + (int)(4 / sizeof(T));
-};
-
-__host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~size_t(15); }
-
 template <typename T, int DH>
 __host__ __device__ inline size_t smem_bytes(int S, int nwarps) {
-  return align16((size_t)S * Layout<T, DH>::kStride * sizeof(T)) +
+  return align16((size_t)S * Padded<T, DH>::kStride * sizeof(T)) +
          align16((size_t)S * DH * sizeof(T)) +
          align16((size_t)nwarps * kRowsPerWarp * DH * sizeof(float)) +
          (size_t)nwarps * kRowsPerWarp * S * sizeof(float);
 }
 
 template <typename T, int DH>
-__global__ void qkv_attention_kernel(const T* __restrict__ qkv,
-                                     const float* __restrict__ mask,
-                                     T* __restrict__ out, int S, int heads,
-                                     int tiles, float scale) {
+__global__ void attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                                 const T* __restrict__ v,
+                                 const float* __restrict__ mask,
+                                 T* __restrict__ out, Strides in, Strides os,
+                                 int S, int heads, int tiles, float scale) {
   constexpr int R = kRowsPerWarp;
-  constexpr int KS = Layout<T, DH>::kStride;
+  constexpr int KS = Padded<T, DH>::kStride;
   constexpr int NACC = (DH + 31) / 32;
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -94,9 +68,6 @@ __global__ void qkv_attention_kernel(const T* __restrict__ qkv,
   const int tile = blockIdx.x % tiles;
   const int h = (blockIdx.x / tiles) % heads;
   const int b = blockIdx.x / (tiles * heads);
-  const int D = heads * DH;
-  const size_t row_stride = 3 * (size_t)D;
-  const T* base = qkv + (size_t)b * S * row_stride;
 
   T* Ks = reinterpret_cast<T*>(smem);
   T* Vs = reinterpret_cast<T*>(smem + align16((size_t)S * KS * sizeof(T)));
@@ -111,9 +82,8 @@ __global__ void qkv_attention_kernel(const T* __restrict__ qkv,
   // stage this head's K and V (row by row, dh contiguous elements each)
   for (int idx = threadIdx.x; idx < S * DH; idx += blockDim.x) {
     const int s = idx / DH, d = idx % DH;
-    const T* row = base + (size_t)s * row_stride + h * DH + d;
-    Ks[s * KS + d] = row[D];
-    Vs[s * DH + d] = row[2 * D];
+    Ks[s * KS + d] = k[at(in, b, h, s) + d];
+    Vs[s * DH + d] = v[at(in, b, h, s) + d];
   }
   __syncthreads();
 
@@ -125,8 +95,7 @@ __global__ void qkv_attention_kernel(const T* __restrict__ qkv,
     for (int r = 0; r < R; ++r) {
       const int i = i0 + r;
       for (int d = lane; d < DH; d += 32)
-        q_w[r * DH + d] =
-            i < S ? to_f32(base[(size_t)i * row_stride + h * DH + d]) : 0.f;
+        q_w[r * DH + d] = i < S ? to_f32(q[at(in, b, h, i) + d]) : 0.f;
     }
     __syncwarp();
 
@@ -170,7 +139,7 @@ __global__ void qkv_attention_kernel(const T* __restrict__ qkv,
       sum = warp_sum(sum);
       // p rounded to the input dtype before p @ v
       for (int j = lane; j < S; j += 32)
-        p_w[r * S + j] = to_f32(from_f32<T>(p_w[r * S + j] / sum));
+        p_w[r * S + j] = round_to<T>(p_w[r * S + j] / sum);
     }
     __syncwarp();
 
@@ -201,8 +170,7 @@ __global__ void qkv_attention_kernel(const T* __restrict__ qkv,
 #pragma unroll
       for (int a = 0; a < NACC; ++a) {
         const int d = lane + 32 * a;
-        if (d < DH)
-          out[((size_t)b * S + i) * D + h * DH + d] = from_f32<T>(acc[r][a]);
+        if (d < DH) out[at(os, b, h, i) + d] = from_f32<T>(acc[r][a]);
       }
     }
     __syncwarp();  // q_w / p_w are rewritten by the next group
@@ -210,36 +178,37 @@ __global__ void qkv_attention_kernel(const T* __restrict__ qkv,
 }
 
 template <typename T, int DH>
-cudaError_t launch(const void* qkv, const float* mask, void* out, int B, int S,
-                   int heads, float scale, cudaStream_t stream) {
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const float* mask, void* out, int B, int S, int heads,
+                   Strides in, Strides os, float scale, cudaStream_t stream) {
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
   if (err != cudaSuccess) return err;
   int nwarps = 8;
   while (nwarps > 1 && smem_bytes<T, DH>(S, nwarps) > (size_t)limit) nwarps /= 2;
   const size_t smem = smem_bytes<T, DH>(S, nwarps);
   if (smem > (size_t)limit) return cudaErrorInvalidValue;  // K and V alone too big
-  auto kernel = qkv_attention_kernel<T, DH>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  auto kernel = attention_kernel<T, DH>;
+  err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (S + kTileRows - 1) / kTileRows;
   const long long blocks = (long long)B * heads * tiles;
   if (blocks == 0) return cudaSuccess;
   kernel<<<(unsigned)blocks, nwarps * 32, smem, stream>>>(
-      (const T*)qkv, mask, (T*)out, S, heads, tiles, scale);
+      (const T*)q, (const T*)k, (const T*)v, mask, (T*)out, in, os, S, heads,
+      tiles, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_dh(const void* qkv, const float* mask, void* out, int B,
-                        int S, int heads, int dh, float scale, cudaStream_t s) {
+cudaError_t dispatch_dh(const void* q, const void* k, const void* v,
+                        const float* mask, void* out, int B, int S, int heads,
+                        int dh, Strides in, Strides os, float scale,
+                        cudaStream_t s) {
   switch (dh) {
-    case 16: return launch<T, 16>(qkv, mask, out, B, S, heads, scale, s);
-    case 32: return launch<T, 32>(qkv, mask, out, B, S, heads, scale, s);
-    case 64: return launch<T, 64>(qkv, mask, out, B, S, heads, scale, s);
+    case 16: return launch<T, 16>(q, k, v, mask, out, B, S, heads, in, os, scale, s);
+    case 32: return launch<T, 32>(q, k, v, mask, out, B, S, heads, in, os, scale, s);
+    case 64: return launch<T, 64>(q, k, v, mask, out, B, S, heads, in, os, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -252,17 +221,22 @@ const char* kernel_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. mask: f32 [S, S] or null.
-int qkv_attention_fwd(const void* qkv, const void* mask, void* out, int B,
-                      int S, int heads, int dh, int dtype, float scale,
-                      void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. mask: f32 [S, S] or null. in_*: the
+// strides of q, k and v; out_*: those of out (see attn::Strides).
+int attention_fwd(const void* q, const void* k, const void* v,
+                  const void* mask, void* out, int B, int S, int heads, int dh,
+                  long long in_batch, long long in_head, long long in_row,
+                  long long out_batch, long long out_head, long long out_row,
+                  int dtype, float scale, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const float* m = (const float*)mask;
+  const Strides in{in_batch, in_head, in_row}, os{out_batch, out_head, out_row};
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_dh<float>(qkv, m, out, B, S, heads, dh, scale, s);
+    err = dispatch_dh<float>(q, k, v, m, out, B, S, heads, dh, in, os, scale, s);
   else if (dtype == 1)
-    err = dispatch_dh<__nv_bfloat16>(qkv, m, out, B, S, heads, dh, scale, s);
+    err = dispatch_dh<__nv_bfloat16>(q, k, v, m, out, B, S, heads, dh, in, os,
+                                     scale, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

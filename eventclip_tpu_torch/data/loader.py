@@ -1,17 +1,35 @@
-"""View packing for evaluation and serving.
+"""Batching, prefetching and view packing.
 
-Port of `view_pack_buckets`, `eval_pack_buckets` and `pack_view_batch` from
-eventclip_tpu/data/loader.py, single-process: the cross-host agreement on
-the bucket (an allgather) comes with multi-GPU work.
+Port of eventclip_tpu/data/loader.py, single process: `collate`, the
+threaded `PrefetchLoader`, `device_prefetch`, and the view packing of
+evaluation and serving. Per-host sharding of batches and the cross-host
+agreement on a packing bucket come with multi-GPU work.
 """
 
 from __future__ import annotations
 
 import math
 import os
-from typing import Dict, List, Optional
+import queue
+import threading
+from collections import deque
+from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
+
+
+def device_prefetch(host_batches, place, depth: int = 2):
+    """Place host batches on the device `depth - 1` batches ahead of the
+    consumer: each placement happens right after the consumer dispatched
+    its (asynchronous) step on the previous batch, so the host-to-device
+    copy of batch k+1 is queued while the card runs step k."""
+    buf = deque()
+    for batch in host_batches:
+        buf.append(place(batch))
+        if len(buf) >= depth:
+            yield buf.popleft()
+    while buf:
+        yield buf.popleft()
 
 
 def view_pack_buckets(total_views: int, align: int = 8) -> List[int]:
@@ -70,3 +88,122 @@ def pack_view_batch(batch: Dict[str, np.ndarray],
     out["windows"] = packed
     out["view_src"] = src
     return out
+
+
+def collate(items: List[Dict[str, Any]]) -> Dict[str, np.ndarray]:
+    out: Dict[str, np.ndarray] = {}
+    for k in items[0]:
+        vals = [it[k] for it in items]
+        if np.isscalar(vals[0]) or np.ndim(vals[0]) == 0:
+            out[k] = np.asarray(vals)
+        else:
+            out[k] = np.stack(vals)
+    return out
+
+
+class PrefetchLoader:
+    """Threaded batch loader: worker threads build batches ahead of the
+    consumer (numpy releases the GIL in its bulk work), yielded strictly
+    in order. Epochs are seeded: `loader.epoch(k)` reshuffles
+    deterministically."""
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        shuffle: bool = False,
+        drop_last: bool = False,
+        num_workers: int = 4,
+        prefetch: int = 4,
+        seed: int = 0,
+        pad_last: bool = False,
+    ):
+        """pad_last: repeat-pad the final ragged batch to batch_size and add
+        a 'sample_mask' key (static shapes; masked in eval)."""
+        assert not (drop_last and pad_last)
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.pad_last = pad_last
+        self.num_workers = max(num_workers, 1)
+        self.prefetch = max(prefetch, 1)
+        self.seed = seed
+        self._epoch = 0
+
+    def epoch(self, k: int) -> "PrefetchLoader":
+        self._epoch = k
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(k)
+        return self
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
+
+    def _order(self) -> np.ndarray:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            rng = np.random.default_rng((self.seed, self._epoch))
+            rng.shuffle(idx)
+        return idx
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = self._order()
+        jobs = [order[b * self.batch_size:(b + 1) * self.batch_size]
+                for b in range(len(self))]
+        out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        lock = threading.Lock()
+        next_job = [0]
+
+        def worker():
+            while not stop.is_set():
+                with lock:
+                    j = next_job[0]
+                    if j >= len(jobs):
+                        return
+                    next_job[0] += 1
+                try:
+                    batch = self._make_batch(jobs[j])
+                except BaseException as e:  # surfaced in the consumer
+                    batch = e
+                while not stop.is_set():
+                    try:
+                        out_q.put((j, batch), timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+
+        threads = [threading.Thread(target=worker, daemon=True)
+                   for _ in range(min(self.num_workers, max(len(jobs), 1)))]
+        for t in threads:
+            t.start()
+        # consumer-side reordering: drain unconditionally (no deadlock),
+        # yield strictly in batch order
+        pending: Dict[int, Any] = {}
+        try:
+            for want in range(len(jobs)):
+                while want not in pending:
+                    j, batch = out_q.get()
+                    pending[j] = batch
+                item = pending.pop(want)
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+
+    def _make_batch(self, idxs) -> Dict[str, np.ndarray]:
+        items = [self.dataset[int(i)] for i in idxs]
+        n = len(items)
+        if self.pad_last and n < self.batch_size:
+            items = items + [items[-1]] * (self.batch_size - n)
+        batch = collate(items)
+        if self.pad_last:
+            mask = np.zeros(self.batch_size, dtype=bool)
+            mask[:n] = True
+            batch["sample_mask"] = mask
+        return batch

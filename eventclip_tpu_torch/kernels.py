@@ -27,7 +27,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 
-SOURCES = {"histogram": "histogram.cu", "attention": "attention.cu"}
+SOURCES = {"histogram": "histogram.cu", "attention": "attention.cu",
+           "attention_bwd": "attention_bwd.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -39,13 +40,18 @@ _lock = threading.Lock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_STRIDES = [_L, _L, _L]  # batch, head, row (csrc/attention_common.cuh)
 # C signatures of the exported launchers (all return a cudaError_t as int)
 _SIGNATURES = {
     "histogram": {
         "event_histogram": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
     },
     "attention": {
-        "qkv_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+        "attention_fwd": [_P] * 5 + [_I] * 4 + _STRIDES * 2 + [_I, _F, _P],
+    },
+    "attention_bwd": {
+        "attention_bwd": [_P] * 9 + [_I] * 4 + _STRIDES * 2 + [_I, _F, _P],
     },
 }
 
@@ -62,8 +68,13 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library's path, keyed by its source, every shared header in
+    csrc/ and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [SOURCES[name], *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -1,16 +1,23 @@
-"""Weight bridge: the JAX package's CLIP parameter tree -> the port's towers.
+"""Weight bridge between the JAX package's parameter trees and the port's.
 
-The JAX tree (eventclip_tpu/models/clip/model.py::init_clip_params, or a
-converted checkpoint) already holds weights in torch [out, in] order; its
-transformer blocks are stacked along a leading layer axis. Here each layer
-unstacks into its `Block`, `wqkv` [L, 3, D, D] reshapes to the fused
-[3D, D] per layer (the same reshape the JAX forward does), `bqkv` to [3D],
-and layer-norm `scale`/`bias` become `weight`/`bias`.
+The JAX trees (eventclip_tpu/models/clip/model.py::init_clip_params, a
+converted checkpoint, or a whole classifier tree {'clip', 'text_feats',
+'lora'}) already hold weights in torch [out, in] order; their transformer
+blocks are stacked along a leading layer axis. The port keeps one `Block`
+per layer, the fused in-projection `wqkv` [L, 3, D, D] as [3D, D] per layer
+(the reshape the JAX forward does), `bqkv` as [3D], and names layer-norm
+`scale` `weight`. LoRA deltas stay stacked ([L, r, D] / [L, D, r]) on both
+sides.
+
+`jax_path` is the one name map, from a port parameter name to its JAX
+'/'-joined tree path (and layer): partitioning, the optimizer's groups and
+checkpoints all decide on and store under the JAX paths, so each package
+reads the other's trainable checkpoints.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,50 +25,81 @@ import torch
 from .config import CLIPConfig
 from .model import CLIP
 
-_TOWER_KEYS = {
-    "visual": ("patch_embed", "class_embedding", "positional_embedding",
-               "proj"),
-    "text": ("token_embedding", "positional_embedding", "projection"),
-}
-_TOWER_NORMS = {"visual": ("ln_pre", "ln_post"), "text": ("ln_final",)}
+
+def jax_path(name: str) -> Tuple[str, Optional[int]]:
+    """Port parameter name -> (JAX tree path, layer index or None), e.g.
+    'clip.visual.blocks.layers.3.ln_1.weight' ->
+    ('clip/visual/blocks/ln_1/scale', 3)."""
+    parts = name.split(".")
+    layer = None
+    if "layers" in parts:
+        i = parts.index("layers")
+        layer = int(parts[i + 1])
+        del parts[i:i + 2]
+    if parts[-1] == "weight":  # only layer norms have one
+        parts[-1] = "scale"
+    return "/".join(parts), layer
 
 
-def _blocks_state(prefix: str, blocks: Dict[str, Any]) -> Dict[str, np.ndarray]:
-    wqkv = np.asarray(blocks["attn"]["wqkv"])  # [L, 3, D, D]
-    L, _, D, _ = wqkv.shape
-    per_layer = {
-        "attn.wqkv": wqkv.reshape(L, 3 * D, D),
-        "attn.bqkv": np.asarray(blocks["attn"]["bqkv"]).reshape(L, 3 * D),
-        "attn.wo": blocks["attn"]["wo"],
-        "attn.bo": blocks["attn"]["bo"],
-        **{f"mlp.{k}": blocks["mlp"][k] for k in ("w1", "b1", "w2", "b2")},
-        **{f"{ln}.{dst}": blocks[ln][src]
-           for ln in ("ln_1", "ln_2")
-           for dst, src in (("weight", "scale"), ("bias", "bias"))},
-    }
-    state = {}
-    for name, stacked in per_layer.items():
-        stacked = np.asarray(stacked)
-        for i in range(L):
-            state[f"{prefix}.blocks.layers.{i}.{name}"] = stacked[i]
-    return state
+def flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Nested dict -> {'/'-joined path: leaf}, None leaves dropped."""
+    flat = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            flat.update(flatten_tree(v, path + "/"))
+        elif v is not None:
+            flat[path] = v
+    return flat
+
+
+def port_leaves(path: str, value) -> Iterable[Tuple[str, np.ndarray]]:
+    """One JAX leaf -> (port name, port-shaped array) pairs: stacked block
+    leaves unstack into one name per layer."""
+    value = np.asarray(value)
+    parts = path.split("/")
+    if parts[-1] == "scale":
+        parts[-1] = "weight"
+    if "blocks" not in parts:
+        yield ".".join(parts), value
+        return
+    i = parts.index("blocks") + 1
+    for layer in range(value.shape[0]):
+        leaf = value[layer]
+        if parts[-1] in ("wqkv", "bqkv"):  # [3, D(, D)] -> [3D(, D)]
+            leaf = leaf.reshape((-1,) + leaf.shape[2:])
+        yield ".".join(parts[:i] + ["layers", str(layer)] + parts[i:]), leaf
 
 
 def from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX CLIP tree ({'visual', 'text', 'logit_scale'}, numpy leaves) ->
-    a float32 state dict for `CLIP.load_state_dict`."""
-    state: Dict[str, np.ndarray] = {}
-    for tower, keys in _TOWER_KEYS.items():
-        sub = tree[tower]
-        for k in keys:
-            state[f"{tower}.{k}"] = sub[k]
-        for ln in _TOWER_NORMS[tower]:
-            state[f"{tower}.{ln}.weight"] = sub[ln]["scale"]
-            state[f"{tower}.{ln}.bias"] = sub[ln]["bias"]
-        state.update(_blocks_state(tower, sub["blocks"]))
-    state["logit_scale"] = tree["logit_scale"]
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32))
-            for k, v in state.items()}
+    """JAX tree (numpy leaves) -> a float32 state dict for the port: a CLIP
+    tree ({'visual', 'text', 'logit_scale'}) for `CLIP.load_state_dict`, or
+    a classifier tree ({'clip', 'text_feats', 'lora'}) for
+    `models.classifier.ClassifierParams`."""
+    return {name: torch.from_numpy(np.array(leaf, dtype=np.float32))
+            for path, value in flatten_tree(tree).items()
+            for name, leaf in port_leaves(path, value)}
+
+
+def to_jax_flat(named: Iterable[Tuple[str, torch.Tensor]]
+                ) -> Dict[str, np.ndarray]:
+    """(port name, tensor) pairs -> {JAX path: numpy leaf in the JAX
+    shape}: per-layer tensors stacked along a leading layer axis, `wqkv` /
+    `bqkv` split back into their [3, D(, D)] form."""
+    layers: Dict[str, Dict[int, np.ndarray]] = {}
+    flat: Dict[str, np.ndarray] = {}
+    for name, t in named:
+        path, layer = jax_path(name)
+        a = t.detach().float().cpu().numpy()
+        if layer is None:
+            flat[path] = a
+        else:
+            if path.endswith(("wqkv", "bqkv")):
+                a = a.reshape((3, -1) + a.shape[1:])
+            layers.setdefault(path, {})[layer] = a
+    for path, by_layer in layers.items():
+        flat[path] = np.stack([by_layer[i] for i in range(len(by_layer))])
+    return flat
 
 
 @torch.no_grad()

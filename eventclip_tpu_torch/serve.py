@@ -31,13 +31,11 @@ from .data.datasets import DATASET_CLASSES
 from .data.event_windows import parse_quantize_args
 from .data.host_ops import gather_event_windows, prepare_stream, tta_variants
 from .data.loader import eval_pack_buckets, pack_view_batch
-from .engine.trainer import (build_text_features, resolve_clip_params,
-                             snapshot_logit_scale)
-from .models.classifier import (build_classifier_config, classifier_forward,
-                                classifier_forward_packed)
+from .engine.trainer import (build_text_features, copy_clip,
+                             resolve_clip_params, snapshot_logit_scale)
+from .models.classifier import (ClassifierParams, build_classifier_config,
+                                classifier_forward, classifier_forward_packed)
 from .models.clip.config import clip_arch_config
-from .models.clip.convert import clip_from_jax
-from .models.clip.model import CLIP
 from .ops.preprocess import ClipPreprocess
 from .ops.rasterize import RasterSpec, rasterize_for_clip
 from .utils.config import load_params
@@ -90,26 +88,17 @@ class Predictor:
             gen = torch.Generator(device=self.device).manual_seed(0)
             clip, pretrained = resolve_clip_params(
                 params, clip_cfg, gen, smoke=smoke, device=self.device)
-        elif isinstance(clip_params, CLIP):
-            # a copy on this device: moving the caller's module would
-            # change another Predictor's towers under it
-            clip = CLIP(clip_cfg, device="meta").to_empty(device=self.device)
-            clip.load_state_dict(clip_params.state_dict())
-            pretrained = False
         else:
-            clip, pretrained = clip_from_jax(clip_params, clip_cfg,
-                                             self.device), False
+            clip, pretrained = copy_clip(clip_params, clip_cfg,
+                                         self.device), False
         self._cfg = snapshot_logit_scale(self._cfg, clip, pretrained)
         if text_feats is None:
             text_feats = build_text_features(clip, clip_cfg,
                                              self.class_names, pretrained)
-        self._params = {
-            "clip": clip,
-            "text_feats": torch.as_tensor(
-                np.array(text_feats, dtype=np.float32)
-                if isinstance(text_feats, np.ndarray) else text_feats,
-                dtype=torch.float32).to(self.device),
-        }
+        self._params = ClassifierParams(clip, torch.as_tensor(
+            np.array(text_feats, dtype=np.float32)
+            if isinstance(text_feats, np.ndarray) else text_feats,
+            dtype=torch.float32))
         self._pp = ClipPreprocess(in_height=ds.resolution[0],
                                   in_width=ds.resolution[1],
                                   image_size=clip_cfg.vision.image_size)

@@ -1,0 +1,24 @@
+"""Running statistics helpers (reference analog: nerv.utils.AverageMeter).
+
+Port of eventclip_tpu/utils/meters.py."""
+
+from __future__ import annotations
+
+
+class AverageMeter:
+    """Weighted running average."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.sum = 0.0
+        self.count = 0
+        self.avg = 0.0
+        self.val = 0.0
+
+    def update(self, val: float, n: int = 1):
+        self.val = float(val)
+        self.sum += float(val) * n
+        self.count += n
+        self.avg = self.sum / max(self.count, 1)

@@ -5,22 +5,38 @@ package, so it also runs on a machine without them:
 
     python -m pytest --noconftest tests/test_torch_card.py -q
 
-Tolerances: the histogram is exact; attention f32 atol 1e-5, bf16 atol
-2e-2 (the kernel and the plain version sum in different orders, and bf16
-rounds p and the output).
+Tolerances: the histogram is exact; attention forward and backward f32
+atol 1e-5, bf16 atol 2e-2 (the kernel and the plain version sum in
+different orders, and bf16 rounds p, ds and the outputs, so a value near a
+rounding boundary lands one bf16 ulp apart). The backward kernel is also
+held to give the same bits on two runs (no atomics).
 """
 
 import pytest
 import torch
 
+from eventclip_tpu_torch import kernels
 from eventclip_tpu_torch.models.clip.model import causal_mask
 from eventclip_tpu_torch.ops.attention import (
+    attention_bwd,
+    attention_bwd_plain,
+    attention_plain,
     fused_qkv_attention,
+    multi_head_attention,
+    qkv_attention_bwd,
+    qkv_attention_bwd_plain,
     qkv_attention_plain,
 )
 from eventclip_tpu_torch.ops.rasterize import histograms, histograms_plain
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+SHAPES = [
+    (torch.bfloat16, 257, 16, 64, False),  # ViT-L/14
+    (torch.float32, 77, 12, 64, True),  # ViT-L/14 text tower
+    (torch.float32, 17, 2, 32, False),  # ViT-T/8@32
+    (torch.bfloat16, 17, 2, 32, False),
+    (torch.float32, 77, 2, 16, True),  # ViT-T/8@32 text tower
+]
 
 
 @pytest.fixture
@@ -96,3 +112,83 @@ def test_kernel_launches_are_counted_on_card(cuda):
     histograms(torch.zeros((1, 4, 3), dtype=torch.int16, device=cuda), 8, 8)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES == {"qkv_attention": 1, "histogram": 1}
+
+
+def _tol(dtype):
+    return TOL[str(dtype).split(".")[-1]]
+
+
+@pytest.mark.parametrize("dtype,S,heads,dh,masked", SHAPES)
+def test_attention_bwd_kernel_matches_plain_on_card(cuda, dtype, S, heads,
+                                                    dh, masked):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    D = heads * dh
+    qkv = torch.randn((4, S, 3 * D), generator=gen, device=cuda).to(dtype)
+    g = torch.randn((4, S, D), generator=gen, device=cuda).to(dtype)
+    mask = causal_mask(S, device=cuda) if masked else None
+    got = qkv_attention_bwd(qkv, g, heads, mask)
+    assert torch.equal(got, qkv_attention_bwd(qkv, g, heads, mask))
+    want = qkv_attention_bwd_plain(qkv, g, heads, mask)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype,S,heads,dh,masked", SHAPES[:3])
+def test_bhsd_attention_kernels_match_plain_on_card(cuda, dtype, S, heads,
+                                                    dh, masked):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v, g = (torch.randn((3, heads, S, dh), generator=gen, device=cuda)
+                  .to(dtype) for _ in range(4))
+    mask = causal_mask(S, device=cuda) if masked else None
+    torch.testing.assert_close(multi_head_attention(q, k, v, mask).float(),
+                               attention_plain(q, k, v, mask).float(),
+                               rtol=0, atol=_tol(dtype))
+    for a, b in zip(attention_bwd(q, k, v, g, mask),
+                    attention_bwd_plain(q, k, v, g, mask)):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=_tol(dtype))
+
+
+def test_backward_launches_are_counted_on_card(cuda):
+    qkv = torch.randn(2, 9, 3 * 64, device=cuda, requires_grad=True)
+    kernels.reset_launches()
+    fused_qkv_attention(qkv, 2).sum().backward()
+    q, k, v = (torch.randn(1, 2, 9, 32, device=cuda, requires_grad=True)
+               for _ in range(3))
+    multi_head_attention(q, k, v).sum().backward()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"qkv_attention": 1, "attention": 1,
+                                "qkv_attention_bwd": 2}
+    assert torch.isfinite(qkv.grad).all() and torch.isfinite(q.grad).all()
+
+
+def test_cpu_backward_takes_the_plain_version_and_counts_no_launch():
+    before = dict(kernels.LAUNCHES)
+    qkv = torch.randn(2, 9, 3 * 32, requires_grad=True)
+    g = torch.randn(2, 9, 32)
+    fused_qkv_attention(qkv, 1).backward(g)
+    torch.testing.assert_close(
+        qkv.grad, qkv_attention_bwd_plain(qkv.detach(), g, 1), rtol=0, atol=0)
+    assert dict(kernels.LAUNCHES) == before
+
+
+def test_dense_bf16_grads_on_card_match_cpu(cuda):
+    # the card's dense is an autograd Function; its gradients follow the
+    # rounding of the CPU's autograd through the casts, which
+    # tests/test_torch_clip.py::test_dense_bf16_grads_match_jax holds to
+    # jax.vjp
+    from eventclip_tpu_torch.models.clip.model import dense
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((4, 16, 48), generator=gen).bfloat16()
+    w = 0.05 * torch.randn((96, 48), generator=gen)
+    b = torch.randn((96,), generator=gen)
+    g = torch.randn((4, 16, 96), generator=gen).bfloat16()
+    grads = []
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (x, w, b)]
+        dense(*leaves).backward(g.to(dev))
+        grads.append([t.grad.float().cpu() for t in leaves])
+    for want, got in zip(*grads):
+        ulp = torch.finfo(torch.bfloat16).eps * want.abs()
+        assert ((got - want).abs() <= ulp + 1e-6).all()

@@ -69,7 +69,7 @@ def test_encode_image_f32_matches_jax(towers):
     want = np.asarray(ref_model.encode_image(
         jax.tree_util.tree_map(jnp.asarray, tree["visual"]),
         ref_arch(ARCH).vision, jnp.asarray(x)))
-    got = model.encode_image(clip.visual, torch.from_numpy(x)).numpy()
+    got = model.encode_image(clip.visual, torch.from_numpy(x)).detach().numpy()
     assert got.shape == want.shape == (5, 32)
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
 
@@ -83,7 +83,7 @@ def test_encode_image_bf16_matches_jax(towers):
     got = model.encode_image(clip.visual, torch.from_numpy(x),
                              dtype=torch.bfloat16)
     assert got.dtype == torch.float32
-    err = np.linalg.norm(got.numpy() - want, axis=-1)
+    err = np.linalg.norm(got.detach().numpy() - want, axis=-1)
     assert (err <= 1.5e-2 * np.linalg.norm(want, axis=-1)).all(), err
 
 
@@ -95,7 +95,7 @@ def test_encode_image_with_biases_matches_jax(filled_towers, dtype):
         jax.tree_util.tree_map(jnp.asarray, tree["visual"]),
         ref_arch(ARCH).vision, jnp.asarray(x), dtype=jnp.dtype(dtype)))
     got = model.encode_image(clip.visual, torch.from_numpy(x),
-                             dtype=getattr(torch, dtype)).numpy()
+                             dtype=getattr(torch, dtype)).detach().numpy()
     if dtype == "float32":
         np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
     else:
@@ -119,7 +119,7 @@ def test_encode_text_with_biases_matches_jax(filled_towers):
     want = np.asarray(ref_model.encode_text(
         jax.tree_util.tree_map(jnp.asarray, tree["text"]),
         ref_arch(ARCH).text, jnp.asarray(toks)))
-    got = model.encode_text(clip.text, torch.from_numpy(toks)).numpy()
+    got = model.encode_text(clip.text, torch.from_numpy(toks)).detach().numpy()
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
 
 
@@ -135,7 +135,7 @@ def test_encode_text_matches_jax(towers):
     want = np.asarray(ref_model.encode_text(
         jax.tree_util.tree_map(jnp.asarray, tree["text"]),
         ref_arch(ARCH).text, jnp.asarray(toks)))
-    got = model.encode_text(clip.text, torch.from_numpy(toks)).numpy()
+    got = model.encode_text(clip.text, torch.from_numpy(toks)).detach().numpy()
     assert got.shape == want.shape == (6, 32)
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
 
@@ -185,6 +185,70 @@ def test_dense_bf16_matches_jax(rng):
     assert (got != want).mean() <= 1e-3
 
 
+def test_dense_bf16_grads_match_jax(rng):
+    """jax.vjp of bf16 `dense` against the port's autograd: dx and dw are
+    f32 sums of exact products rounded once to bf16 (held to one bf16 ulp,
+    at most 1e-3 of the elements apart: the summation orders differ), db
+    is an f32 column sum of bf16 values."""
+    x = rng.normal(size=(4, 16, 48)).astype(np.float32)
+    w = (0.02 * rng.normal(size=(96, 48))).astype(np.float32)
+    b = rng.normal(size=(96,)).astype(np.float32)
+    g = rng.normal(size=(4, 16, 96)).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    _, vjp = jax.vjp(ref_model.dense, xb, jnp.asarray(w), jnp.asarray(b))
+    want = [np.asarray(t.astype(jnp.float32))
+            for t in vjp(jnp.asarray(g, jnp.bfloat16))]
+
+    xt = torch.from_numpy(x).bfloat16().requires_grad_()
+    wt, bt = (torch.from_numpy(a).requires_grad_() for a in (w, b))
+    model.dense(xt, wt, bt).backward(torch.from_numpy(g).bfloat16())
+    assert xt.grad.dtype == torch.bfloat16 and wt.grad.dtype == torch.float32
+    got = [t.grad.float().numpy() for t in (xt, wt, bt)]
+    for name, a, e in zip(("dx", "dw"), got[:2], want[:2]):
+        ulp = np.spacing(np.abs(e).astype(np.float32)) * 2 ** 16
+        assert (np.abs(a - e) <= ulp).all(), name
+        assert (a != e).mean() <= 1e-3, name
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-6, atol=1e-5)
+
+
+def test_encode_image_bf16_grads_match_jax(filled_towers, monkeypatch):
+    """jax.vjp of the bf16 visual tower (attention through the Pallas
+    kernels in interpret mode: K2 forward, K3 backward) against the port's
+    autograd (plain K2/K3 on the CPU), every parameter and the images.
+
+    bf16 tolerance: each leaf's gradient within 2% of its norm, cosine at
+    least 0.9995; these inputs read at most 0.75% and 0.99997. Both sides
+    round at the same places, but one-ulp differences of the forward's
+    sums (see the module docstring) carry into every backward product."""
+    monkeypatch.setattr(ref_model, "_use_pallas_attention",
+                        lambda *a, **k: True)
+    tree, clip = filled_towers
+    cfg = ref_arch(ARCH).vision
+    x = _images(6, B=4)
+    g = np.random.default_rng(7).normal(size=(4, cfg.output_dim)).astype(
+        np.float32)
+    visual = jax.tree_util.tree_map(jnp.asarray, tree["visual"])
+    _, vjp = jax.vjp(lambda p, im: ref_model.encode_image(
+        p, cfg, im, dtype=jnp.bfloat16), visual, jnp.asarray(x))
+    d_visual, d_x = vjp(jnp.asarray(g))
+    want = from_jax_params({"visual": jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32), d_visual)})
+
+    clip.zero_grad(set_to_none=True)
+    xt = torch.from_numpy(x).requires_grad_()
+    model.encode_image(clip.visual, xt, dtype=torch.bfloat16).backward(
+        torch.from_numpy(g))
+    pairs = [("images", xt.grad.numpy(), np.asarray(d_x, np.float32))]
+    pairs += [(n, p.grad.float().numpy(), want[n].numpy())
+              for n, p in clip.named_parameters() if n.startswith("visual.")]
+    clip.zero_grad(set_to_none=True)
+    assert len(pairs) == 1 + len(want)
+    for name, a, e in pairs:
+        a, e = a.reshape(-1).astype(np.float64), e.reshape(-1)
+        assert np.linalg.norm(a - e) <= 2e-2 * np.linalg.norm(e), name
+        assert a @ e >= 0.9995 * np.linalg.norm(a) * np.linalg.norm(e), name
+
+
 def test_bridge_covers_every_parameter(towers):
     tree, clip = towers
     state = from_jax_params(tree)
@@ -193,7 +257,7 @@ def test_bridge_covers_every_parameter(towers):
     wqkv = tree["visual"]["blocks"]["attn"]["wqkv"]
     assert len(clip.visual.blocks.layers) == L
     np.testing.assert_array_equal(
-        clip.visual.blocks.layers[1].attn.wqkv.numpy(),
+        clip.visual.blocks.layers[1].attn.wqkv.detach().numpy(),
         wqkv[1].reshape(-1, wqkv.shape[-1]))
 
 

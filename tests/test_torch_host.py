@@ -200,3 +200,43 @@ def test_serving_path_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_training_path_imports_no_jax():
+    """A fresh interpreter that imports every module of the port and
+    chip_smoke.py, then takes one FT update of a tiny tower with remat,
+    has neither jax nor any eventclip_tpu module loaded."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import torch
+        import eventclip_tpu_torch
+        for m in pkgutil.walk_packages(eventclip_tpu_torch.__path__,
+                                       "eventclip_tpu_torch."):
+            importlib.import_module(m.name)
+        import chip_smoke
+        from eventclip_tpu_torch.engine.optim import (OptimConfig,
+                                                      Optimizer)
+        from eventclip_tpu_torch.engine.train import make_train_step
+        from eventclip_tpu_torch.models import classifier
+        from eventclip_tpu_torch.models.clip.config import clip_arch_config
+        cfg = classifier.ClassifierConfig(
+            model="FTCLIP", clip=clip_arch_config("ViT-T/8@32"), remat=True,
+            prompt_tuning=True)
+        p = classifier.init_classifier_params(
+            cfg, torch.Generator().manual_seed(0), n_classes=3)
+        step = make_train_step(cfg, p, Optimizer(cfg, OptimConfig(), p))
+        m = step({"img": torch.randn(2, 2, 3, 32, 32),
+                  "valid_mask": torch.ones(2, 2, dtype=torch.bool),
+                  "label": torch.tensor([0, 2])})
+        assert torch.isfinite(m["total_loss"])
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "eventclip_tpu" or m.startswith("eventclip_tpu."))
+        print("LOADED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, res.stdout + res.stderr

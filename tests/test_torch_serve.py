@@ -134,8 +134,9 @@ def head_inputs():
     valid = np.array([[1, 1, 0, 0], [1, 1, 1, 1], [0, 0, 0, 0]], bool)
     ref_params = {"clip": jax.tree_util.tree_map(jnp.asarray, tree),
                   "text_feats": jnp.asarray(tf)}
-    port_params = {"clip": clip_from_jax(tree, clip_arch_config(ARCH), "cpu"),
-                   "text_feats": torch.from_numpy(tf)}
+    port_params = classifier.ClassifierParams(
+        clip_from_jax(tree, clip_arch_config(ARCH), "cpu"),
+        torch.from_numpy(tf))
     return ref_params, port_params, imgs, valid
 
 
