@@ -14,9 +14,15 @@ non-zero):
    training batch [256, 70000, 3] @ 480x640; the fused-qkv attention
    forward K2 and its backward K3 on the ViT-L/14 (bf16, no mask; serving
    and training batches), text tower (f32, causal mask) and tiny-tower
-   (dh 32 / 16) shapes; K4, the [B, H, S, dh] attention, forward and
-   backward. Each prints kernel ms, plain ms, the bound and one library
-   call's ms as a yardstick.
+   (dh 32 / 16) shapes; bf16 K2 / K3 with the causal mask at S = 77 and at
+   ViT-L/14@336's S = 577; K4, the [B, H, S, dh] attention, forward and
+   backward. bf16 attention runs on the tensor-core kernels, f32 on the
+   CUDA-core ones. Each attention check holds the max |kernel - plain| and,
+   for each output apart, ||kernel - plain|| / ||plain|| to their limits;
+   at one shape the bf16 kernels' relative error is printed beside that of
+   three other rounding orders, which must miss the limit. Each prints
+   kernel ms, plain ms, the bound, one library call's ms as a yardstick
+   and the kernel's factor over it.
 3. serving: configs/zsclip/zsclip_ncaltech_params.py through the port's
    loader, random ViT-L/14 towers from a seeded generator, text features
    for 101 synthetic prompts through the text tower, a Predictor at
@@ -63,6 +69,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per dtype
 ATOL = {"float32": 1e-5, "bfloat16": 2e-2}  # kernel vs plain, see PERF.md
+# ||kernel - plain|| / ||plain||, each output apart. In bf16 the max-abs
+# limit is a fifth of a typical output, too loose to tell the TPU kernels'
+# rounding order from another one; this limit tells them apart (see
+# other_rounding_orders and PERF.md)
+REL = {"float32": 1e-6, "bfloat16": 5e-4}
 
 
 def log(msg: str) -> None:
@@ -143,12 +154,12 @@ def check_histogram(gen, name, M, N, H, W, dev):
     library_ms = cuda_ms(lambda: torch.bincount(flat, minlength=M * 2 * H * W))
     nbytes = wins.numel() * 2 + M * 2 * H * W * 4
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"K1 histogram {name} [{M}, {N}, 3] int16 @ {H}x{W}: exact; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bincount "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes)")
-    return dict(shape=f"[{M}, {N}, 3] int16 @ {H}x{W}", max_abs_err=0.0,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
-                library_ms=library_ms)
+    shape = f"[{M}, {N}, 3] int16 @ {H}x{W}"
+    log(f"K1 histogram {name} {shape}: exact; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bincount {library_ms:.4f} ms (kernel / bincount"
+        f" {ms / library_ms:.2f}x), bound {bound_ms:.4f} ms (bytes)")
+    return dict(shape=shape, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms)
 
 
 def attention_bound(nbytes, flops, tname):
@@ -160,6 +171,64 @@ def attention_bound(nbytes, flops, tname):
 def max_err(got, want):
     return max(float((a.float() - b.float()).abs().max())
                for a, b in zip(got, want))
+
+
+def rel_errs(got, want):
+    """||a - b|| / ||b|| of each output pair (0 where both are 0)."""
+    return [float((a.double() - b.double()).norm()
+                  / b.double().norm().clamp_min(1e-30))
+            for a, b in zip(got, want)]
+
+
+def hold(name, got, want, tname):
+    """(max |kernel - plain|, [||kernel - plain|| / ||plain|| per output]),
+    each held to its limit."""
+    err, rel = max_err(got, want), rel_errs(got, want)
+    if not (err <= ATOL[tname] and max(rel) <= REL[tname]):
+        raise AssertionError(
+            f"{name}: max |kernel - plain| {err} (<= {ATOL[tname]}), "
+            f"||kernel - plain|| / ||plain|| {rel} (<= {REL[tname]})")
+    return err, rel
+
+
+def other_rounding_orders(q, k, v, g):
+    """||variant - plain|| / ||plain|| of attention computed as the TPU
+    kernels do but for one rounding step, from [B, H, S, dh] bf16 q, k, v
+    and g (no mask). Each must miss REL, or the limit could not tell the
+    kernels' rounding order from another one."""
+    import torch
+
+    from eventclip_tpu_torch.ops.attention import (attention_bwd_plain,
+                                                   attention_plain)
+
+    dt, scale = q.dtype, q.shape[-1] ** -0.5
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    s = qf @ kf.transpose(-1, -2) * scale
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    total = e.sum(-1, keepdim=True)
+    p = e / total
+    dp = gf @ vf.transpose(-1, -2)
+
+    def dq_dk(ds):
+        ds = (ds * scale).to(dt).float()
+        return [(ds @ kf).to(dt), (ds.transpose(-1, -2) @ qf).to(dt)]
+
+    o = attention_plain(q, k, v)
+    dq, dk, _ = attention_bwd_plain(q, k, v, g)
+    return {
+        "o, p divided by its sum after p . v": max(rel_errs(
+            [((e.to(dt).float() @ vf) / total).to(dt)], [o])),
+        "dq/dk, FlashAttention's delta = rowsum(g * o)": max(rel_errs(
+            dq_dk(p * (dp - (gf * o.float()).sum(-1, keepdim=True))),
+            [dq, dk])),
+        "dq/dk, ds from the rounded p": max(rel_errs(
+            dq_dk(p.to(dt).float() * (dp - (dp * p).sum(-1, keepdim=True))),
+            [dq, dk])),
+    }
+
+
+def fmt(rel):
+    return "/".join(f"{r:.3g}" for r in rel)
 
 
 def check_attention(gen, name, B, S, heads, dh, dtype, causal, dev):
@@ -176,13 +245,10 @@ def check_attention(gen, name, B, S, heads, dh, dtype, causal, dev):
     got = fused_qkv_attention(qkv, heads, mask)
     want = qkv_attention_plain(qkv, heads, mask)
     torch.cuda.synchronize()
-    err = max_err([got], [want])
     tname = str(dtype).split(".")[-1]
-    if not err <= ATOL[tname]:
-        raise AssertionError(
-            f"attention {name}: max |kernel - plain| {err} > {ATOL[tname]}")
+    err, rel = hold(f"attention {name}", [got], [want], tname)
 
-    q, k, v = (t.reshape(B, S, heads, dh).transpose(1, 2).contiguous()
+    q, k, v =(t.reshape(B, S, heads, dh).transpose(1, 2).contiguous()
                for t in qkv.split(D, -1))
     ms = cuda_ms(lambda: fused_qkv_attention(qkv, heads, mask))
     plain_ms = cuda_ms(lambda: qkv_attention_plain(qkv, heads, mask))
@@ -192,11 +258,14 @@ def check_attention(gen, name, B, S, heads, dh, dtype, causal, dev):
     nbytes = (B * S * 3 * D + B * S * D) * esize + (S * S * 4 if causal else 0)
     bound_ms, bound_by = attention_bound(nbytes, 4 * B * heads * S * S * dh,
                                          tname)
-    log(f"K2 attention {name} [{B}, {S}, {3 * D}] {tname} heads={heads} "
-        f"dh={dh} mask={'causal' if causal else 'none'}: max_abs_err {err:.3g}"
-        f" (atol {ATOL[tname]}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-        f" sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    return dict(shape=f"[{B}, {S}, {3 * D}] {tname}", max_abs_err=err, ms=ms,
+    shape = f"[{B}, {S}, {3 * D}] {tname}"
+    log(f"K2 attention {name} {shape} heads={heads} dh={dh} "
+        f"mask={'causal' if causal else 'none'}: max_abs_err {err:.3g}"
+        f" (atol {ATOL[tname]}), rel_err {fmt(rel)} (limit {REL[tname]}); "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"{library_ms:.4f} ms (kernel / sdpa {ms / library_ms:.2f}x), bound"
+        f" {bound_ms:.4f} ms ({bound_by})")
+    return dict(shape=shape, max_abs_err=err, rel_err=max(rel), ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms)
 
@@ -222,14 +291,12 @@ def check_attention_bwd(gen, name, B, S, heads, dh, dtype, causal, dev):
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         raise AssertionError(f"attention bwd {name}: two runs differ")
-    err = max_err([got], [want])
     tname = str(dtype).split(".")[-1]
-    if not err <= ATOL[tname]:
-        raise AssertionError(
-            f"attention bwd {name}: max |kernel - plain| {err} > "
-            f"{ATOL[tname]}")
+    # dq, dk and dv apart
+    err, rel = hold(f"attention bwd {name}", got.split(D, -1),
+                    want.split(D, -1), tname)
 
-    q, k, v = (t.reshape(B, S, heads, dh).transpose(1, 2).contiguous()
+    q, k, v =(t.reshape(B, S, heads, dh).transpose(1, 2).contiguous()
                .requires_grad_() for t in qkv.split(D, -1))
     gh = g.reshape(B, S, heads, dh).transpose(1, 2).contiguous()
     out = F.scaled_dot_product_attention(q, k, v, is_causal=causal)
@@ -242,14 +309,16 @@ def check_attention_bwd(gen, name, B, S, heads, dh, dtype, causal, dev):
     nbytes = B * S * 7 * D * esize + (S * S * 4 if causal else 0)
     bound_ms, bound_by = attention_bound(
         nbytes, 10 * B * heads * S * S * dh, tname)
-    log(f"K3 attention bwd {name} [{B}, {S}, {3 * D}] {tname} heads={heads} "
-        f"dh={dh} mask={'causal' if causal else 'none'}: max_abs_err "
-        f"{err:.3g} (atol {ATOL[tname]}), two runs bit-equal; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa backward "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    return dict(shape=f"[{B}, {S}, {3 * D}] {tname} + g", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+    shape = f"[{B}, {S}, {3 * D}] {tname} + g"
+    log(f"K3 attention bwd {name} {shape} heads={heads} dh={dh} "
+        f"mask={'causal' if causal else 'none'}: max_abs_err {err:.3g} "
+        f"(atol {ATOL[tname]}), rel_err dq/dk/dv {fmt(rel)} (limit "
+        f"{REL[tname]}), two runs bit-equal; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms (kernel / "
+        f"sdpa {ms / library_ms:.2f}x), bound {bound_ms:.4f} ms ({bound_by})")
+    return dict(shape=shape, max_abs_err=err, rel_err=max(rel), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
 
 
 def check_bhsd_attention(gen, name, B, S, heads, dh, dtype, causal, dev):
@@ -273,12 +342,11 @@ def check_bhsd_attention(gen, name, B, S, heads, dh, dtype, causal, dev):
     wants = attention_bwd_plain(q, k, v, g, mask)
     torch.cuda.synchronize()
     tname = str(dtype).split(".")[-1]
-    err, err_bwd = max_err([got], [want]), max_err(gots, wants)
-    if not max(err, err_bwd) <= ATOL[tname]:
-        raise AssertionError(
-            f"attention [B, H, S, dh] {name}: max |kernel - plain| forward "
-            f"{err}, backward {err_bwd} > {ATOL[tname]}")
-    ms = cuda_ms(lambda: multi_head_attention(q, k, v, mask))
+    err, rel = hold(f"attention [B, H, S, dh] {name} forward", [got], [want],
+                    tname)
+    err_bwd, rel_bwd = hold(f"attention [B, H, S, dh] {name} backward", gots,
+                            wants, tname)
+    ms =cuda_ms(lambda: multi_head_attention(q, k, v, mask))
     plain_ms = cuda_ms(lambda: attention_plain(q, k, v, mask))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal))
@@ -286,14 +354,50 @@ def check_bhsd_attention(gen, name, B, S, heads, dh, dtype, causal, dev):
     nbytes = 4 * B * heads * S * dh * q.element_size()
     bound_ms, bound_by = attention_bound(nbytes, 4 * B * heads * S * S * dh,
                                          tname)
-    log(f"K4 attention [{B}, {heads}, {S}, {dh}] {tname} {name}: forward "
-        f"max_abs_err {err:.3g}, backward (K3 on these strides) "
-        f"{err_bwd:.3g} (atol {ATOL[tname]}); kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} "
-        f"ms ({bound_by}); K3 backward here {bwd_ms:.4f} ms")
-    return dict(shape=f"[{B}, {heads}, {S}, {dh}] {tname}", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+    shape = f"[{B}, {heads}, {S}, {dh}] {tname}"
+    log(f"K4 attention {shape} {name}: forward max_abs_err {err:.3g}, "
+        f"rel_err {fmt(rel)}; backward (K3 on these strides) max_abs_err "
+        f"{err_bwd:.3g}, rel_err dq/dk/dv {fmt(rel_bwd)} (atol {ATOL[tname]},"
+        f" limit {REL[tname]}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa {library_ms:.4f} ms (kernel / sdpa {ms / library_ms:.2f}x), "
+        f"bound {bound_ms:.4f} ms ({bound_by}); K3 backward here "
+        f"{bwd_ms:.4f} ms")
+    return dict(shape=shape, max_abs_err=err, rel_err=max(rel), ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
+def check_rounding_orders(gen, B, S, heads, dh, dev):
+    """The bf16 kernels' rel_err beside that of three other rounding
+    orders, on the same inputs: the kernels must pass REL, the others
+    must miss it."""
+    import torch
+
+    from eventclip_tpu_torch.ops.attention import (attention_bwd,
+                                                   attention_bwd_plain,
+                                                   attention_plain,
+                                                   multi_head_attention)
+
+    q, k, v, g = (torch.randn((B, heads, S, dh), generator=gen, device=dev)
+                  .bfloat16() for _ in range(4))
+    kernel = {
+        "o": max(rel_errs([multi_head_attention(q, k, v)],
+                          [attention_plain(q, k, v)])),
+        "dq/dk/dv": max(rel_errs(attention_bwd(q, k, v, g),
+                                 attention_bwd_plain(q, k, v, g))),
+    }
+    other = other_rounding_orders(q, k, v, g)
+    limit = REL["bfloat16"]
+    log(f"rounding orders at [{B}, {heads}, {S}, {dh}] bf16, "
+        f"||x - plain|| / ||plain|| (limit {limit}): the kernels "
+        + ", ".join(f"{n} {r:.3g}" for n, r in kernel.items())
+        + "; other orders " + ", ".join(f"{n} {r:.3g}"
+                                        for n, r in other.items()))
+    if max(kernel.values()) > limit or min(other.values()) <= limit:
+        raise AssertionError(
+            f"rounding orders: kernels {kernel}, others {other}, limit "
+            f"{limit}")
+    return dict(kernels=kernel, other_orders=other, limit=limit)
 
 
 # -- phase 3: the main path ---------------------------------------------------
@@ -676,12 +780,21 @@ def main() -> int:
                         torch.bfloat16, False, dev)
     check_attention_bwd(gen, "text ViT-T/8@32", 101, 77, 2, 16,
                         torch.float32, True, dev)
+    # bf16 on the tensor-core kernels: the causal mask (the text tower's
+    # shape) and ViT-L/14@336's S = 577 (ragged 64-row tiles)
+    for name, B, S, heads, causal in (("text ViT-L/14 bf16", 101, 77, 12, True),
+                                      ("ViT-L/14@336", 32, 577, 16, False)):
+        check_attention(gen, name, B, S, heads, 64, torch.bfloat16, causal,
+                        dev)
+        check_attention_bwd(gen, name, B, S, heads, 64, torch.bfloat16,
+                            causal, dev)
     rec["none"]["attention"] = check_bhsd_attention(
         gen, "ViT-L/14", 320, 257, 16, 64, torch.bfloat16, False, dev)
     check_bhsd_attention(gen, "text, causal", 101, 77, 12, 64, torch.float32,
                          True, dev)
     check_bhsd_attention(gen, "ViT-T/8@32", 80, 17, 2, 32, torch.float32,
                          False, dev)
+    orders = check_rounding_orders(gen, 32, 257, 16, 64, dev)
 
     # -- 3 ---------------------------------------------------------------
     params = load_params(os.path.join(HERE, "configs", "zsclip",
@@ -798,8 +911,8 @@ def main() -> int:
              **(rec["train"].get(k) or rec["none"][k]),
              by_path={p: rows[k] for p, rows in by_path.items() if k in rows})
         for k, (src, tpu) in sources.items()
-    ], "text_attention": text, "requests": per_request, "train": train,
-        "update_card_vs_cpu": update}
+    ], "text_attention": text, "rounding_orders": orders,
+        "requests": per_request, "train": train, "update_card_vs_cpu": update}
     log(json.dumps(line))
     log(card)
     print(json.dumps({"ok": True, "device": {

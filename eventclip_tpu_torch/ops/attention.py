@@ -10,9 +10,12 @@ Port of eventclip_tpu/ops/attention.py:
 
 Both are `torch.autograd.Function`s. On CUDA tensors the forward launches
 csrc/attention.cu and the backward csrc/attention_bwd.cu, each given the
-layout as element strides, so both layouts run the same two kernels (or
-raise). On CPU tensors they take `attention_plain` / `attention_bwd_plain`,
-the same arithmetic in plain PyTorch, in the TPU kernels' order.
+layout as element strides, so both layouts run the same kernels (or
+raise): bf16 on the tensor-core kernels, which copy 16-byte pieces and so
+need every row start 16-byte aligned (checked here), f32 on the CUDA-core
+kernels. On CPU tensors they take `attention_plain` /
+`attention_bwd_plain`, the same arithmetic in plain PyTorch, in the TPU
+kernels' order.
 
 The additive mask's cotangent is never computed by the kernels: when the
 mask needs a gradient it comes from `mask_cotangent` in plain torch, as the
@@ -158,9 +161,25 @@ def _strides_bhsd(t: torch.Tensor):
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+def _check_rows_aligned(dtype, layouts):
+    """bf16 runs on the tensor-core kernels, whose cp.async copies move 16
+    bytes: every row start of every operand must be 16-byte aligned.
+    layouts: (data pointers, (batch, head, row) element strides) pairs."""
+    if dtype != torch.bfloat16:
+        return
+    for ptrs, strides in layouts:
+        if any(p % 16 for p in ptrs) or any(s * 2 % 16 for s in strides):
+            raise ValueError(
+                "bf16 attention needs 16-byte aligned rows: data pointers "
+                f"{[p % 16 for p in ptrs]} bytes past 16, element strides "
+                f"{tuple(strides)}")
+
+
 def _launch_fwd(ptrs, mask, out, B, S, heads, dh, in_strides,
                 out_strides):
     """ptrs: data pointers of q, k, v."""
+    _check_rows_aligned(out.dtype, [(ptrs, in_strides),
+                                    ((out.data_ptr(),), out_strides)])
     lib = kernels.library("attention")
     with torch.cuda.device(out.device):
         rc = lib.attention_fwd(
@@ -172,6 +191,8 @@ def _launch_fwd(ptrs, mask, out, B, S, heads, dh, in_strides,
 
 def _launch_bwd(ptrs, mask, g, B, S, heads, dh, in_strides, g_strides):
     """ptrs: data pointers of q, k, v, dq, dk, dv."""
+    _check_rows_aligned(g.dtype, [(ptrs, in_strides),
+                                  ((g.data_ptr(),), g_strides)])
     stats = torch.empty(3 * B * heads * S, dtype=torch.float32,
                         device=g.device)
     q, k, v, dq, dk, dv = ptrs

@@ -97,3 +97,24 @@ def test_wrapper_checks_its_input():
         fused_qkv_attention(q, 1, torch.zeros(4, 4))
     with pytest.raises(ValueError):
         fused_qkv_attention(torch.zeros(1, 3 * 64, 5).transpose(1, 2), 1)
+
+
+@pytest.mark.parametrize("ptrs,strides,ok", [
+    ((0, 2048), (257 * 3072, 64, 3072), True),  # fused ViT-L/14 qkv
+    ((0, 32), (257 * 96, 16, 96), True),  # fused, dh 16
+    ((2,), (257 * 3072, 64, 3072), False),  # a view 2 bytes past 16
+    ((0,), (9 * 1538, 64, 1538), False),  # a row of 3076 bytes
+    ((0,), (9 * 3072, 4, 3072), False),  # a head of 8 bytes
+])
+def test_bf16_rows_must_be_16_byte_aligned(ptrs, strides, ok):
+    # the rule the tensor-core kernels' 16-byte copies need; f32 runs on
+    # the CUDA-core kernels, which take any alignment
+    from eventclip_tpu_torch.ops.attention import _check_rows_aligned
+
+    _check_rows_aligned(torch.float32, [(ptrs, strides)])
+    if ok:
+        _check_rows_aligned(torch.bfloat16, [(ptrs, strides)])
+    else:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            _check_rows_aligned(torch.bfloat16, [((0,), (0, 0, 0)),
+                                                 (ptrs, strides)])

@@ -5,16 +5,23 @@ package, so it also runs on a machine without them:
 
     python -m pytest --noconftest tests/test_torch_card.py -q
 
-Tolerances: the histogram is exact; attention forward and backward f32
-atol 1e-5, bf16 atol 2e-2 (the kernel and the plain version sum in
-different orders, and bf16 rounds p, ds and the outputs, so a value near a
-rounding boundary lands one bf16 ulp apart). The backward kernel is also
-held to give the same bits on two runs (no atomics).
+Tolerances (chip_smoke.py's `ATOL` and `REL`): the histogram is exact;
+attention forward and backward are held, output by output, to a max
+|kernel - plain| (f32 1e-5, bf16 2e-2: the kernel and the plain version
+sum in different orders, and bf16 rounds p, ds and the outputs, so a value
+near a rounding boundary lands one bf16 ulp apart) and to a norm-relative
+||kernel - plain|| / ||plain||, which in bf16 tells the TPU kernels'
+rounding order from others that the max-abs limit lets through (checked
+here on the CPU). The backward kernel is also held to give the same bits
+on two runs (no atomics). bf16 runs on the tensor-core kernels: their
+cases cover every head dim, ragged 64-row tiles and 16-key steps, the
+causal mask and both layouts.
 """
 
 import pytest
 import torch
 
+from chip_smoke import ATOL, REL, other_rounding_orders, rel_errs
 from eventclip_tpu_torch import kernels
 from eventclip_tpu_torch.models.clip.model import causal_mask
 from eventclip_tpu_torch.ops.attention import (
@@ -29,7 +36,6 @@ from eventclip_tpu_torch.ops.attention import (
 )
 from eventclip_tpu_torch.ops.rasterize import histograms, histograms_plain
 
-TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 SHAPES = [
     (torch.bfloat16, 257, 16, 64, False),  # ViT-L/14
     (torch.float32, 77, 12, 64, True),  # ViT-L/14 text tower
@@ -58,10 +64,8 @@ def test_attention_kernel_matches_plain_on_card(cuda, dtype, S, heads, dh,
     qkv = torch.randn((4, S, 3 * heads * dh), generator=gen,
                       device=cuda).to(dtype)
     mask = causal_mask(S, device=cuda) if masked else None
-    got = fused_qkv_attention(qkv, heads, mask)
-    want = qkv_attention_plain(qkv, heads, mask)
-    torch.testing.assert_close(got.float(), want.float(), rtol=0,
-                               atol=TOL[str(dtype).split(".")[-1]])
+    _assert_matches([fused_qkv_attention(qkv, heads, mask)],
+                    [qkv_attention_plain(qkv, heads, mask)], dtype)
 
 
 @pytest.mark.parametrize("H,W", [(180, 240), (100, 120), (480, 640)])
@@ -114,8 +118,28 @@ def test_kernel_launches_are_counted_on_card(cuda):
     assert kernels.LAUNCHES == {"qkv_attention": 1, "histogram": 1}
 
 
-def _tol(dtype):
-    return TOL[str(dtype).split(".")[-1]]
+def _assert_matches(got, want, dtype):
+    """Each kernel output within the max-abs and the norm-relative limit of
+    its plain version."""
+    name = str(dtype).split(".")[-1]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), rtol=0,
+                                   atol=ATOL[name])
+    rel = rel_errs(got, want)
+    assert max(rel) <= REL[name], rel
+
+
+@pytest.mark.parametrize("S,dh", [(17, 16), (77, 64), (257, 16), (257, 64)])
+def test_bf16_rel_limit_rejects_other_rounding_orders(S, dh):
+    # runs on the CPU: the plain version with p divided after p . v, with
+    # FlashAttention's rowsum(g * o), or with ds from the rounded p misses
+    # the norm-relative limit that the kernels are held to
+    gen = torch.Generator().manual_seed(S + dh)
+    q, k, v, g = (torch.randn((2, 2, S, dh), generator=gen).bfloat16()
+                  for _ in range(4))
+    other = other_rounding_orders(q, k, v, g)
+    assert len(other) == 3
+    assert min(other.values()) > REL["bfloat16"], other
 
 
 @pytest.mark.parametrize("dtype,S,heads,dh,masked", SHAPES)
@@ -129,8 +153,7 @@ def test_attention_bwd_kernel_matches_plain_on_card(cuda, dtype, S, heads,
     got = qkv_attention_bwd(qkv, g, heads, mask)
     assert torch.equal(got, qkv_attention_bwd(qkv, g, heads, mask))
     want = qkv_attention_bwd_plain(qkv, g, heads, mask)
-    torch.testing.assert_close(got.float(), want.float(), rtol=0,
-                               atol=_tol(dtype))
+    _assert_matches(got.split(D, -1), want.split(D, -1), dtype)
 
 
 @pytest.mark.parametrize("dtype,S,heads,dh,masked", SHAPES[:3])
@@ -140,13 +163,10 @@ def test_bhsd_attention_kernels_match_plain_on_card(cuda, dtype, S, heads,
     q, k, v, g = (torch.randn((3, heads, S, dh), generator=gen, device=cuda)
                   .to(dtype) for _ in range(4))
     mask = causal_mask(S, device=cuda) if masked else None
-    torch.testing.assert_close(multi_head_attention(q, k, v, mask).float(),
-                               attention_plain(q, k, v, mask).float(),
-                               rtol=0, atol=_tol(dtype))
-    for a, b in zip(attention_bwd(q, k, v, g, mask),
-                    attention_bwd_plain(q, k, v, g, mask)):
-        torch.testing.assert_close(a.float(), b.float(), rtol=0,
-                                   atol=_tol(dtype))
+    _assert_matches([multi_head_attention(q, k, v, mask)],
+                    [attention_plain(q, k, v, mask)], dtype)
+    _assert_matches(attention_bwd(q, k, v, g, mask),
+                    attention_bwd_plain(q, k, v, g, mask), dtype)
 
 
 def test_backward_launches_are_counted_on_card(cuda):
@@ -192,3 +212,88 @@ def test_dense_bf16_grads_on_card_match_cpu(cuda):
     for want, got in zip(*grads):
         ulp = torch.finfo(torch.bfloat16).eps * want.abs()
         assert ((got - want).abs() <= ulp + 1e-6).all()
+
+
+def _bf16_inputs(gen, shape, n, device):
+    return [torch.randn(shape, generator=gen, device=device).bfloat16()
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("S", [1, 17, 63, 64, 65, 257, 577])
+def test_bf16_tensor_core_kernels_match_plain_on_card(cuda, S, dh):
+    # S below, at and past one 64-row tile and one 16-key step, ViT-L/14's
+    # 257 and ViT-L/14@336's 577, fused layout
+    gen = torch.Generator(device=cuda).manual_seed(S * dh)
+    heads = 2
+    qkv, g = _bf16_inputs(gen, (2, S, 3 * heads * dh), 1, cuda) + \
+        _bf16_inputs(gen, (2, S, heads * dh), 1, cuda)
+    _assert_matches([fused_qkv_attention(qkv, heads)],
+                    [qkv_attention_plain(qkv, heads)], torch.bfloat16)
+    got = qkv_attention_bwd(qkv, g, heads)
+    assert torch.equal(got, qkv_attention_bwd(qkv, g, heads))
+    _assert_matches(got.split(heads * dh, -1),
+                    qkv_attention_bwd_plain(qkv, g, heads).split(heads * dh,
+                                                                 -1),
+                    torch.bfloat16)
+
+
+@pytest.mark.parametrize("S,dh,masked", [
+    (1, 16, False),
+    (65, 32, False),
+    (257, 64, False),
+    (577, 64, False),
+    (77, 16, True),  # causal, as the text towers
+    (77, 64, True),
+])
+def test_bf16_bhsd_kernels_match_plain_on_card(cuda, S, dh, masked):
+    # the [B, H, S, dh] layout (K4 forward, K3 backward) on the tensor cores
+    gen = torch.Generator(device=cuda).manual_seed(S + dh)
+    q, k, v, g = _bf16_inputs(gen, (2, 3, S, dh), 4, cuda)
+    mask = causal_mask(S, device=cuda) if masked else None
+    _assert_matches([multi_head_attention(q, k, v, mask)],
+                    [attention_plain(q, k, v, mask)], torch.bfloat16)
+    got = attention_bwd(q, k, v, g, mask)
+    for a, b in zip(got, attention_bwd(q, k, v, g, mask)):
+        assert torch.equal(a, b)
+    _assert_matches(got, attention_bwd_plain(q, k, v, g, mask),
+                    torch.bfloat16)
+
+
+@pytest.mark.parametrize("dh", [16, 64])
+def test_bf16_causal_fused_kernels_match_plain_on_card(cuda, dh):
+    gen = torch.Generator(device=cuda).manual_seed(77 + dh)
+    heads, S = 3, 77
+    qkv, g = _bf16_inputs(gen, (4, S, 3 * heads * dh), 1, cuda) + \
+        _bf16_inputs(gen, (4, S, heads * dh), 1, cuda)
+    mask = causal_mask(S, device=cuda)
+    _assert_matches([fused_qkv_attention(qkv, heads, mask)],
+                    [qkv_attention_plain(qkv, heads, mask)], torch.bfloat16)
+    got = qkv_attention_bwd(qkv, g, heads, mask)
+    assert torch.equal(got, qkv_attention_bwd(qkv, g, heads, mask))
+    _assert_matches(got.split(heads * dh, -1),
+                    qkv_attention_bwd_plain(qkv, g, heads, mask)
+                    .split(heads * dh, -1), torch.bfloat16)
+
+
+def test_misaligned_bf16_rows_raise_on_card(cuda):
+    # a view 2 bytes past a 16-byte boundary: the tensor-core kernels'
+    # 16-byte copies cannot take it, and no other kernel is tried
+    B, S, D = 2, 9, 64
+    flat = torch.zeros(B * S * 3 * D + 1, dtype=torch.bfloat16, device=cuda)
+    qkv = flat[1:].view(B, S, 3 * D)
+    g = torch.zeros(B, S, D, dtype=torch.bfloat16, device=cuda)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_qkv_attention(qkv, 1)
+    with pytest.raises(ValueError, match="16-byte"):
+        qkv_attention_bwd(qkv, g, 1)
+    misaligned_g = flat[1:B * S * D + 1].view(B, S, D)
+    with pytest.raises(ValueError, match="16-byte"):
+        qkv_attention_bwd(torch.zeros_like(flat[:B * S * 3 * D])
+                          .view(B, S, 3 * D), misaligned_g, 1)
+    q = flat[1:B * S * D + 1].view(B, 1, S, D)
+    k = torch.zeros_like(q)
+    with pytest.raises(ValueError, match="16-byte"):
+        multi_head_attention(q, k, k)
+    assert dict(kernels.LAUNCHES) == {}
