@@ -10,13 +10,15 @@ non-zero):
    every CUDA kernel from eventclip_tpu_torch/csrc (one nvcc per source, all
    at once).
 2. kernels vs plain on the card, at the main paths' shapes: the event
-   histogram K1 (exact) on N-Caltech serving, N-Cars and the N-ImageNet
-   training batch [256, 70000, 3] @ 480x640; the fused-qkv attention
+   histogram K1 (exact) on N-Caltech serving, N-Cars, the N-ImageNet
+   training batch [256, 70000, 3] @ 480x640, a 720x1280 frame (row bands)
+   and windows with every event on one pixel; the fused-qkv attention
    forward K2 and its backward K3 on the ViT-L/14 (bf16, no mask; serving
    and training batches), text tower (f32, causal mask) and tiny-tower
-   (dh 32 / 16) shapes; bf16 K2 / K3 with the causal mask at S = 77 and at
-   ViT-L/14@336's S = 577; K4, the [B, H, S, dh] attention, forward and
-   backward. bf16 attention runs on the tensor-core kernels, f32 on the
+   (dh 32 / 16) shapes; f32 K2 at [8, 257, 3072] and K2 / K3 at
+   ViT-L/14@336's S = 577; bf16 K2 / K3 with the causal mask at S = 77 and
+   at S = 577; K4, the [B, H, S, dh] attention, forward and backward.
+   bf16 attention runs on the tensor-core kernels, f32 on the
    CUDA-core ones. Each attention check holds the max |kernel - plain| and,
    for each output apart, ||kernel - plain|| / ||plain|| to their limits;
    at one shape the bf16 kernels' relative error is printed beside that of
@@ -108,23 +110,30 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # -- phase 2: kernels vs their plain versions --------------------------------
 
 
-def synth_windows(gen, M, N, H, W, dev):
-    """Packed int16 [M, N, 3] windows with out-of-bounds and p == 0 rows."""
+def synth_windows(gen, M, N, H, W, dev, pile=False):
+    """Packed int16 [M, N, 3] windows with out-of-bounds and p == 0 rows;
+    with `pile`, every event of a window on one pixel, of one polarity."""
     import torch
 
     x = torch.randint(-20, W + 20, (M, N), generator=gen, device=dev)
     y = torch.randint(-20, H + 20, (M, N), generator=gen, device=dev)
     p = torch.randint(-1, 2, (M, N), generator=gen, device=dev)
+    if pile:
+        x, y = torch.full_like(x, W // 3), torch.full_like(y, H // 2)
+        p = torch.where(torch.arange(M, device=dev)[:, None] % 2 == 0, 1, -1
+                        ).expand(M, N)
     return torch.stack([x, y, p], dim=-1).to(torch.int16).contiguous()
 
 
-def check_histogram(gen, name, M, N, H, W, dev):
+def check_histogram(gen, name, M, N, H, W, dev, pile=False):
     import torch
 
     from eventclip_tpu_torch.ops import numpy_ref
-    from eventclip_tpu_torch.ops.rasterize import histograms, histograms_plain
+    from eventclip_tpu_torch.ops.rasterize import (device_histogram_plan,
+                                                   histograms,
+                                                   histograms_plain)
 
-    wins = synth_windows(gen, M, N, H, W, dev)
+    wins = synth_windows(gen, M, N, H, W, dev, pile)
     got = histograms(wins, H, W)
     want = histograms_plain(wins, H, W)
     torch.cuda.synchronize()
@@ -154,10 +163,13 @@ def check_histogram(gen, name, M, N, H, W, dev):
     library_ms = cuda_ms(lambda: torch.bincount(flat, minlength=M * 2 * H * W))
     nbytes = wins.numel() * 2 + M * 2 * H * W * 4
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    plan = device_histogram_plan(dev, H, W)  # the plan `histograms` ran
     shape = f"[{M}, {N}, 3] int16 @ {H}x{W}"
-    log(f"K1 histogram {name} {shape}: exact; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bincount {library_ms:.4f} ms (kernel / bincount"
-        f" {ms / library_ms:.2f}x), bound {bound_ms:.4f} ms (bytes)")
+    log(f"K1 histogram {name} {shape} (clusters of {plan.cluster} CTAs x "
+        f"{plan.rows} rows, {plan.bands} band(s)): exact; kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, bincount {library_ms:.4f} ms (kernel "
+        f"/ bincount {ms / library_ms:.2f}x), bound {bound_ms:.4f} ms "
+        "(bytes)")
     return dict(shape=shape, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms)
 
@@ -756,6 +768,9 @@ def main() -> int:
     check_histogram(gen, "N-Cars", 32, 30000, 100, 120, dev)
     rec["train"]["histogram"] = check_histogram(
         gen, "N-ImageNet training", 256, 70000, 480, 640, dev)
+    check_histogram(gen, "720x1280 (row bands)", 32, 70000, 720, 1280, dev)
+    check_histogram(gen, "every event on one pixel", 16, 70000, 480, 640,
+                    dev, pile=True)
     rec["serve"]["qkv_attention"] = check_attention(
         gen, "ViT-L/14", 320, 257, 16, 64, torch.bfloat16, False, dev)
     text = check_attention(gen, "text ViT-L/14", 101, 77, 12, 64,
@@ -766,6 +781,10 @@ def main() -> int:
                     False, dev)
     check_attention(gen, "text ViT-T/8@32", 101, 77, 2, 16, torch.float32,
                     True, dev)
+    # f32 at phase 6's width and at ViT-L/14@336's S = 577 (refused before)
+    f32 = {f"S={S}": check_attention(gen, f"f32 S={S}", 8, S, 16, 64,
+                                     torch.float32, False, dev)
+           for S in (257, 577)}
     rec["train"]["qkv_attention"] = check_attention(
         gen, "ViT-L/14 training", 256, 257, 16, 64, torch.bfloat16, False,
         dev)
@@ -780,6 +799,8 @@ def main() -> int:
                         torch.bfloat16, False, dev)
     check_attention_bwd(gen, "text ViT-T/8@32", 101, 77, 2, 16,
                         torch.float32, True, dev)
+    f32["bwd S=577"] = check_attention_bwd(gen, "f32 S=577", 8, 577, 16, 64,
+                                           torch.float32, False, dev)
     # bf16 on the tensor-core kernels: the causal mask (the text tower's
     # shape) and ViT-L/14@336's S = 577 (ragged 64-row tiles)
     for name, B, S, heads, causal in (("text ViT-L/14 bf16", 101, 77, 12, True),
@@ -911,7 +932,8 @@ def main() -> int:
              **(rec["train"].get(k) or rec["none"][k]),
              by_path={p: rows[k] for p, rows in by_path.items() if k in rows})
         for k, (src, tpu) in sources.items()
-    ], "text_attention": text, "rounding_orders": orders,
+    ], "text_attention": text, "f32_attention": f32,
+        "rounding_orders": orders,
         "requests": per_request, "train": train, "update_card_vs_cpu": update}
     log(json.dumps(line))
     log(card)

@@ -48,12 +48,30 @@
 // 1.2369 ms, against 6.5578 ms for the CUDA-core kernel below when it also
 // ran bf16, and 0.5657 ms for torch's scaled_dot_product_attention.
 //
-// f32 (the text tower): attention_kernel, on the CUDA cores, kept exact to
-// 1e-5 of the plain version (tensor cores would mean TF32). One block per
-// (batch, head, 64 query rows) stages the head's K (rows padded by one
-// word) and V in shared memory; each warp takes 4 query rows at a time:
-// lanes own keys for the scores (the row kept in shared memory), then own
-// output columns for p @ v.
+// f32 (the text tower, [101, 77, 2304] causal on the serving path):
+// attention_f32_kernel, on the CUDA cores, kept to 1e-5 / a norm-relative
+// 1e-6 of the plain version (tensor cores would mean TF32). Its bound at
+// the text shape is both: 95.6 MB of qkv and out, 0.0285 ms at 3.35 TB/s,
+// and 1.84 GFLOP, 0.0275 ms at 67 TFLOP/s of f32 FMAs. What held the
+// earlier CUDA-core kernel back, and what this one does about it:
+//   - shared-memory loads, not FMAs, set the pace (under one FMA per load):
+//     each thread computes a 4 x 4 register micro-tile, of scores and then
+//     of p . v, fed by 16-byte loads from padded, conflict-free rows: 8
+//     loads for 64 FMAs (each LDS.128 feeds 8 FMAs);
+//   - lanes owned keys, so 77 keys idled 19% of the lanes: a warp covers
+//     16 rows x 32 keys, and a warp whose 32 keys are all past S skips;
+//   - K and V were staged again for every 64-row tile, 4 bytes and an
+//     integer divide at a time: a block takes all of a head's rows where
+//     they fit (77 rows: one block of 80) and K and V stream once through
+//     a 2-stage cp.async ring of 64-key tiles, 16 bytes a copy;
+//   - the whole head had to fit in shared memory (S >= 436 was refused):
+//     only a block's score rows stay, so S runs up to about 3,000 at dh 64
+//     (16 rows of S scores beside the tiles).
+// The softmax takes the whole row, as the plain version: p = expf(s - max)
+// (not __expf), and o = (p . v) * rcp(sum) with a correctly rounded
+// reciprocal, which moves only f32 roundings. The 16-byte copies need
+// 16-byte-aligned rows; the towers' fused [B, S, 3D] tensors always have
+// them (ops/attention.py checks). Times in PERF.md.
 
 #include <stdint.h>
 
@@ -64,169 +82,290 @@ namespace {
 using namespace attn;
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
+// f32: CUDA cores, register-blocked
 
-constexpr int kTileRows = 64;   // query rows per block
-constexpr int kRowsPerWarp = 4; // rows a warp carries at once
+constexpr int kF32Keys = 64;         // keys of one staged K or V tile
+constexpr int kF32MaxRows = 96;      // query rows of a block, at most
+constexpr int kF32RowStep = 16;      // query rows of one warp-row
 
-// K rows in shared memory are padded by one word, so lanes reading
-// different rows at the same column hit different banks
+// Variants for timing only (kernel_variants.py builds each with -D): the
+// rows a block (0: f32_rows picks them), the blocks an SM that
+// __launch_bounds__ asks for, and the unrolling of the inner loops.
+#ifndef F32_ROWS
+#define F32_ROWS 0
+#endif
+#ifndef F32_MIN_BLOCKS
+#define F32_MIN_BLOCKS 2
+#endif
+#ifndef F32_UNROLL
+#define F32_UNROLL 4
+#endif
+constexpr int kF32Unroll = F32_UNROLL;
+
+// f32 tiles in shared memory: rows of DH floats padded by 4, so the 16-byte
+// loads of 4 (Q) or 8 (K) consecutive rows at one column fall in distinct
+// banks, and every row stays 16-byte aligned for cp.async
 template <int DH>
-constexpr int kPadded = DH + 1;
+constexpr int kF32Stride = DH + 4;
 
-template <int DH>
-__host__ __device__ inline size_t smem_bytes(int S, int nwarps) {
-  return align16((size_t)S * kPadded<DH> * sizeof(float)) +
-         align16((size_t)S * DH * sizeof(float)) +
-         align16((size_t)nwarps * kRowsPerWarp * DH * sizeof(float)) +
-         (size_t)nwarps * kRowsPerWarp * S * sizeof(float);
+// score rows: all keys of the row block (S rounded up to a warp's 32
+// keys), padded by 8 words: the 4 x 8 scalar stores of a warp's
+// (rows, keys) micro-tile hit 32 distinct banks
+__host__ __device__ inline int f32_score_stride(int S) {
+  return (S + 31) / 32 * 32 + 8;
 }
 
 template <int DH>
-__global__ void attention_kernel(const float* __restrict__ q,
-                                 const float* __restrict__ k,
-                                 const float* __restrict__ v,
-                                 const float* __restrict__ mask,
-                                 float* __restrict__ out, Strides in,
-                                 Strides os, int S, int heads, int tiles,
-                                 float scale) {
-  constexpr int R = kRowsPerWarp;
-  constexpr int KS = kPadded<DH>;
-  constexpr int NACC = (DH + 31) / 32;
-  extern __shared__ __align__(16) unsigned char smem[];
+__host__ __device__ inline size_t f32_smem_bytes(int rows, int S) {
+  return sizeof(float) * ((size_t)rows * kF32Stride<DH> +          // Q
+                          2 * (size_t)kF32Keys * kF32Stride<DH> +  // K / V ring
+                          (size_t)rows * f32_score_stride(S) +     // scores
+                          rows);                                   // 1 / sums
+}
 
-  const int nwarps = blockDim.x / 32;
+// Start the copy of rows r0 .. r0+n-1 of one head's [S, DH] f32 operand
+// into a padded tile, 16 bytes at a time (rows at or past S become zeros).
+// The caller commits the group.
+template <int DH>
+__device__ __forceinline__ void load_f32_tile(float* dst, const float* src,
+                                              const Strides& s, int b, int h,
+                                              int r0, int n, int S) {
+  constexpr int P = DH / 4;  // 16-byte pieces a row
+  for (int idx = threadIdx.x; idx < n * P; idx += blockDim.x) {
+    const int r = idx / P, c = (idx % P) * 4, i = r0 + r;
+    cp_async16(dst + r * kF32Stride<DH> + c, src + at(s, b, h, min(i, S - 1)) + c,
+               i < S);
+  }
+}
+
+// One block per (batch, head, `rows` query rows), rows a multiple of 16,
+// 4 * rows threads. The Q rows are copied once; K, then V, stream through
+// a 2-stage cp.async ring of 64-key tiles.
+//   scores: warp-row wr (16 rows) x warp-col wc (32 keys of the tile); lane
+//     (rg = lane / 8, kg = lane % 8) holds the 4 x 4 micro-tile of rows
+//     wr*16 + rg + 4i and keys wc*32 + kg + 8u; per 4 columns of the head
+//     dim it loads 4 float4 of Q and 4 of K (8 shared loads) for 64 FMAs.
+//     s = fl(dot * scale) (+ mask) goes to the block's score rows.
+//   softmax: 4 threads a row, over the whole row: p = expf(s - max) in
+//     place, and 1 / sum correctly rounded.
+//   o = p . v: thread t < rows * DH / 16 holds rows rg + (rows / 4) i and
+//     columns 4 cg .. 4 cg + 3 (rg = t / (DH/4), cg = t % (DH/4)); per 4
+//     keys it loads 4 float4 of p and 4 of V for 64 FMAs; o * (1 / sum)
+//     is stored.
+// At most 80 registers a thread (__launch_bounds__), so two blocks of 80
+// rows (320 threads) share an SM, as their shared memory allows; the inner
+// loops are unrolled 4 times. The rows a block, one block an SM (more
+// registers) and loops not unrolled are timed against this by
+// kernel_variants.py (PERF.md).
+// Each dot sums its head dim in order and each output its keys in order.
+template <int DH>
+__global__ void __launch_bounds__(4 * kF32MaxRows, F32_MIN_BLOCKS)
+attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ mask, float* __restrict__ out,
+                     Strides in, Strides os, int S, int heads, int tiles,
+                     int rows, float scale) {
+  constexpr int QS = kF32Stride<DH>;
+  constexpr int TILE = kF32Keys * QS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int PS = f32_score_stride(S);
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* ring = Qs + (size_t)rows * QS;  // 2 stages
+  float* Ps = ring + 2 * TILE;
+  float* Ls = Ps + (size_t)rows * PS;  // 1 / row sum
+
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int tile = blockIdx.x % tiles;
   const int h = (blockIdx.x / tiles) % heads;
   const int b = blockIdx.x / (tiles * heads);
+  const int r0 = tile * rows;
+  const int chunks = (S + kF32Keys - 1) / kF32Keys;
 
-  float* Ks = reinterpret_cast<float*>(smem);
-  float* Vs = reinterpret_cast<float*>(smem + align16((size_t)S * KS * sizeof(float)));
-  float* qs = reinterpret_cast<float*>(
-      reinterpret_cast<unsigned char*>(Vs) + align16((size_t)S * DH * sizeof(float)));
-  float* ps = reinterpret_cast<float*>(
-      reinterpret_cast<unsigned char*>(qs) +
-      align16((size_t)nwarps * R * DH * sizeof(float)));
-  float* q_w = qs + (size_t)warp * R * DH;  // this warp's R query rows
-  float* p_w = ps + (size_t)warp * R * S;   // this warp's R score rows
+  // scores: this lane's rows (block-local) and keys (tile-local)
+  const int wr = warp / 2, wc = warp % 2;
+  const int srow = wr * kF32RowStep + lane / 8;   // + 4i
+  const int skey = wc * 32 + lane % 8;            // + 8u
+  const bool srows_live = r0 + wr * kF32RowStep < S;
+  // p . v: this thread's output micro-tile
+  const int ntile = rows * DH / 16;
+  const bool pv_live = (int)threadIdx.x < ntile;
+  const int rg = threadIdx.x / (DH / 4), cg = threadIdx.x % (DH / 4);
+  const int rq = rows / 4;  // row step of the micro-tile: rg + rq * i
 
-  // stage this head's K and V (row by row, dh contiguous elements each)
-  for (int idx = threadIdx.x; idx < S * DH; idx += blockDim.x) {
-    const int s = idx / DH, d = idx % DH;
-    Ks[s * KS + d] = k[at(in, b, h, s) + d];
-    Vs[s * DH + d] = v[at(in, b, h, s) + d];
-  }
-  __syncthreads();
+  // step st < chunks: K tile st; then V tile st - chunks; stage st % 2
+  auto issue = [&](int st) {
+    const bool is_k = st < chunks;
+    const int c = is_k ? st : st - chunks;
+    load_f32_tile<DH>(ring + (st & 1) * TILE, is_k ? k : v, in, b, h,
+                      c * kF32Keys, kF32Keys, S);
+    cp_async_commit();
+  };
+  load_f32_tile<DH>(Qs, q, in, b, h, r0, rows, S);
+  cp_async_commit();
+  issue(0);
 
-  const int tile_start = tile * kTileRows;
-  const int tile_end = min(tile_start + kTileRows, S);
-  for (int i0 = tile_start + warp * R; i0 < tile_end; i0 += nwarps * R) {
-    // this group's query rows (rows past the end read as zeros)
+  float o[4][4];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = i0 + r;
-      for (int d = lane; d < DH; d += 32)
-        q_w[r * DH + d] = i < S ? q[at(in, b, h, i) + d] : 0.f;
+  for (int i = 0; i < 4; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+
+  for (int st = 0; st < 2 * chunks; ++st) {
+    if (st + 1 < 2 * chunks) {
+      issue(st + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncwarp();
-
-    // scores: lanes own keys
-    float mx[R];
+    __syncthreads();
+    const float* T = ring + (st & 1) * TILE;
+    if (st < chunks) {
+      const int j0 = st * kF32Keys;
+      if (srows_live && j0 + wc * 32 < S) {
+        float acc[4][4];
 #pragma unroll
-    for (int r = 0; r < R; ++r) mx[r] = -INFINITY;
-    for (int j = lane; j < S; j += 32) {
-      float dot[R];
+        for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll (kF32Unroll)
+        for (int d = 0; d < DH; d += 4) {
+          float4 a[4], kb[4];
 #pragma unroll
-      for (int r = 0; r < R; ++r) dot[r] = 0.f;
-      const float* krow = Ks + j * KS;
-#pragma unroll 8
-      for (int d = 0; d < DH; ++d) {
-        const float kv = krow[d];
+          for (int i = 0; i < 4; ++i)
+            a[i] = *reinterpret_cast<const float4*>(Qs + (srow + 4 * i) * QS + d);
 #pragma unroll
-        for (int r = 0; r < R; ++r) dot[r] = fmaf(q_w[r * DH + d], kv, dot[r]);
-      }
+          for (int u = 0; u < 4; ++u)
+            kb[u] = *reinterpret_cast<const float4*>(T + (skey + 8 * u) * QS + d);
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              acc[i][u] = fmaf(a[i].x, kb[u].x, acc[i][u]);
+              acc[i][u] = fmaf(a[i].y, kb[u].y, acc[i][u]);
+              acc[i][u] = fmaf(a[i].z, kb[u].z, acc[i][u]);
+              acc[i][u] = fmaf(a[i].w, kb[u].w, acc[i][u]);
+            }
+        }
         // scale after the dot, as the TPU kernel does; _rn keeps the
         // multiply and the mask add two separately rounded operations
-        float s = __fmul_rn(dot[r], scale);
-        if (mask != nullptr) s = __fadd_rn(s, mask[(size_t)min(i0 + r, S - 1) * S + j]);
-        p_w[r * S + j] = s;
-        mx[r] = fmaxf(mx[r], s);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = srow + 4 * i, qi = min(r0 + row, S - 1);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int j = j0 + skey + 8 * u;
+            float s = __fmul_rn(acc[i][u], scale);
+            if (mask != nullptr) s = __fadd_rn(s, mask[(size_t)qi * S + min(j, S - 1)]);
+            Ps[row * PS + j] = s;
+          }
+        }
+      }
+      if (st == chunks - 1) {
+        __syncthreads();  // every score is in place
+        // softmax over the whole row: exp(-inf - m) = 0 for masked keys,
+        // and m is finite whenever the row has one finite score (the
+        // causal diagonal), so no inf - inf arises; keys S .. S+3 rounded
+        // to 4 read as p = 0 in p . v
+        const int row = threadIdx.x / 4, part = threadIdx.x % 4;
+        float* pr = Ps + row * PS;
+        float m = -INFINITY;
+        for (int j = part; j < S; j += 4) m = fmaxf(m, pr[j]);
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+        float sum = 0.f;
+        for (int j = part; j < S; j += 4) {
+          const float e = expf(pr[j] - m);
+          pr[j] = e;
+          sum += e;
+        }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        if (part == 0) Ls[row] = __frcp_rn(sum);
+        if (S % 4 != 0 && part >= S % 4) pr[S / 4 * 4 + part] = 0.f;
+      }
+    } else if (pv_live) {
+      const int j0 = (st - chunks) * kF32Keys;
+      const int n = min(kF32Keys, (S + 3) / 4 * 4 - j0);  // rows past S are zeros
+#pragma unroll (kF32Unroll)
+      for (int jj = 0; jj < n; jj += 4) {
+        float4 p[4], vb[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          p[i] = *reinterpret_cast<const float4*>(Ps + (rg + rq * i) * PS + j0 + jj);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          vb[u] = *reinterpret_cast<const float4*>(T + (jj + u) * QS + 4 * cg);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pu[4] = {p[i].x, p[i].y, p[i].z, p[i].w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            o[i][0] = fmaf(pu[u], vb[u].x, o[i][0]);
+            o[i][1] = fmaf(pu[u], vb[u].y, o[i][1]);
+            o[i][2] = fmaf(pu[u], vb[u].z, o[i][2]);
+            o[i][3] = fmaf(pu[u], vb[u].w, o[i][3]);
+          }
+        }
       }
     }
-    // softmax over the whole row: exp(-inf - m) = 0 for masked keys, and
-    // m is finite whenever the row has one finite score (the causal
-    // diagonal), so no inf - inf arises
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      mx[r] = warp_max(mx[r]);
-      float sum = 0.f;
-      for (int j = lane; j < S; j += 32) {
-        const float e = expf(p_w[r * S + j] - mx[r]);
-        p_w[r * S + j] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      for (int j = lane; j < S; j += 32) p_w[r * S + j] /= sum;
-    }
-    __syncwarp();
-
-    // o = p @ v: lanes own output columns
-    float acc[R][NACC];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int a = 0; a < NACC; ++a) acc[r][a] = 0.f;
-    for (int j = 0; j < S; ++j) {
-      float vv[NACC];
-#pragma unroll
-      for (int a = 0; a < NACC; ++a) {
-        const int d = lane + 32 * a;
-        vv[a] = d < DH ? Vs[j * DH + d] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float p = p_w[r * S + j];
-#pragma unroll
-        for (int a = 0; a < NACC; ++a) acc[r][a] = fmaf(p, vv[a], acc[r][a]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = i0 + r;
-      if (i >= S) break;
-#pragma unroll
-      for (int a = 0; a < NACC; ++a) {
-        const int d = lane + 32 * a;
-        if (d < DH) out[at(os, b, h, i) + d] = acc[r][a];
-      }
-    }
-    __syncwarp();  // q_w / p_w are rewritten by the next group
+    __syncthreads();  // stage st % 2 is refilled by the next issue
   }
+  if (pv_live) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = r0 + rg + rq * i;
+      const float l = Ls[rg + rq * i];
+      if (qi < S)
+        *reinterpret_cast<float4*>(out + at(os, b, h, qi) + 4 * cg) =
+            make_float4(o[i][0] * l, o[i][1] * l, o[i][2] * l, o[i][3] * l);
+    }
+  }
+}
+
+// The query rows of a block: a multiple of 16, at most 96, whose shared
+// memory fits in half an SM (two blocks an SM) if that allows 32 rows,
+// else in a whole block's limit; the head's rows are then split evenly
+// over as few blocks as that allows (77 rows: one block of 80). A build
+// with F32_ROWS > 0 takes that many instead (0 if they do not fit).
+template <int DH>
+int f32_rows(int S, int limit) {
+  static_assert(F32_ROWS % kF32RowStep == 0 && F32_ROWS <= kF32MaxRows,
+                "F32_ROWS: a multiple of 16 up to 96");
+  if (F32_ROWS > 0)
+    return f32_smem_bytes<DH>(F32_ROWS, S) <= (size_t)limit ? F32_ROWS : 0;
+  const int half = (limit + 1024) / 2 - 1024;
+  int most = 0;
+  const int budgets[2] = {half, limit};
+  for (int budget : budgets) {
+    most = 0;
+    for (int r = kF32MaxRows; r >= kF32RowStep && most == 0; r -= kF32RowStep)
+      if (f32_smem_bytes<DH>(r, S) <= (size_t)budget) most = r;
+    if (most >= 2 * kF32RowStep) break;
+  }
+  if (most == 0) return 0;
+  const int blocks = (S + most - 1) / most;
+  const int per = (S + blocks - 1) / blocks;
+  return (per + kF32RowStep - 1) / kF32RowStep * kF32RowStep;
 }
 
 template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* mask, void* out, int B, int S, int heads,
                    Strides in, Strides os, float scale, cudaStream_t stream) {
+  if (!rows_aligned16(q, in, 4) || !rows_aligned16(k, in, 4) ||
+      !rows_aligned16(v, in, 4) || !rows_aligned16(out, os, 4))
+    return cudaErrorMisalignedAddress;
+  if (B == 0 || S == 0) return cudaSuccess;
   int limit = 0;
   cudaError_t err = smem_limit(&limit);
   if (err != cudaSuccess) return err;
-  int nwarps = 8;
-  while (nwarps > 1 && smem_bytes<DH>(S, nwarps) > (size_t)limit) nwarps /= 2;
-  const size_t smem = smem_bytes<DH>(S, nwarps);
-  if (smem > (size_t)limit) return cudaErrorInvalidValue;  // K and V alone too big
-  auto kernel = attention_kernel<DH>;
+  const int rows = f32_rows<DH>(S, limit);
+  if (rows == 0) return cudaErrorInvalidValue;  // 16 score rows too big
+  const size_t smem = f32_smem_bytes<DH>(rows, S);
+  auto kernel = attention_f32_kernel<DH>;
   err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int tiles = (S + kTileRows - 1) / kTileRows;
+  const int tiles = (S + rows - 1) / rows;
   const long long blocks = (long long)B * heads * tiles;
-  if (blocks == 0) return cudaSuccess;
-  kernel<<<(unsigned)blocks, nwarps * 32, smem, stream>>>(
+  kernel<<<(unsigned)blocks, 4 * rows, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, mask, (float*)out, in,
-      os, S, heads, tiles, scale);
+      os, S, heads, tiles, rows, scale);
   return cudaGetLastError();
 }
 
@@ -371,10 +510,10 @@ const char* kernel_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel;
-// every row start 16-byte aligned, else cudaErrorMisalignedAddress).
-// mask: f32 [S, S] or null. in_*: the strides of q, k and v; out_*: those
-// of out (see attn::Strides).
+// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel);
+// both copy 16-byte pieces: every row start 16-byte aligned, else
+// cudaErrorMisalignedAddress. mask: f32 [S, S] or null. in_*: the strides
+// of q, k and v; out_*: those of out (see attn::Strides).
 int attention_fwd(const void* q, const void* k, const void* v,
                   const void* mask, void* out, int B, int S, int heads, int dh,
                   long long in_batch, long long in_head, long long in_row,

@@ -54,9 +54,12 @@
 // dkdv_kernel on the CUDA cores, exact to 1e-5 of the plain version
 // (tensor cores would mean TF32):
 //   1. dq_kernel, one block per (batch, head, 64 query rows): stages the
-//      head's K and V (rows padded against bank conflicts); each warp
-//      carries 4 query rows, keeps their score and dp rows in shared
-//      memory, forms p, the row's rowsum(dp * p) and ds, then dq = ds . k.
+//      head's K and V in chunks of keys that fit beside the score rows (all
+//      S at once where they fit; rows padded against bank conflicts), so
+//      any S whose 4 score and dp rows fit in shared memory runs (S up to
+//      about 6,600 at dh 64); each warp carries 4 query rows, keeps their
+//      score and dp rows in shared memory, forms p, the row's
+//      rowsum(dp * p) and ds, then dq = ds . k.
 //   2. dkdv_kernel, one block per (batch, head, 32 keys): stages those keys'
 //      k and v rows, then walks the queries 32 at a time (their q, g and
 //      row statistics staged in shared memory), recomputes p and ds for the
@@ -86,13 +89,20 @@ constexpr int kWarps2 = kChunk / kRowsPerWarp;  // 8 warps in a dk/dv block
 template <int DH>
 constexpr int kPadded = DH + 1;
 
+// Shared memory of a dq block: `keys` rows each of K and V (one chunk of
+// keys), and each warp's R query and g rows and R score and dp rows of S
 template <int DH>
-__host__ __device__ inline size_t dq_smem_bytes(int S, int nwarps) {
-  return 2 * align16((size_t)S * kPadded<DH> * sizeof(float)) +
+__host__ __device__ inline size_t dq_smem_bytes(int S, int nwarps, int keys) {
+  return 2 * align16((size_t)keys * kPadded<DH> * sizeof(float)) +
          2 * align16((size_t)nwarps * kRowsPerWarp * DH * sizeof(float)) +
          2 * (size_t)nwarps * kRowsPerWarp * S * sizeof(float);
 }
 
+// K and V are staged `keys` rows at a time (a multiple of 32, or all S):
+// each warp's score and dp rows stay in shared memory and are filled chunk
+// by chunk, the row reductions run after the last chunk, and dq = ds . k
+// walks the K chunks again. Every product and sum keeps the order it has
+// with the whole head staged, so the chunk size never changes the bits.
 template <int DH>
 __global__ void dq_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -101,7 +111,7 @@ __global__ void dq_kernel(const float* __restrict__ q,
                           const float* __restrict__ mask,
                           float* __restrict__ dq, float* __restrict__ stats,
                           Strides in, Strides gs, int S, int heads, int tiles,
-                          size_t bhs, float scale) {
+                          size_t bhs, float scale, int keys) {
   constexpr int R = kRowsPerWarp;
   constexpr int KS = kPadded<DH>;
   constexpr int NACC = (DH + 31) / 32;
@@ -113,7 +123,7 @@ __global__ void dq_kernel(const float* __restrict__ q,
   const int h = (blockIdx.x / tiles) % heads;
   const int b = blockIdx.x / (tiles * heads);
 
-  const size_t kv_bytes = align16((size_t)S * KS * sizeof(float));
+  const size_t kv_bytes = align16((size_t)keys * KS * sizeof(float));
   const size_t row_bytes = align16((size_t)nwarps * R * DH * sizeof(float));
   float* Ks = reinterpret_cast<float*>(smem);
   float* Vs = reinterpret_cast<float*>(smem + kv_bytes);
@@ -126,23 +136,38 @@ __global__ void dq_kernel(const float* __restrict__ q,
   float* p_w = ps + (size_t)warp * R * S;   // scores, then p, then ds
   float* dp_w = dps + (size_t)warp * R * S;
 
-  for (int idx = threadIdx.x; idx < S * DH; idx += blockDim.x) {
-    const int s = idx / DH, d = idx % DH;
-    Ks[s * KS + d] = k[at(in, b, h, s) + d];
-    Vs[s * KS + d] = v[at(in, b, h, s) + d];
-  }
-  __syncthreads();
+  // stage keys c0 .. c0+keys-1 of K and V; every thread of the block calls
+  // it at the same points (all S at once stays staged)
+  int staged = -1;
+  auto stage = [&](int c0) {
+    if (staged == c0) return;
+    __syncthreads();  // the previous chunk is consumed
+    const int n = min(keys, S - c0);
+    for (int idx = threadIdx.x; idx < n * DH; idx += blockDim.x) {
+      const int s = idx / DH, d = idx % DH;
+      Ks[s * KS + d] = k[at(in, b, h, c0 + s) + d];
+      Vs[s * KS + d] = v[at(in, b, h, c0 + s) + d];
+    }
+    __syncthreads();
+    staged = c0;
+  };
 
   const size_t bh = (size_t)b * heads + h;
   const int tile_start = tile * kTileRows;
   const int tile_end = min(tile_start + kTileRows, S);
-  for (int i0 = tile_start + warp * R; i0 < tile_end; i0 += nwarps * R) {
+  for (int base = tile_start; base < tile_end; base += nwarps * R) {
+    // every warp walks the chunks (they stage together); a warp past the
+    // tile computes nothing and writes nothing
+    const int i0 = base + warp * R;
+    const bool active = i0 < tile_end;
+    if (active) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = i0 + r;
-      for (int d = lane; d < DH; d += 32) {
-        q_w[r * DH + d] = i < S ? q[at(in, b, h, i) + d] : 0.f;
-        g_w[r * DH + d] = i < S ? g[at(gs, b, h, i) + d] : 0.f;
+      for (int r = 0; r < R; ++r) {
+        const int i = i0 + r;
+        for (int d = lane; d < DH; d += 32) {
+          q_w[r * DH + d] = i < S ? q[at(in, b, h, i) + d] : 0.f;
+          g_w[r * DH + d] = i < S ? g[at(gs, b, h, i) + d] : 0.f;
+        }
       }
     }
     __syncwarp();
@@ -151,90 +176,104 @@ __global__ void dq_kernel(const float* __restrict__ q,
     float mx[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) mx[r] = -INFINITY;
-    for (int j = lane; j < S; j += 32) {
-      float dot[R], dpd[R];
+    for (int c0 = 0; c0 < S; c0 += keys) {
+      stage(c0);
+      if (!active) continue;
+      const int c1 = min(c0 + keys, S);
+      for (int j = c0 + lane; j < c1; j += 32) {
+        float dot[R], dpd[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) dot[r] = dpd[r] = 0.f;
-      const float* krow = Ks + j * KS;
-      const float* vrow = Vs + j * KS;
+        for (int r = 0; r < R; ++r) dot[r] = dpd[r] = 0.f;
+        const float* krow = Ks + (j - c0) * KS;
+        const float* vrow = Vs + (j - c0) * KS;
 #pragma unroll 8
-      for (int d = 0; d < DH; ++d) {
-        const float kv = krow[d], vv = vrow[d];
+        for (int d = 0; d < DH; ++d) {
+          const float kv = krow[d], vv = vrow[d];
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            dot[r] = fmaf(q_w[r * DH + d], kv, dot[r]);
+            dpd[r] = fmaf(g_w[r * DH + d], vv, dpd[r]);
+          }
+        }
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          dot[r] = fmaf(q_w[r * DH + d], kv, dot[r]);
-          dpd[r] = fmaf(g_w[r * DH + d], vv, dpd[r]);
+          float s = __fmul_rn(dot[r], scale);
+          if (mask != nullptr) s = __fadd_rn(s, mask[(size_t)min(i0 + r, S - 1) * S + j]);
+          p_w[r * S + j] = s;
+          dp_w[r * S + j] = dpd[r];
+          mx[r] = fmaxf(mx[r], s);
         }
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        float s = __fmul_rn(dot[r], scale);
-        if (mask != nullptr) s = __fadd_rn(s, mask[(size_t)min(i0 + r, S - 1) * S + j]);
-        p_w[r * S + j] = s;
-        dp_w[r * S + j] = dpd[r];
-        mx[r] = fmaxf(mx[r], s);
       }
     }
     // p over the whole row (masked keys give p = 0, hence ds = 0, and the
     // diagonal keeps m finite: no inf - inf), then ds
+    if (active) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      mx[r] = warp_max(mx[r]);
-      float sum = 0.f;
-      for (int j = lane; j < S; j += 32) {
-        const float e = expf(p_w[r * S + j] - mx[r]);
-        p_w[r * S + j] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      float dsum = 0.f;
-      for (int j = lane; j < S; j += 32) {
-        const float p = p_w[r * S + j] / sum;
-        p_w[r * S + j] = p;
-        dsum += __fmul_rn(dp_w[r * S + j], p);
-      }
-      dsum = warp_sum(dsum);
-      for (int j = lane; j < S; j += 32) {
-        const float ds = __fmul_rn(p_w[r * S + j], __fsub_rn(dp_w[r * S + j], dsum));
-        p_w[r * S + j] = __fmul_rn(ds, scale);
-      }
-      const int i = i0 + r;
-      if (lane == 0 && i < S) {
-        stats[bh * S + i] = mx[r];
-        stats[bhs + bh * S + i] = sum;
-        stats[2 * bhs + bh * S + i] = dsum;
+      for (int r = 0; r < R; ++r) {
+        mx[r] = warp_max(mx[r]);
+        float sum = 0.f;
+        for (int j = lane; j < S; j += 32) {
+          const float e = expf(p_w[r * S + j] - mx[r]);
+          p_w[r * S + j] = e;
+          sum += e;
+        }
+        sum = warp_sum(sum);
+        float dsum = 0.f;
+        for (int j = lane; j < S; j += 32) {
+          const float p = p_w[r * S + j] / sum;
+          p_w[r * S + j] = p;
+          dsum += __fmul_rn(dp_w[r * S + j], p);
+        }
+        dsum = warp_sum(dsum);
+        for (int j = lane; j < S; j += 32) {
+          const float ds = __fmul_rn(p_w[r * S + j], __fsub_rn(dp_w[r * S + j], dsum));
+          p_w[r * S + j] = __fmul_rn(ds, scale);
+        }
+        const int i = i0 + r;
+        if (lane == 0 && i < S) {
+          stats[bh * S + i] = mx[r];
+          stats[bhs + bh * S + i] = sum;
+          stats[2 * bhs + bh * S + i] = dsum;
+        }
       }
     }
     __syncwarp();
 
-    // dq = ds . k: lanes own columns
+    // dq = ds . k: lanes own columns, keys in order, chunk by chunk
     float acc[R][NACC];
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int a = 0; a < NACC; ++a) acc[r][a] = 0.f;
-    for (int j = 0; j < S; ++j) {
-      float kk[NACC];
+    for (int c0 = 0; c0 < S; c0 += keys) {
+      stage(c0);
+      if (!active) continue;
+      const int c1 = min(c0 + keys, S);
+      for (int j = c0; j < c1; ++j) {
+        float kk[NACC];
 #pragma unroll
-      for (int a = 0; a < NACC; ++a) {
-        const int d = lane + 32 * a;
-        kk[a] = d < DH ? Ks[j * KS + d] : 0.f;
-      }
+        for (int a = 0; a < NACC; ++a) {
+          const int d = lane + 32 * a;
+          kk[a] = d < DH ? Ks[(j - c0) * KS + d] : 0.f;
+        }
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float ds = p_w[r * S + j];
+        for (int r = 0; r < R; ++r) {
+          const float ds = p_w[r * S + j];
 #pragma unroll
-        for (int a = 0; a < NACC; ++a) acc[r][a] = fmaf(ds, kk[a], acc[r][a]);
+          for (int a = 0; a < NACC; ++a) acc[r][a] = fmaf(ds, kk[a], acc[r][a]);
+        }
       }
     }
+    if (active) {
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int i = i0 + r;
-      if (i >= S) break;
+      for (int r = 0; r < R; ++r) {
+        const int i = i0 + r;
+        if (i >= S) break;
 #pragma unroll
-      for (int a = 0; a < NACC; ++a) {
-        const int d = lane + 32 * a;
-        if (d < DH) dq[at(in, b, h, i) + d] = acc[r][a];
+        for (int a = 0; a < NACC; ++a) {
+          const int d = lane + 32 * a;
+          if (d < DH) dq[at(in, b, h, i) + d] = acc[r][a];
+        }
       }
     }
     __syncwarp();
@@ -363,10 +402,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
   int limit = 0;
   cudaError_t err = smem_limit(&limit);
   if (err != cudaSuccess) return err;
+  // the most warps whose score and dp rows leave room for a chunk of 32
+  // keys; then the largest chunk (a multiple of 32, or all S) that fits
   int nwarps = 8;
-  while (nwarps > 1 && dq_smem_bytes<DH>(S, nwarps) > (size_t)limit) nwarps /= 2;
-  const size_t smem = dq_smem_bytes<DH>(S, nwarps);
-  if (smem > (size_t)limit) return cudaErrorInvalidValue;  // K and V alone too big
+  while (nwarps > 1 && dq_smem_bytes<DH>(S, nwarps, 32) > (size_t)limit) nwarps /= 2;
+  if (dq_smem_bytes<DH>(S, nwarps, 32) > (size_t)limit)
+    return cudaErrorInvalidValue;  // one warp's score rows alone too big
+  int keys = S;
+  if (dq_smem_bytes<DH>(S, nwarps, S) > (size_t)limit) {
+    keys = 32;
+    while (dq_smem_bytes<DH>(S, nwarps, keys + 32) <= (size_t)limit) keys += 32;
+  }
+  const size_t smem = dq_smem_bytes<DH>(S, nwarps, keys);
   auto k1 = dq_kernel<DH>;
   err = allow_smem(k1, smem);
   if (err != cudaSuccess) return err;
@@ -377,7 +424,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
   const size_t bhs = (size_t)bh * S;
   k1<<<(unsigned)(bh * tiles), nwarps * 32, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)g, mask,
-      (float*)dq, stats, in, gs, S, heads, tiles, bhs, scale);
+      (float*)dq, stats, in, gs, S, heads, tiles, bhs, scale, keys);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dkdv_kernel<DH><<<(unsigned)(bh * ktiles), kWarps2 * 32, 0, stream>>>(

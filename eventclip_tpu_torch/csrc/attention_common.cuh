@@ -317,11 +317,11 @@ __device__ __forceinline__ void store_rows(const float acc[DH / 8][4],
   }
 }
 
-// the 16-byte alignment the tensor-core kernels' copies need: every row
-// start of every operand
-inline bool rows_aligned16(const void* p, const Strides& s) {
-  return ((uintptr_t)p % 16 == 0) && s.batch % 8 == 0 && s.head % 8 == 0 &&
-         s.row % 8 == 0;
+// the 16-byte alignment the kernels' 16-byte copies need: every row start
+// of every operand (elements of `esize` bytes; bf16 by default)
+inline bool rows_aligned16(const void* p, const Strides& s, int esize = 2) {
+  return ((uintptr_t)p % 16 == 0) && s.batch * esize % 16 == 0 &&
+         s.head * esize % 16 == 0 && s.row * esize % 16 == 0;
 }
 
 }  // namespace attn

@@ -45,7 +45,7 @@ _STRIDES = [_L, _L, _L]  # batch, head, row (csrc/attention_common.cuh)
 # C signatures of the exported launchers (all return a cudaError_t as int)
 _SIGNATURES = {
     "histogram": {
-        "event_histogram": [_P, _I, _I, _I, _I, _I, _I, _P, _P],
+        "event_histogram": [_P] + [_I] * 9 + [_P, _P],
     },
     "attention": {
         "attention_fwd": [_P] * 5 + [_I] * 4 + _STRIDES * 2 + [_I, _F, _P],
@@ -120,14 +120,20 @@ def library(name: str) -> ctypes.CDLL:
     build_all([name])
     with _lock:
         if name not in _libs:
-            lib = ctypes.CDLL(_lib_path(name))
-            for fn, argtypes in _SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = _I
-            lib.kernel_error_string.argtypes = [_I]
-            lib.kernel_error_string.restype = ctypes.c_char_p
-            _libs[name] = lib
+            _libs[name] = load(_lib_path(name), name)
     return _libs[name]
+
+
+def load(path: str, name: str) -> ctypes.CDLL:
+    """The library at `path`, built from SOURCES[name], with its launchers'
+    C signatures set (kernel_variants.py loads its own builds so)."""
+    lib = ctypes.CDLL(path)
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _I
+    lib.kernel_error_string.argtypes = [_I]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

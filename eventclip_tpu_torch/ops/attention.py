@@ -11,9 +11,10 @@ Port of eventclip_tpu/ops/attention.py:
 Both are `torch.autograd.Function`s. On CUDA tensors the forward launches
 csrc/attention.cu and the backward csrc/attention_bwd.cu, each given the
 layout as element strides, so both layouts run the same kernels (or
-raise): bf16 on the tensor-core kernels, which copy 16-byte pieces and so
-need every row start 16-byte aligned (checked here), f32 on the CUDA-core
-kernels. On CPU tensors they take `attention_plain` /
+raise): bf16 on the tensor-core kernels, f32 on the CUDA-core ones. The
+forward kernels copy 16-byte pieces and so need every row start 16-byte
+aligned (checked here for both dtypes; the f32 backward takes any). On CPU
+tensors they take `attention_plain` /
 `attention_bwd_plain`, the same arithmetic in plain PyTorch, in the TPU
 kernels' order.
 
@@ -162,15 +163,16 @@ def _strides_bhsd(t: torch.Tensor):
 
 
 def _check_rows_aligned(dtype, layouts):
-    """bf16 runs on the tensor-core kernels, whose cp.async copies move 16
-    bytes: every row start of every operand must be 16-byte aligned.
-    layouts: (data pointers, (batch, head, row) element strides) pairs."""
-    if dtype != torch.bfloat16:
-        return
+    """Both kernels' cp.async copies move 16 bytes: every row start of
+    every operand must be 16-byte aligned. The towers' fused [B, S, 3D]
+    tensors always are (3D * dh a multiple of 16 bytes at dh 16, 32, 64),
+    as are contiguous [B, H, S, dh] ones. layouts: (data pointers, (batch,
+    head, row) element strides) pairs."""
+    esize = torch.tensor([], dtype=dtype).element_size()
     for ptrs, strides in layouts:
-        if any(p % 16 for p in ptrs) or any(s * 2 % 16 for s in strides):
+        if any(p % 16 for p in ptrs) or any(s * esize % 16 for s in strides):
             raise ValueError(
-                "bf16 attention needs 16-byte aligned rows: data pointers "
+                f"{dtype} attention needs 16-byte aligned rows: data pointers "
                 f"{[p % 16 for p in ptrs]} bytes past 16, element strides "
                 f"{tuple(strides)}")
 
@@ -191,8 +193,9 @@ def _launch_fwd(ptrs, mask, out, B, S, heads, dh, in_strides,
 
 def _launch_bwd(ptrs, mask, g, B, S, heads, dh, in_strides, g_strides):
     """ptrs: data pointers of q, k, v, dq, dk, dv."""
-    _check_rows_aligned(g.dtype, [(ptrs, in_strides),
-                                  ((g.data_ptr(),), g_strides)])
+    if g.dtype == torch.bfloat16:  # the f32 backward copies 4 bytes at a time
+        _check_rows_aligned(g.dtype, [(ptrs, in_strides),
+                                      ((g.data_ptr(),), g_strides)])
     stats = torch.empty(3 * B * heads * S, dtype=torch.float32,
                         device=g.device)
     q, k, v, dq, dk, dv = ptrs

@@ -70,6 +70,67 @@ def histograms_plain(windows: torch.Tensor, height: int,
     return counts.to(torch.float32).reshape(M, 2, H, W)
 
 
+SMEM_LIMIT = 232448  # shared memory a Hopper block may use (227 KB)
+MAX_CLUSTER = 16  # CTAs in a cluster (above 8: a non-portable size)
+
+
+@dataclasses.dataclass(frozen=True)
+class HistogramPlan:
+    """How csrc/histogram.cu splits one window's [2H, W] plane: clusters of
+    `cluster` CTAs, each CTA owning `rows` consecutive rows in its shared
+    memory (u32 counts), `bands` clusters a window. CTA c of band b owns
+    rows [(b * cluster + c) * rows, + rows), clipped to 2H."""
+
+    cluster: int
+    rows: int
+    bands: int
+
+    def row_ranges(self, height: int):
+        """[(first, end)] plane rows of every CTA of one window, band by
+        band (empty ranges past 2H included)."""
+        R = 2 * height
+        return [(min(i * self.rows, R), min((i + 1) * self.rows, R))
+                for i in range(self.cluster * self.bands)]
+
+    def smem_bytes(self, width: int) -> int:
+        return -(-self.rows * width // 4) * 16
+
+
+def histogram_plan(height: int, width: int,
+                   smem_limit: int = SMEM_LIMIT) -> HistogramPlan:
+    """The cluster, rows a CTA and bands for an H x W frame.
+
+    A CTA takes at most a third of an SM's shared memory, so three share an
+    SM and one's stores overlap the others' counting (on the card this beat
+    one or two CTAs an SM at 180x240 and 480x640, and four, whose frames
+    need twice the bands). A cluster is the least power of two of such
+    CTAs that covers the 2H rows; a frame too large for 16 of them runs in
+    row bands of 16 CTAs, each band reading the window's events once."""
+    R, row_bytes = 2 * height, 4 * width
+    # the SM holds the block limit plus one 1 KiB reserve a resident block
+    budget = (smem_limit + 1024) // 3 - 1024
+    if row_bytes > budget:  # a very wide frame: one CTA an SM
+        budget = smem_limit
+    if row_bytes > budget:
+        raise ValueError(f"a frame row of {width} pixels does not fit in "
+                         f"{budget} bytes of shared memory")
+    ctas = -(-R // (budget // row_bytes))
+    if ctas <= MAX_CLUSTER:
+        cluster = 1 << (ctas - 1).bit_length()
+        return HistogramPlan(cluster, -(-R // cluster), 1)
+    bands = -(-ctas // MAX_CLUSTER)
+    return HistogramPlan(MAX_CLUSTER, -(-R // (MAX_CLUSTER * bands)), bands)
+
+
+def device_histogram_plan(device: torch.device, height: int,
+                          width: int) -> HistogramPlan:
+    """`histogram_plan` for the shared memory of the CUDA card `device`:
+    the plan `histograms` launches there."""
+    props = torch.cuda.get_device_properties(device)
+    return histogram_plan(height, width, getattr(
+        props, "shared_memory_per_block_optin", SMEM_LIMIT))
+
+
 def _check_windows(windows: torch.Tensor) -> None:
     if windows.dim() != 3 or windows.shape[-1] not in (3, 4):
         raise ValueError(
@@ -85,13 +146,22 @@ def histograms(windows: torch.Tensor, height: int,
                width: int) -> torch.Tensor:
     """[M, N, 4|3] event windows -> float32 [M, 2, H, W] count histograms.
 
-    CUDA tensors run the histogram kernel (or raise); CPU tensors run
-    `histograms_plain`."""
+    CUDA tensors run the histogram kernel (or raise) under
+    `device_histogram_plan`; CPU tensors run `histograms_plain`."""
     _check_windows(windows)
     if windows.device.type == "cpu":
         return histograms_plain(windows, height, width)
     if windows.device.type != "cuda":
         raise ValueError(f"unsupported device {windows.device}")
+    return launch_histograms(windows, height, width, device_histogram_plan(
+        windows.device, height, width))
+
+
+def launch_histograms(windows: torch.Tensor, height: int, width: int,
+                      plan: HistogramPlan) -> torch.Tensor:
+    """The histogram kernel on CUDA windows under a given plan (checked
+    windows; `histograms` passes its own plan, kernel_variants.py and the
+    card tests others)."""
     M, N, ch = windows.shape
     if N >= 1 << 24:  # the kernel counts in f32, exact below 2^24
         raise ValueError(f"window of {N} events: the histogram kernel "
@@ -103,7 +173,8 @@ def histograms(windows: torch.Tensor, height: int,
         stream = torch.cuda.current_stream(windows.device).cuda_stream
         rc = lib.event_histogram(
             windows.data_ptr(), M, N, ch, int(windows.dtype == torch.int16),
-            height, width, out.data_ptr(), stream)
+            height, width, plan.cluster, plan.rows, plan.bands,
+            out.data_ptr(), stream)
     kernels.check(lib, rc, "event_histogram")
     kernels.LAUNCHES["histogram"] += 1
     return out

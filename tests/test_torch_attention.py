@@ -64,6 +64,19 @@ def test_plain_matches_pallas_kernel(heads, dh, S, masked, dtype):
                                rtol=0)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_plain_matches_pallas_kernel_f32_at_577(masked):
+    # ViT-L/14@336's sequence in f32, which the CUDA kernel once refused
+    heads, dh, S = 2, 16, 577
+    qkv, mask = _inputs(S + masked, 1, S, heads, dh, masked)
+    jq, jm = _jax("float32", qkv, mask)
+    want = np.asarray(_qkv_attention_forward(jq, jm, heads, dh ** -0.5))
+    tq, tm = _torch("float32", qkv, mask)
+    got = fused_qkv_attention(tq, heads, tm)
+    assert got.shape == (1, S, heads * dh)
+    np.testing.assert_allclose(got.numpy(), want, atol=TOL["float32"], rtol=0)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("masked", [False, True])
 def test_plain_matches_xla_reference(masked, dtype):
@@ -99,22 +112,26 @@ def test_wrapper_checks_its_input():
         fused_qkv_attention(torch.zeros(1, 3 * 64, 5).transpose(1, 2), 1)
 
 
-@pytest.mark.parametrize("ptrs,strides,ok", [
-    ((0, 2048), (257 * 3072, 64, 3072), True),  # fused ViT-L/14 qkv
-    ((0, 32), (257 * 96, 16, 96), True),  # fused, dh 16
-    ((2,), (257 * 3072, 64, 3072), False),  # a view 2 bytes past 16
-    ((0,), (9 * 1538, 64, 1538), False),  # a row of 3076 bytes
-    ((0,), (9 * 3072, 4, 3072), False),  # a head of 8 bytes
+@pytest.mark.parametrize("ptrs,strides,ok_bf16,ok_f32", [
+    ((0, 2048), (257 * 3072, 64, 3072), True, True),  # fused ViT-L/14 qkv
+    ((0, 32), (257 * 96, 16, 96), True, True),  # fused, dh 16
+    ((0, 64), (77 * 2304, 64, 2304), True, True),  # fused text tower
+    ((0,), (12 * 77 * 16, 77 * 16, 16), True, True),  # [B, H, S, dh], dh 16
+    ((2,), (257 * 3072, 64, 3072), False, False),  # a view 2 bytes past 16
+    ((4,), (257 * 3072, 64, 3072), False, False),  # a view 4 bytes past 16
+    ((0,), (9 * 1538, 64, 1538), False, False),  # a row of 3076 / 6152 bytes
+    ((0,), (9 * 3072, 4, 3072), False, True),  # a head of 8 / 16 bytes
+    ((0,), (9 * 3074, 64, 3074), False, False),  # f32 rows 8 bytes past 16
 ])
-def test_bf16_rows_must_be_16_byte_aligned(ptrs, strides, ok):
-    # the rule the tensor-core kernels' 16-byte copies need; f32 runs on
-    # the CUDA-core kernels, which take any alignment
+def test_bf16_rows_must_be_16_byte_aligned(ptrs, strides, ok_bf16, ok_f32):
+    # the rule the forward kernels' 16-byte copies need, in bf16 (tensor
+    # cores) and in f32 (CUDA cores) alike
     from eventclip_tpu_torch.ops.attention import _check_rows_aligned
 
-    _check_rows_aligned(torch.float32, [(ptrs, strides)])
-    if ok:
-        _check_rows_aligned(torch.bfloat16, [(ptrs, strides)])
-    else:
-        with pytest.raises(ValueError, match="16-byte aligned"):
-            _check_rows_aligned(torch.bfloat16, [((0,), (0, 0, 0)),
-                                                 (ptrs, strides)])
+    for dtype, ok in ((torch.bfloat16, ok_bf16), (torch.float32, ok_f32)):
+        if ok:
+            _check_rows_aligned(dtype, [(ptrs, strides)])
+        else:
+            with pytest.raises(ValueError, match="16-byte aligned"):
+                _check_rows_aligned(dtype, [((0,), (0, 0, 0)),
+                                            (ptrs, strides)])

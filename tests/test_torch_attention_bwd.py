@@ -69,6 +69,26 @@ def test_fused_qkv_grad_matches_pallas_kernel(dh, S, masked, dtype):
 
 
 @pytest.mark.parametrize("masked", [False, True])
+def test_fused_qkv_grad_matches_pallas_kernel_f32_at_577(masked):
+    # ViT-L/14@336's sequence in f32, which the CUDA backward once refused
+    heads, dh, S, B = 2, 16, 577, 1
+    rng = np.random.default_rng(S + masked)
+    qkv = rng.normal(size=(B, S, 3 * heads * dh)).astype(np.float32)
+    g = rng.normal(size=(B, S, heads * dh)).astype(np.float32)
+    mask = _mask(S) if masked else None
+    jm = None if mask is None else jnp.asarray(mask)
+    out, vjp = jax.vjp(lambda x: ref_fused(x, heads, jm, use_pallas=True),
+                       jnp.asarray(qkv))
+    (want,) = vjp(jnp.asarray(g))
+    tq = torch.from_numpy(qkv).requires_grad_()
+    tm = None if mask is None else torch.from_numpy(mask)
+    got_out = fused_qkv_attention(tq, heads, tm)
+    got_out.backward(torch.from_numpy(g))
+    _close(got_out, out, "float32")
+    _close(tq.grad, want, "float32")
+
+
+@pytest.mark.parametrize("masked", [False, True])
 def test_mask_cotangent_matches_jax(masked):
     heads, dh, S = 2, 32, 17
     rng = np.random.default_rng(3)

@@ -5,7 +5,8 @@ package, so it also runs on a machine without them:
 
     python -m pytest --noconftest tests/test_torch_card.py -q
 
-Tolerances (chip_smoke.py's `ATOL` and `REL`): the histogram is exact;
+Tolerances (chip_smoke.py's `ATOL` and `REL`): the histogram is exact,
+also on adversarial windows, in row bands and under every plan;
 attention forward and backward are held, output by output, to a max
 |kernel - plain| (f32 1e-5, bf16 2e-2: the kernel and the plain version
 sum in different orders, and bf16 rounds p, ds and the outputs, so a value
@@ -71,13 +72,158 @@ def test_attention_kernel_matches_plain_on_card(cuda, dtype, S, heads, dh,
 @pytest.mark.parametrize("H,W", [(180, 240), (100, 120), (480, 640)])
 def test_histogram_kernel_matches_plain_on_card(cuda, H, W):
     gen = torch.Generator(device=cuda).manual_seed(H)
-    M, N = 4, 5000
-    wins = torch.stack([
-        torch.randint(-20, W + 20, (M, N), generator=gen, device=cuda),
-        torch.randint(-20, H + 20, (M, N), generator=gen, device=cuda),
-        torch.randint(-1, 2, (M, N), generator=gen, device=cuda),
-    ], -1).to(torch.int16).contiguous()
+    wins = _windows(gen, 4, 5000, H, W, cuda)
     assert torch.equal(histograms(wins, H, W), histograms_plain(wins, H, W))
+
+
+def _windows(gen, M, N, H, W, device):
+    """Packed int16 [M, N, 3] windows with out-of-bounds and p == 0 rows."""
+    return torch.stack([
+        torch.randint(-20, W + 20, (M, N), generator=gen, device=device),
+        torch.randint(-20, H + 20, (M, N), generator=gen, device=device),
+        torch.randint(-1, 2, (M, N), generator=gen, device=device),
+    ], -1).to(torch.int16).contiguous()
+
+
+def _f32_layout(wins):
+    """The same events as [M, N, 4] float32 x, y, t = 0, p."""
+    return torch.cat([wins[..., :2], torch.zeros_like(wins[..., :1]),
+                      wins[..., 2:]], -1).float().contiguous()
+
+
+@pytest.mark.parametrize("case", ["one pixel", "only p == 0",
+                                  "only out of bounds", "N not a multiple "
+                                  "of the block", "M = 1"])
+def test_histogram_kernel_exact_on_adversarial_windows(cuda, case):
+    # 480x640 (a cluster of 16 CTAs in two bands) with windows that pile
+    # every event on one bin, drop them all, or leave ragged ends
+    H, W, N = 480, 640, 70000
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    wins = _windows(gen, 3, N, H, W, cuda)
+    if case == "one pixel":  # every event on one bin, both polarities
+        wins[..., 0], wins[..., 1] = 5, 7
+        wins[0, :, 2], wins[1, :, 2] = 1, -1
+    elif case == "only p == 0":
+        wins[..., 2] = 0
+    elif case == "only out of bounds":
+        wins[..., 0] = torch.where(wins[..., 0] % 2 == 0, -1, W)
+    elif case == "N not a multiple of the block":
+        wins = wins[:, :5001].contiguous()
+    else:
+        wins = wins[:1].contiguous()
+    for w in (wins, _f32_layout(wins)):
+        got = histograms(w, H, W)
+        assert torch.equal(got, histograms_plain(wins, H, W))
+    if case == "one pixel":
+        assert got[0, 0, 7, 5] == N and got[1, 1, 7, 5] == N
+    if case in ("only p == 0", "only out of bounds"):
+        assert not got.any()
+
+
+@pytest.mark.parametrize("H,W", [(480, 640), (720, 1280)])
+@pytest.mark.parametrize("layout", ["packed", "f32"])
+def test_histogram_kernel_exact_at_large_frames(cuda, H, W, layout):
+    # N-ImageNet's 480x640 and a 720x1280 frame, which runs in row bands
+    gen = torch.Generator(device=cuda).manual_seed(W)
+    wins = _windows(gen, 5, 70000, H, W, cuda)
+    w = wins if layout == "packed" else _f32_layout(wins)
+    assert torch.equal(histograms(w, H, W), histograms_plain(wins, H, W))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_histogram_kernel_exact_on_misaligned_f32_windows(cuda, offset):
+    # a contiguous [M, N, 4] f32 view 4 * offset bytes past a 16-byte
+    # boundary: the kernel reads such events as scalars
+    H, W = 180, 240
+    gen = torch.Generator(device=cuda).manual_seed(offset)
+    wins = _windows(gen, 3, 5001, H, W, cuda)
+    f32 = _f32_layout(wins).flatten()
+    flat = torch.empty(f32.numel() + offset, device=cuda)
+    flat[offset:] = f32
+    view = flat[offset:].view(3, 5001, 4)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4 * offset
+    assert torch.equal(histograms(view, H, W), histograms_plain(wins, H, W))
+    torch.cuda.synchronize()
+
+
+def test_histogram_kernel_exact_under_every_plan(cuda):
+    # each cluster size and band count that covers a 180x240 plane
+    from eventclip_tpu_torch.ops.rasterize import (HistogramPlan,
+                                                     launch_histograms)
+
+    H, W = 180, 240
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    wins = _windows(gen, 6, 20000, H, W, cuda)
+    want = histograms_plain(wins, H, W)
+    for cluster in (1, 2, 4, 8, 16):
+        for bands in (1, 2, 3):
+            rows = -(-2 * H // (cluster * bands))
+            if rows * W * 4 > 232448:
+                continue
+            plan = HistogramPlan(cluster, rows, bands)
+            got = launch_histograms(wins, H, W, plan)
+            assert torch.equal(got, want), plan
+
+
+@pytest.mark.parametrize("S,heads,dh,masked", [
+    (77, 12, 64, True),  # the ViT-L/14 text tower
+    (77, 3, 32, True),
+    (77, 2, 16, True),  # the ViT-T/8@32 text tower
+    (17, 2, 32, False),
+    (1, 2, 64, False),
+    (65, 2, 64, False),
+    (257, 4, 64, False),  # ViT-L/14's sequence
+    (577, 4, 64, False),  # ViT-L/14@336's, refused before
+    (577, 2, 16, True),
+])
+def test_f32_forward_kernel_matches_plain_on_card(cuda, S, heads, dh, masked):
+    # the f32 forward on the CUDA cores, fused and [B, H, S, dh] layouts
+    gen = torch.Generator(device=cuda).manual_seed(S * dh + masked)
+    D = heads * dh
+    qkv = torch.randn((2, S, 3 * D), generator=gen, device=cuda)
+    mask = causal_mask(S, device=cuda) if masked else None
+    _assert_matches([fused_qkv_attention(qkv, heads, mask)],
+                    [qkv_attention_plain(qkv, heads, mask)], torch.float32)
+    q, k, v = (t.reshape(2, S, heads, dh).transpose(1, 2).contiguous()
+               for t in qkv.split(D, -1))
+    _assert_matches([multi_head_attention(q, k, v, mask)],
+                    [attention_plain(q, k, v, mask)], torch.float32)
+
+
+@pytest.mark.parametrize("dh,masked", [(64, False), (16, True)])
+def test_f32_backward_kernel_at_577_matches_plain_on_card(cuda, dh, masked):
+    # S = 577 in f32, which the backward once refused; K and V are staged
+    # in chunks of keys
+    gen = torch.Generator(device=cuda).manual_seed(577 + dh)
+    heads, S = 2, 577
+    D = heads * dh
+    qkv = torch.randn((2, S, 3 * D), generator=gen, device=cuda)
+    g = torch.randn((2, S, D), generator=gen, device=cuda)
+    mask = causal_mask(S, device=cuda) if masked else None
+    got = qkv_attention_bwd(qkv, g, heads, mask)
+    assert torch.equal(got, qkv_attention_bwd(qkv, g, heads, mask))
+    _assert_matches(got.split(D, -1),
+                    qkv_attention_bwd_plain(qkv, g, heads, mask).split(D, -1),
+                    torch.float32)
+    q, k, v, gh = (t.reshape(2, S, heads, dh).transpose(1, 2).contiguous()
+                   for t in (*qkv.split(D, -1), g))
+    _assert_matches(attention_bwd(q, k, v, gh, mask),
+                    attention_bwd_plain(q, k, v, gh, mask), torch.float32)
+
+
+def test_misaligned_f32_rows_raise_on_card(cuda):
+    # the f32 forward copies 16 bytes too; the f32 backward takes any row
+    B, S, D = 2, 9, 64
+    flat = torch.randn(B * S * 3 * D + 1, device=cuda)
+    qkv = flat[1:].view(B, S, 3 * D)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="16-byte"):
+        fused_qkv_attention(qkv, 1)
+    assert dict(kernels.LAUNCHES) == {}
+    g = torch.randn(B, S, D, device=cuda)
+    _assert_matches(qkv_attention_bwd(qkv, g, 1).split(D, -1),
+                    qkv_attention_bwd_plain(qkv, g, 1).split(D, -1),
+                    torch.float32)
 
 
 def test_dense_bf16_on_card_matches_cpu(cuda):

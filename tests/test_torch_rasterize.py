@@ -20,7 +20,9 @@ from eventclip_tpu.ops.preprocess import ClipPreprocess as RefPreprocess
 from eventclip_tpu_torch.ops import numpy_ref
 from eventclip_tpu_torch.ops.preprocess import ClipPreprocess
 from eventclip_tpu_torch.ops.rasterize import (
+    SMEM_LIMIT,
     RasterSpec,
+    histogram_plan,
     histograms,
     histograms_plain,
     rasterize_for_clip,
@@ -28,6 +30,8 @@ from eventclip_tpu_torch.ops.rasterize import (
 )
 
 GEOMETRIES = [(180, 240), (100, 120), (480, 640)]  # N-Caltech, N-Cars, N-IN
+# 242 plane rows over 16 CTAs of 16 rows: the last CTA holds 2
+RAGGED = (121, 1000)
 
 
 def synth_events(rng, n, H, W, hot_pixels=0):
@@ -60,7 +64,7 @@ def oracle_histograms(wins, H, W):
     return np.stack(out).astype(np.float32)
 
 
-@pytest.mark.parametrize("H,W", GEOMETRIES)
+@pytest.mark.parametrize("H,W", GEOMETRIES + [RAGGED])
 def test_histogram_plain_equals_pallas_kernel_and_oracle(H, W, monkeypatch):
     rng = np.random.default_rng(H)
     wins = edge_windows(rng, 3, 300, H, W)
@@ -77,6 +81,37 @@ def test_histogram_plain_equals_pallas_kernel_and_oracle(H, W, monkeypatch):
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(got, oracle_histograms(wins, H, W))
     assert got.dtype == np.float32 and got.shape == (3, 2, H, W)
+
+
+@pytest.mark.parametrize("H,W", GEOMETRIES + [(720, 1280), RAGGED])
+def test_histogram_plan_covers_every_row_once(H, W):
+    """The CUDA kernel's plan: every row of the [2H, W] plane in exactly one
+    CTA, each CTA within a block's shared memory, clusters of at most 16
+    CTAs; 720x1280 needs row bands, and RAGGED's rows do not divide evenly
+    over its CTAs."""
+    plan = histogram_plan(H, W)
+    ranges = plan.row_ranges(H)
+    rows = [r for first, end in ranges for r in range(first, end)]
+    assert rows == list(range(2 * H))
+    assert len(ranges) == plan.cluster * plan.bands
+    assert plan.cluster in (1, 2, 4, 8, 16) and plan.bands >= 1
+    assert plan.smem_bytes(W) <= SMEM_LIMIT == 232448
+    assert plan.rows * W * 4 <= plan.smem_bytes(W)
+    # the last band starts inside the plane: no band is wholly empty
+    assert (plan.bands - 1) * plan.cluster * plan.rows < 2 * H
+    if (H, W) == (720, 1280):
+        assert plan.bands > 1
+    if (H, W) == RAGGED:
+        assert len({end - first for first, end in ranges}) > 1
+
+
+def test_histogram_plan_follows_the_card_limit():
+    # a smaller block limit gives smaller CTAs, never a row split
+    big, small = histogram_plan(480, 640), histogram_plan(480, 640, 100_000)
+    assert small.smem_bytes(640) <= 100_000 and small.rows < big.rows
+    assert small.cluster * small.bands * small.rows >= 960
+    with pytest.raises(ValueError):
+        histogram_plan(8, 70_000)  # one row beyond a block's memory
 
 
 def test_histogram_plain_counts_repeats_exactly():
