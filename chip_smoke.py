@@ -15,8 +15,9 @@ non-zero):
    and windows with every event on one pixel; the fused-qkv attention
    forward K2 and its backward K3 on the ViT-L/14 (bf16, no mask; serving
    and training batches), text tower (f32, causal mask) and tiny-tower
-   (dh 32 / 16) shapes; f32 K2 at [8, 257, 3072] and K2 / K3 at
-   ViT-L/14@336's S = 577; bf16 K2 / K3 with the causal mask at S = 77 and
+   (dh 32 / 16) shapes; f32 K2 / K3 at [8, 257, 3072], at phase 7's
+   [64, 257, 3072] and at ViT-L/14@336's S = 577; bf16 K2 / K3 with the
+   causal mask at S = 77 and
    at S = 577; K4, the [B, H, S, dh] attention, forward and backward.
    bf16 attention runs on the tensor-core kernels, f32 on the
    CUDA-core ones. Each attention check holds the max |kernel - plain| and,
@@ -48,6 +49,12 @@ non-zero):
 6. FT update card vs CPU: a 2-layer ViT-L/14 at full width, f32, one
    update on the same small batch with the kernels on the card and the
    plain versions on the CPU; gradient cosine and relative differences.
+7. f32 FT training: phase 5's config and trainer with bf16 = False set on
+   the loaded config (f32 end to end, the f32 K2 and K3 kernels), ViT-L/14
+   at full width and depth with remat, batch cut from 128 to 32 (x 2
+   views); sanity eval, 3 timed steps with the counters zeroed just before
+   and read just after (K1 1, K2 48, K3 24 per step), one profiled step
+   (K3 f32's share of it).
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Imports nothing
@@ -441,7 +448,8 @@ def synth_prompts(rng, n_cls, context):
 
 def profile_call(tag, label, fn):
     """Device time by kernel over one call of fn() (torch.profiler), and
-    the device's busy share of the call's wall time."""
+    the device's busy share of the call's wall time; returns the wall and
+    busy ms and every (ms, count, name) row."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -471,7 +479,7 @@ def profile_call(tag, label, fn):
     for ms, count, key in rows[:12]:
         log(f"[{tag}]   {ms:9.3f} ms  {100 * ms / busy:5.1f}%  x{count:<5d}"
             f" {key[:90]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy)
+    return dict(wall_ms=wall_ms, busy_ms=busy, rows=rows)
 
 
 def check_probs(out, n, n_cls):
@@ -539,8 +547,12 @@ def leaf_snapshot(params):
     }
 
 
-def train_phase(dev, n_steps=4):
-    """Phase 5: the FT slice through EventCLIPTrainer."""
+def train_phase(dev, tag="5 train", n_steps=4, bf16=None, batch=None,
+                checkpoint=True):
+    """Phase 5 (and 7): the FT slice through EventCLIPTrainer. `bf16`
+    (False: f32 end to end) and `batch` (train batch; eval twice that)
+    override the loaded config, as a user would set them; `checkpoint`
+    adds the moved / frozen leaves and the checkpoint round trip."""
     import torch
 
     from eventclip_tpu_torch import kernels
@@ -551,6 +563,15 @@ def train_phase(dev, n_steps=4):
 
     params = load_params(os.path.join(HERE, "configs", "ftclip",
                                       "ft_text_fsclip_nin_params.py"))
+    cuts = []
+    if bf16 is not None:
+        params.bf16 = bf16
+        cuts.append(f"bf16={bf16}")
+    if batch is not None:
+        cuts.append(f"train_batch_size {params.train_batch_size} -> {batch},"
+                    f" val_batch_size {params.val_batch_size} -> {2 * batch}"
+                    " (to keep chip_smoke within its time)")
+        params.train_batch_size, params.val_batch_size = batch, 2 * batch
     bs = int(params.train_batch_size)
     q = dict(params.quantize_args)
     train_set = EventWindowDataset(SyntheticNImageNet(bs * n_steps, seed=1),
@@ -558,26 +579,27 @@ def train_phase(dev, n_steps=4):
     val_set = EventWindowDataset(
         SyntheticNImageNet(int(params.val_batch_size), seed=2),
         dict(q, max_imgs=10))
-    log(f"[5 train] {params.model} {params.clip_dict['arch']} "
+    log(f"[{tag}] {params.model} {params.clip_dict['arch']} "
         f"{params.dataset} {train_set.resolution}, N {train_set.window}, "
         f"views {train_set.max_imgs} (val {val_set.max_imgs}), batch {bs}; "
         f"train set built with augment=False (the config's img_aug="
         f"{params.get('img_aug')} asks for on-device RandAugment, not "
-        "ported yet)")
+        "ported yet)" + "".join(f"; set on the loaded config: {c}"
+                                 for c in cuts))
     out = {}
     with tempfile.TemporaryDirectory() as ckpt_dir:
         t0 = time.perf_counter()
         trainer = EventCLIPTrainer(params, train_set, val_set, ckpt_dir,
                                    smoke=True, seed=0, device=dev)
         cfg = trainer.cls_cfg
-        log(f"[5 train] trainer built in {time.perf_counter() - t0:.1f} s: "
+        log(f"[{tag}] trainer built in {time.perf_counter() - t0:.1f} s: "
             f"ft_mode {cfg.ft_mode}, prompt_tuning {cfg.prompt_tuning}, "
             f"dtype {cfg.dtype}, remat {cfg.remat}, accum {trainer.accum}, "
             f"lr groups "
             f"{[g['name'] for g in trainer.optimizer.torch_opt.param_groups]}")
         kernels.reset_launches()
         sanity = trainer.evaluate(max_steps=1)
-        log(f"[5 train] sanity eval (1 batch): launches "
+        log(f"[{tag}] sanity eval (1 batch): launches "
             f"{dict(kernels.LAUNCHES)}")
 
         before = {k: v.detach().cpu().clone()
@@ -593,7 +615,7 @@ def train_phase(dev, n_steps=4):
         L = trainer.clip_cfg.vision.layers
         want = {"histogram": steps, "qkv_attention": 2 * L * steps,
                 "qkv_attention_bwd": L * steps}
-        log(f"[5 train] launches over the {steps} timed steps {launches} "
+        log(f"[{tag}] launches over the {steps} timed steps {launches} "
             f"(per step: K1 1, K2 {2 * L} = {L} layers x forward + remat "
             f"recompute, K3 {L} expected)")
         if launches != want:
@@ -603,7 +625,7 @@ def train_phase(dev, n_steps=4):
         med = statistics.median(step_ms)
         host_share = sum(wait_ms) / (sum(wait_ms) + sum(step_ms))
         loss = float(stats["total_loss"])
-        log(f"[5 train] steps (ms): {[round(x, 1) for x in step_ms]}; "
+        log(f"[{tag}] steps (ms): {[round(x, 1) for x in step_ms]}; "
             f"median {med:.1f} ms, {bs / (med / 1e3):.1f} samples/s; host "
             f"loader wait {[round(x, 1) for x in wait_ms]} ms, "
             f"{100 * host_share:.1f}% of the epoch's step time; peak memory "
@@ -611,37 +633,42 @@ def train_phase(dev, n_steps=4):
             f"{stats['train_acc']:.4f}")
         if not np.isfinite(loss):
             raise AssertionError(f"non-finite training loss {loss}")
+        out = dict(step_ms=step_ms, median_step_ms=med,
+                   samples_per_s=bs / (med / 1e3), host_wait_ms=wait_ms,
+                   host_share=host_share, peak_gib=peak_gb, loss=loss,
+                   launches_per_step={k: v // steps
+                                      for k, v in launches.items()},
+                   sanity_eval=sanity)
+        host_batch = next(iter(trainer.train_loader.epoch(1)))
+        placed = trainer.device_batch(host_batch)
+        out["profile"] = profile_call(f"{tag.split()[0]} profile",
+                                      "one train step",
+                                      lambda: trainer.train_step(placed))
+        if not checkpoint:
+            del trainer
+            torch.cuda.empty_cache()
+            return out, launches
         after = leaf_snapshot(trainer.model_params)
         for name, old in before.items():
             moved = not torch.equal(old, after[name].detach().cpu())
-            log(f"[5 train]   {name}: {'moved' if moved else 'unchanged'}")
+            log(f"[{tag}]   {name}: {'moved' if moved else 'unchanged'}")
             if moved != ("trained" in name):
                 raise AssertionError(f"{name}: moved={moved}")
-
-        host_batch = next(iter(trainer.train_loader.epoch(1)))
-        batch = trainer.device_batch(host_batch)
-        prof = profile_call("5 profile", "one train step",
-                            lambda: trainer.train_step(batch))
 
         val = trainer.evaluate()
         trainer.ckpt.save(trainer.model_params, trainer.optimizer.count, val)
         path = os.path.join(trainer.ckpt.dir, "best.npz")
-        trainer.train_step(batch)  # move the trained leaves once more
+        trainer.train_step(placed)  # move the trained leaves once more
         load_checkpoint(path, target=trainer.model_params)
         again = trainer.evaluate()
-        log(f"[5 train] checkpoint {os.path.getsize(path) / 2 ** 20:.0f} MiB"
+        log(f"[{tag}] checkpoint {os.path.getsize(path) / 2 ** 20:.0f} MiB"
             f" saved, parameters moved by one step, reloaded: eval {val} "
             f"-> {again}")
         for k in val:
             if not np.isclose(val[k], again[k], rtol=1e-6, atol=1e-6):
                 raise AssertionError(f"eval after reload: {k} {val[k]} != "
                                      f"{again[k]}")
-        out = dict(step_ms=step_ms, median_step_ms=med,
-                   samples_per_s=bs / (med / 1e3), host_wait_ms=wait_ms,
-                   host_share=host_share, peak_gib=peak_gb, loss=loss,
-                   launches_per_step={k: v // steps
-                                      for k, v in launches.items()},
-                   sanity_eval=sanity, eval=val, profile=prof)
+        out.update(eval=val)
         del trainer
     torch.cuda.empty_cache()
     return out, launches
@@ -762,7 +789,7 @@ def main() -> int:
     # -- 2 ---------------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     # each path's records at the shapes that path gives the kernel
-    rec = {"serve": {}, "train": {}, "none": {}}
+    rec = {"serve": {}, "train": {}, "train_f32": {}, "none": {}}
     rec["serve"]["histogram"] = check_histogram(
         gen, "N-Caltech serving", 320, 20000, 180, 240, dev)
     check_histogram(gen, "N-Cars", 32, 30000, 100, 120, dev)
@@ -791,8 +818,8 @@ def main() -> int:
     rec["train"]["qkv_attention_bwd"] = check_attention_bwd(
         gen, "ViT-L/14 training", 256, 257, 16, 64, torch.bfloat16, False,
         dev)
-    check_attention_bwd(gen, "text ViT-L/14", 101, 77, 12, 64, torch.float32,
-                        True, dev)
+    f32["bwd text"] = check_attention_bwd(gen, "text ViT-L/14", 101, 77, 12,
+                                          64, torch.float32, True, dev)
     check_attention_bwd(gen, "ViT-T/8@32", 80, 17, 2, 32, torch.float32,
                         False, dev)
     check_attention_bwd(gen, "ViT-T/8@32 bf16", 80, 17, 2, 32,
@@ -801,6 +828,16 @@ def main() -> int:
                         torch.float32, True, dev)
     f32["bwd S=577"] = check_attention_bwd(gen, "f32 S=577", 8, 577, 16, 64,
                                            torch.float32, False, dev)
+    # f32 K3 at phase 6's shape, and K2 / K3 at phase 7's f32 FT step
+    f32["bwd S=257"] = check_attention_bwd(gen, "f32 S=257", 8, 257, 16, 64,
+                                           torch.float32, False, dev)
+    rec["train_f32"] = {
+        "qkv_attention": check_attention(
+            gen, "ViT-L/14 f32 training", 64, 257, 16, 64, torch.float32,
+            False, dev),
+        "qkv_attention_bwd": check_attention_bwd(
+            gen, "ViT-L/14 f32 training", 64, 257, 16, 64, torch.float32,
+            False, dev)}
     # bf16 on the tensor-core kernels: the causal mask (the text tower's
     # shape) and ViT-L/14@336's S = 577 (ragged 64-row tiles)
     for name, B, S, heads, causal in (("text ViT-L/14 bf16", 101, 77, 12, True),
@@ -907,7 +944,23 @@ def main() -> int:
 
     # -- 5, 6 ---------------------------------------------------------------
     train, train_launches = train_phase(dev)
+    if train["profile"] is not None:
+        train["profile"].pop("rows")
     update = update_card_vs_cpu(dev)
+
+    # -- 7 ---------------------------------------------------------------
+    train32, train32_launches = train_phase(
+        dev, "7 train f32", n_steps=3, bf16=False, batch=32, checkpoint=False)
+    prof = train32["profile"]
+    if prof is not None:
+        rows = prof.pop("rows")
+        k3 = [r for r in rows if "_f32_kernel" in r[2]
+              and ("dq_" in r[2] or "dkdv_" in r[2])]
+        k3_ms = sum(r[0] for r in k3)
+        prof.update(k3_f32_ms=k3_ms, k3_f32_share=k3_ms / prof["busy_ms"])
+        log(f"[7 profile] K3 f32 (dq_f32_kernel + dkdv_f32_kernel) in one "
+            f"step: {k3_ms:.1f} ms, {100 * k3_ms / prof['busy_ms']:.1f}% of "
+            f"the step's device time ({prof['busy_ms']:.1f} ms)")
 
     sources = {
         "histogram": ("eventclip_tpu_torch/csrc/histogram.cu",
@@ -922,7 +975,8 @@ def main() -> int:
     # each kernel's row: this slice's path, FT training, with launches, ms
     # and bound from that path (K4 is on no path: its own check's shape);
     # by_path holds each path's own row
-    counts = {"serve": launches, "train": train_launches}
+    counts = {"serve": launches, "train": train_launches,
+              "train_f32": train32_launches}
     by_path = {p: {k: dict(launches=counts[p].get(k, 0), **r)
                    for k, r in recs.items()}
                for p, recs in rec.items() if p in counts}
@@ -934,7 +988,8 @@ def main() -> int:
         for k, (src, tpu) in sources.items()
     ], "text_attention": text, "f32_attention": f32,
         "rounding_orders": orders,
-        "requests": per_request, "train": train, "update_card_vs_cpu": update}
+        "requests": per_request, "train": train, "update_card_vs_cpu": update,
+        "train_f32": train32}
     log(json.dumps(line))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -102,12 +102,6 @@ constexpr int kF32RowStep = 16;      // query rows of one warp-row
 #endif
 constexpr int kF32Unroll = F32_UNROLL;
 
-// f32 tiles in shared memory: rows of DH floats padded by 4, so the 16-byte
-// loads of 4 (Q) or 8 (K) consecutive rows at one column fall in distinct
-// banks, and every row stays 16-byte aligned for cp.async
-template <int DH>
-constexpr int kF32Stride = DH + 4;
-
 // score rows: all keys of the row block (S rounded up to a warp's 32
 // keys), padded by 8 words: the 4 x 8 scalar stores of a warp's
 // (rows, keys) micro-tile hit 32 distinct banks
@@ -121,21 +115,6 @@ __host__ __device__ inline size_t f32_smem_bytes(int rows, int S) {
                           2 * (size_t)kF32Keys * kF32Stride<DH> +  // K / V ring
                           (size_t)rows * f32_score_stride(S) +     // scores
                           rows);                                   // 1 / sums
-}
-
-// Start the copy of rows r0 .. r0+n-1 of one head's [S, DH] f32 operand
-// into a padded tile, 16 bytes at a time (rows at or past S become zeros).
-// The caller commits the group.
-template <int DH>
-__device__ __forceinline__ void load_f32_tile(float* dst, const float* src,
-                                              const Strides& s, int b, int h,
-                                              int r0, int n, int S) {
-  constexpr int P = DH / 4;  // 16-byte pieces a row
-  for (int idx = threadIdx.x; idx < n * P; idx += blockDim.x) {
-    const int r = idx / P, c = (idx % P) * 4, i = r0 + r;
-    cp_async16(dst + r * kF32Stride<DH> + c, src + at(s, b, h, min(i, S - 1)) + c,
-               i < S);
-  }
 }
 
 // One block per (batch, head, `rows` query rows), rows a multiple of 16,

@@ -46,26 +46,51 @@
 // two kernels' p may differ in the last bits (their sums run in other
 // orders); the tolerance against the plain version decides.
 // Time at [256, 257, 3072] bf16 + g (chip_smoke.py, H100 80GB HBM3,
-// 700.00 W): 3.2783 ms, against 20.4554 ms for the CUDA-core kernels below
-// when they also ran bf16, and 1.3481 ms for the backward of torch's
+// 700.00 W): 3.2783 ms, against 20.4554 ms for an earlier CUDA-core design
+// when it also ran bf16, and 1.3481 ms for the backward of torch's
 // scaled_dot_product_attention.
 //
-// f32 (the text tower's shapes; its tower is frozen): dq_kernel and
-// dkdv_kernel on the CUDA cores, exact to 1e-5 of the plain version
-// (tensor cores would mean TF32):
-//   1. dq_kernel, one block per (batch, head, 64 query rows): stages the
-//      head's K and V in chunks of keys that fit beside the score rows (all
-//      S at once where they fit; rows padded against bank conflicts), so
-//      any S whose 4 score and dp rows fit in shared memory runs (S up to
-//      about 6,600 at dh 64); each warp carries 4 query rows, keeps their
-//      score and dp rows in shared memory, forms p, the row's
-//      rowsum(dp * p) and ds, then dq = ds . k.
-//   2. dkdv_kernel, one block per (batch, head, 32 keys): stages those keys'
-//      k and v rows, then walks the queries 32 at a time (their q, g and
-//      row statistics staged in shared memory), recomputes p and ds for the
-//      32 x 32 tile with the same sums in the same order as kernel 1 (so p
-//      and ds are the same bits), and accumulates dv and dk for its keys in
-//      registers: lanes own columns, warps own keys.
+// f32: dq_f32_kernel and dkdv_f32_kernel on the CUDA cores (tensor cores
+// would mean TF32). They serve the f32 FT path (bf16=False: the visual
+// tower's 24 layers at ViT-L/14, once a step each) and any tower trained in
+// f32; the forward's f32 kernel is attention.cu's attention_f32_kernel.
+// Bound on this card: operations, 10*B*H*S^2*dh at 67 TFLOP/s of f32 FMAs
+// (0.41 ms at [8, 577, 3072], against 0.04 ms of bytes). The kernels do 9
+// products where the bound counts 5 (dq 5: s and dp twice, ds . k; dk/dv 4).
+// What bounds the kernels below the f32 rate, and what the design does:
+//   - shared-memory loads: every product is a 4 x 4 register micro-tile fed
+//     by 16-byte loads from rows padded by 4 words, 8 loads for 64 FMAs, as
+//     in attention_f32_kernel;
+//   - shared memory per block, hence blocks an SM: no S-long row is kept.
+//     The dq kernel takes online row statistics in a first pass (m, l = sum
+//     exp(s - m) and t = sum dp * exp(s - m), rescaled as m grows, as
+//     dq_tc_kernel) and forms ds tile by tile in a second, so any S runs
+//     at two blocks an SM;
+//   - re-reading the streamed operands: a block takes up to 64 rows, so Q
+//     and G (or K and V) stream through the ring once a pass per 64 rows;
+//   - the ragged last tile: its score products skip whole 16-column groups
+//     past S (at S = 77, 80 of 128 key columns are computed).
+// Both kernels: one block per (batch, head, `rows` rows), 4 * rows
+// threads, rows chosen by the launcher (bwd_rows). The block's own rows (Q
+// and G, or K and V) are copied once; the other operands stream in 64-row
+// tiles through a 3-stage cp.async ring, one tile a step (K then V, or Q
+// with its rows' statistics then G), so a product of one step can still
+// read the tile of the step before while the next one lands.
+//   1. dq_f32_kernel: pass A, s = fl(q . k^T) * scale (+ mask) and dp = g .
+//      v^T into m, l and t; then delta = t / l, and m, l, delta go to the
+//      statistics scratch. Pass B recomputes s and dp, forms p = expf(s - m)
+//      * rcp(l) and ds = fl(fl(p * fl(dp - delta)) * scale) into a [rows x
+//      64] shared tile, and accumulates dq += ds . K_tile.
+//   2. dkdv_f32_kernel, transposed (keys as rows): s^T = k . q^T and dp^T =
+//      v . g^T with the same sums in the same order as kernel 1 (so p and ds
+//      are the same bits), p and ds from the streamed statistics, then dv +=
+//      p^T . G_tile and dk += ds^T . Q_tile through one shared tile.
+// Every output element is written by one thread, from sums in a fixed
+// order: no atomics, two runs give the same bits. The softmax uses expf and
+// a correctly rounded reciprocal and divide; against the plain version only
+// the order of f32 sums (and the online rescaling) moves roundings. Rows
+// that are 16-byte aligned are copied 16 bytes at a time, others 4 bytes.
+// Times in PERF.md.
 
 #include <stdint.h>
 
@@ -76,322 +101,464 @@ namespace {
 using namespace attn;
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
+// f32: CUDA cores, register-blocked
 
-constexpr int kTileRows = 64;    // query rows per dq block
-constexpr int kRowsPerWarp = 4;  // rows a warp carries at once
-constexpr int kKeys = 32;        // keys per dk/dv block (one per lane)
-constexpr int kChunk = 32;       // queries per step of a dk/dv block
-constexpr int kWarps2 = kChunk / kRowsPerWarp;  // 8 warps in a dk/dv block
+constexpr int kBwdTile = 64;      // rows of one streamed tile (keys or queries)
+constexpr int kBwdRowStep = 8;    // rows of one warp in the score products
+constexpr int kBwdMaxAuto = 64;   // rows of a block, at most, as bwd_rows picks
+// p / ds tile rows: 64 columns padded by 16 words, so the scalar stores of a
+// warp (two rows of 16 lanes) hit 32 distinct banks and rows stay 16-byte
+// aligned for the float4 loads
+constexpr int kBwdTStride = kBwdTile + 16;
 
-// K and V rows in shared memory are padded by one word, so lanes reading
-// different rows at the same column hit different banks
+// Variants for timing only (kernel_variants.py builds each with -D): the
+// rows of a dq block and the keys of a dk/dv block (0: bwd_rows picks
+// them), the blocks an SM that __launch_bounds__ asks for, and the
+// unrolling of the inner loops.
+#ifndef F32B_ROWS
+#define F32B_ROWS 0
+#endif
+#ifndef F32B_KEYS
+#define F32B_KEYS 0
+#endif
+#ifndef F32B_MIN_BLOCKS
+#define F32B_MIN_BLOCKS 2
+#endif
+#ifndef F32B_UNROLL
+#define F32B_UNROLL 4
+#endif
+constexpr int kBwdUnroll = F32B_UNROLL;
+constexpr int kBwdMaxRows =
+    F32B_ROWS > kBwdMaxAuto || F32B_KEYS > kBwdMaxAuto
+        ? (F32B_ROWS > F32B_KEYS ? F32B_ROWS : F32B_KEYS)
+        : kBwdMaxAuto;
+static_assert(F32B_ROWS % kBwdRowStep == 0 && F32B_KEYS % kBwdRowStep == 0,
+              "F32B_ROWS, F32B_KEYS: multiples of 8");
+
+// Shared memory of a block of `rows` rows: its own rows of two operands, the
+// 3-stage ring of streamed tiles, the p / ds tile and, for dk/dv, 3 stages
+// of the streamed queries' m, l and delta
 template <int DH>
-constexpr int kPadded = DH + 1;
-
-// Shared memory of a dq block: `keys` rows each of K and V (one chunk of
-// keys), and each warp's R query and g rows and R score and dp rows of S
-template <int DH>
-__host__ __device__ inline size_t dq_smem_bytes(int S, int nwarps, int keys) {
-  return 2 * align16((size_t)keys * kPadded<DH> * sizeof(float)) +
-         2 * align16((size_t)nwarps * kRowsPerWarp * DH * sizeof(float)) +
-         2 * (size_t)nwarps * kRowsPerWarp * S * sizeof(float);
+__host__ __device__ inline size_t bwd_smem_bytes(int rows, bool stats) {
+  return sizeof(float) * (2 * (size_t)rows * kF32Stride<DH> +
+                          3 * (size_t)kBwdTile * kF32Stride<DH> +
+                          (size_t)rows * kBwdTStride +
+                          (stats ? 3 * 3 * kBwdTile : 0));
 }
 
-// K and V are staged `keys` rows at a time (a multiple of 32, or all S):
-// each warp's score and dp rows stay in shared memory and are filled chunk
-// by chunk, the row reductions run after the last chunk, and dq = ds . k
-// walks the K chunks again. Every product and sum keeps the order it has
-// with the whole head staged, so the chunk size never changes the bits.
-template <int DH>
-__global__ void dq_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const float* __restrict__ g,
-                          const float* __restrict__ mask,
-                          float* __restrict__ dq, float* __restrict__ stats,
-                          Strides in, Strides gs, int S, int heads, int tiles,
-                          size_t bhs, float scale, int keys) {
-  constexpr int R = kRowsPerWarp;
-  constexpr int KS = kPadded<DH>;
-  constexpr int NACC = (DH + 31) / 32;
-  extern __shared__ __align__(16) unsigned char smem[];
+// max and sum over the 16 lanes of a half-warp (one row's 64 columns)
+__device__ __forceinline__ float half_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float half_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
 
-  const int nwarps = blockDim.x / 32;
+// acc[i][u] = the sum over d, in order, of A[arow + 2i][d] * T[tcol + 16u][d]
+// (rows of two padded tiles) for u < NU, 0 for the others: per 4 columns of
+// the head dim 4 float4 of A and 4 of T, 8 shared loads for 64 FMAs
+template <int DH, int NU>
+__device__ __forceinline__ void dot_tile(float acc[4][4], const float* A,
+                                         int arow, const float* T,
+                                         int tcol) {
+  constexpr int QS = kF32Stride<DH>;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+#pragma unroll (kBwdUnroll)
+  for (int d = 0; d < DH; d += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(A + (arow + 2 * i) * QS + d);
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+      b[u] = *reinterpret_cast<const float4*>(T + (tcol + 16 * u) * QS + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        acc[i][u] = fmaf(a[i].x, b[u].x, acc[i][u]);
+        acc[i][u] = fmaf(a[i].y, b[u].y, acc[i][u]);
+        acc[i][u] = fmaf(a[i].z, b[u].z, acc[i][u]);
+        acc[i][u] = fmaf(a[i].w, b[u].w, acc[i][u]);
+      }
+  }
+}
+
+// dot_tile over the 16-column groups that hold one of the tile's `valid`
+// live columns (a ragged last tile computes only those)
+template <int DH>
+__device__ __forceinline__ void dot_live(float acc[4][4], const float* A,
+                                         int arow, const float* T, int tcol,
+                                         int valid) {
+  if (valid > 48) dot_tile<DH, 4>(acc, A, arow, T, tcol);
+  else if (valid > 32) dot_tile<DH, 3>(acc, A, arow, T, tcol);
+  else if (valid > 16) dot_tile<DH, 2>(acc, A, arow, T, tcol);
+  else dot_tile<DH, 1>(acc, A, arow, T, tcol);
+}
+
+// out[i][c] += the sum over j < n, in order, of P[prow + rq i][j] *
+// T[j][4 cg + c] (P the p / ds tile, T a padded tile; n a multiple of 4)
+template <int DH>
+__device__ __forceinline__ void acc_tile(float out[4][4], const float* P,
+                                         int prow, int rq, const float* T,
+                                         int cg, int n) {
+  constexpr int QS = kF32Stride<DH>;
+#pragma unroll (kBwdUnroll)
+  for (int jj = 0; jj < n; jj += 4) {
+    float4 p[4], t[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      p[i] = *reinterpret_cast<const float4*>(P + (prow + rq * i) * kBwdTStride + jj);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      t[u] = *reinterpret_cast<const float4*>(T + (jj + u) * QS + 4 * cg);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float pu[4] = {p[i].x, p[i].y, p[i].z, p[i].w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        out[i][0] = fmaf(pu[u], t[u].x, out[i][0]);
+        out[i][1] = fmaf(pu[u], t[u].y, out[i][1]);
+        out[i][2] = fmaf(pu[u], t[u].z, out[i][2]);
+        out[i][3] = fmaf(pu[u], t[u].w, out[i][3]);
+      }
+    }
+  }
+}
+
+// rows r0 + prow + rq i (those below S), columns 4 cg .. 4 cg + 3
+template <int DH>
+__device__ __forceinline__ void store_f32_rows(const float out[4][4],
+                                               float* dst, const Strides& s,
+                                               int b, int h, int r0, int prow,
+                                               int rq, int cg, int S,
+                                               bool vec) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + prow + rq * i;
+    if (r >= S) continue;
+    float* p = dst + at(s, b, h, r) + 4 * cg;
+    if (vec) {
+      *reinterpret_cast<float4*>(p) =
+          make_float4(out[i][0], out[i][1], out[i][2], out[i][3]);
+    } else {
+      p[0] = out[i][0], p[1] = out[i][1], p[2] = out[i][2], p[3] = out[i][3];
+    }
+  }
+}
+
+// dq, one block per (batch, head, `rows` query rows), 4 * rows threads.
+// Products: warp w holds rows 8w .. 8w+7 by all 64 keys of a tile; lane
+// (lane / 16, lane % 16) the 4 x 4 micro-tile of rows 8w + lane / 16 + 2i
+// and keys lane % 16 + 16u, so a row's keys lie in one half-warp.
+// dq += ds . K: thread t < rows * DH / 16 holds rows t / (DH/4) + (rows/4) i
+// and columns 4 (t % (DH/4)) .. + 3.
+template <int DH>
+__global__ void __launch_bounds__(4 * kBwdMaxRows, F32B_MIN_BLOCKS)
+dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, const float* __restrict__ g,
+              const float* __restrict__ mask, float* __restrict__ dq,
+              float* __restrict__ stats, Strides in, Strides gs, int S,
+              int heads, int tiles, int rows, size_t bhs, float scale,
+              bool vec) {
+  constexpr int QS = kF32Stride<DH>;
+  constexpr int TILE = kBwdTile * QS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Gs = Qs + (size_t)rows * QS;
+  float* ring = Gs + (size_t)rows * QS;  // 3 stages
+  float* Ds = ring + 3 * TILE;
+
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int tile = blockIdx.x % tiles;
   const int h = (blockIdx.x / tiles) % heads;
   const int b = blockIdx.x / (tiles * heads);
-
-  const size_t kv_bytes = align16((size_t)keys * KS * sizeof(float));
-  const size_t row_bytes = align16((size_t)nwarps * R * DH * sizeof(float));
-  float* Ks = reinterpret_cast<float*>(smem);
-  float* Vs = reinterpret_cast<float*>(smem + kv_bytes);
-  float* qs = reinterpret_cast<float*>(smem + 2 * kv_bytes);
-  float* gsm = reinterpret_cast<float*>(smem + 2 * kv_bytes + row_bytes);
-  float* ps = reinterpret_cast<float*>(smem + 2 * kv_bytes + 2 * row_bytes);
-  float* dps = ps + (size_t)nwarps * R * S;
-  float* q_w = qs + (size_t)warp * R * DH;
-  float* g_w = gsm + (size_t)warp * R * DH;
-  float* p_w = ps + (size_t)warp * R * S;   // scores, then p, then ds
-  float* dp_w = dps + (size_t)warp * R * S;
-
-  // stage keys c0 .. c0+keys-1 of K and V; every thread of the block calls
-  // it at the same points (all S at once stays staged)
-  int staged = -1;
-  auto stage = [&](int c0) {
-    if (staged == c0) return;
-    __syncthreads();  // the previous chunk is consumed
-    const int n = min(keys, S - c0);
-    for (int idx = threadIdx.x; idx < n * DH; idx += blockDim.x) {
-      const int s = idx / DH, d = idx % DH;
-      Ks[s * KS + d] = k[at(in, b, h, c0 + s) + d];
-      Vs[s * KS + d] = v[at(in, b, h, c0 + s) + d];
-    }
-    __syncthreads();
-    staged = c0;
-  };
-
   const size_t bh = (size_t)b * heads + h;
-  const int tile_start = tile * kTileRows;
-  const int tile_end = min(tile_start + kTileRows, S);
-  for (int base = tile_start; base < tile_end; base += nwarps * R) {
-    // every warp walks the chunks (they stage together); a warp past the
-    // tile computes nothing and writes nothing
-    const int i0 = base + warp * R;
-    const bool active = i0 < tile_end;
-    if (active) {
+  const int r0 = tile * rows;
+  const int chunks = (S + kBwdTile - 1) / kBwdTile;
+  const int steps = 4 * chunks;  // pass A, then pass B; K, then V a chunk
+  const int srow = warp * kBwdRowStep + lane / 16, scol = lane % 16;
+  const bool live = r0 + warp * kBwdRowStep < S;  // the warp has a row below S
+  const int rq = rows / 4;
+  const bool out_live = (int)threadIdx.x < rows * DH / 16;
+  const int prow = threadIdx.x / (DH / 4), cg = threadIdx.x % (DH / 4);
+
+  // step st: chunk (st / 2) % chunks, K at even steps and V at odd ones,
+  // into stage st % 3
+  auto issue = [&](int st) {
+    load_f32_tile<DH>(ring + (st % 3) * TILE, (st & 1) ? v : k, in, b, h,
+                      (st / 2) % chunks * kBwdTile, kBwdTile, S, vec);
+    cp_async_commit();
+  };
+  load_f32_tile<DH>(Qs, q, in, b, h, r0, rows, S, vec);
+  load_f32_tile<DH>(Gs, g, gs, b, h, r0, rows, S, vec);
+  cp_async_commit();
+  issue(0);
+
+  // this lane's rows: m; l (its half-warp share during pass A, 1 / l after);
+  // t (its share, then delta); f, the rescale of l and t at this chunk
+  float m[4], l[4], t[4], f[4], o[4][4];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = i0 + r;
-        for (int d = lane; d < DH; d += 32) {
-          q_w[r * DH + d] = i < S ? q[at(in, b, h, i) + d] : 0.f;
-          g_w[r * DH + d] = i < S ? g[at(gs, b, h, i) + d] : 0.f;
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY, l[i] = t[i] = 0.f;
+    o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  }
+  // this lane's entries of the shared tile (rows + 2i, keys + 16u): a K
+  // step leaves exp(s - m) or p there for the V step, so no score tile is
+  // held in registers across the V step's product
+  float* E = Ds + srow * kBwdTStride + scol;
+
+  for (int st = 0; st < steps; ++st) {
+    cp_async_wait<0>();
+    // step st's tile has landed, and stage (st + 1) % 3 (read up to step
+    // st - 1) is free for the next copy
+    __syncthreads();
+    if (st + 1 < steps) issue(st + 1);
+    const float* T = ring + (st % 3) * TILE;
+    const int j0 = (st / 2) % chunks * kBwdTile;
+    const bool pass_a = st < 2 * chunks;
+    if ((st & 1) == 0) {
+      if (!live) continue;
+      // s = fl(q . k) * scale (+ mask), rounded apart as the TPU kernel
+      // does; keys at or past S are -inf
+      float sc[4][4];
+      dot_live<DH>(sc, Qs, srow, T, scol, S - j0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qi = min(r0 + srow + 2 * i, S - 1);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int j = j0 + scol + 16 * u;
+          float s = __fmul_rn(sc[i][u], scale);
+          if (mask != nullptr) s = __fadd_rn(s, mask[(size_t)qi * S + min(j, S - 1)]);
+          sc[i][u] = j < S ? s : -INFINITY;
         }
       }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (pass_a) {
+          // online m and l = sum exp(s - m), rescaled as m grows; a row
+          // with no finite score yet keeps m = -inf and adds exp(-inf) = 0
+          const float cm = fmaxf(fmaxf(sc[i][0], sc[i][1]), fmaxf(sc[i][2], sc[i][3]));
+          const float mn = fmaxf(m[i], half_max(cm));
+          const float base = mn == -INFINITY ? 0.f : mn;
+          float sum = 0.f;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float e = expf(sc[i][u] - base);
+            sum += e;
+            E[2 * i * kBwdTStride + 16 * u] = e;
+          }
+          f[i] = expf(m[i] - base);
+          l[i] = l[i] * f[i] + sum;
+          m[i] = mn;
+        } else {  // pass B: p
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            E[2 * i * kBwdTStride + 16 * u] = expf(sc[i][u] - m[i]) * l[i];
+        }
+      }
+      continue;
     }
-    __syncwarp();
-
-    // s = q . k * scale (+ mask) and dp = g . v: lanes own keys
-    float mx[R];
+    if (live) {
+      float dp[4][4];
+      dot_live<DH>(dp, Gs, srow, T, scol, S - j0);
 #pragma unroll
-    for (int r = 0; r < R; ++r) mx[r] = -INFINITY;
-    for (int c0 = 0; c0 < S; c0 += keys) {
-      stage(c0);
-      if (!active) continue;
-      const int c1 = min(c0 + keys, S);
-      for (int j = c0 + lane; j < c1; j += 32) {
-        float dot[R], dpd[R];
+      for (int i = 0; i < 4; ++i) {
+        if (pass_a) {  // t = sum dp * exp(s - m), rescaled with l
+          float ts = 0.f;
 #pragma unroll
-        for (int r = 0; r < R; ++r) dot[r] = dpd[r] = 0.f;
-        const float* krow = Ks + (j - c0) * KS;
-        const float* vrow = Vs + (j - c0) * KS;
-#pragma unroll 8
-        for (int d = 0; d < DH; ++d) {
-          const float kv = krow[d], vv = vrow[d];
+          for (int u = 0; u < 4; ++u) ts = fmaf(dp[i][u], E[2 * i * kBwdTStride + 16 * u], ts);
+          t[i] = t[i] * f[i] + ts;
+        } else {  // pass B: ds = fl(fl(p * fl(dp - delta)) * scale)
 #pragma unroll
-          for (int r = 0; r < R; ++r) {
-            dot[r] = fmaf(q_w[r * DH + d], kv, dot[r]);
-            dpd[r] = fmaf(g_w[r * DH + d], vv, dpd[r]);
+          for (int u = 0; u < 4; ++u) {
+            float* e = E + 2 * i * kBwdTStride + 16 * u;
+            *e = __fmul_rn(__fmul_rn(*e, __fsub_rn(dp[i][u], t[i])), scale);
           }
         }
+      }
+      if (st == 2 * chunks - 1) {
+        // delta = t / l = rowsum(dp * p) with the unrounded p
 #pragma unroll
-        for (int r = 0; r < R; ++r) {
-          float s = __fmul_rn(dot[r], scale);
-          if (mask != nullptr) s = __fadd_rn(s, mask[(size_t)min(i0 + r, S - 1) * S + j]);
-          p_w[r * S + j] = s;
-          dp_w[r * S + j] = dpd[r];
-          mx[r] = fmaxf(mx[r], s);
+        for (int i = 0; i < 4; ++i) {
+          const float sum = half_sum(l[i]);
+          const float delta = half_sum(t[i]) / sum;
+          if (m[i] == -INFINITY) m[i] = 0.f;
+          const int r = r0 + srow + 2 * i;
+          if (scol == 0 && r < S) {
+            stats[bh * S + r] = m[i];
+            stats[bhs + bh * S + r] = sum;
+            stats[2 * bhs + bh * S + r] = delta;
+          }
+          l[i] = __frcp_rn(sum);
+          t[i] = delta;
         }
       }
     }
-    // p over the whole row (masked keys give p = 0, hence ds = 0, and the
-    // diagonal keeps m finite: no inf - inf), then ds
-    if (active) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        mx[r] = warp_max(mx[r]);
-        float sum = 0.f;
-        for (int j = lane; j < S; j += 32) {
-          const float e = expf(p_w[r * S + j] - mx[r]);
-          p_w[r * S + j] = e;
-          sum += e;
-        }
-        sum = warp_sum(sum);
-        float dsum = 0.f;
-        for (int j = lane; j < S; j += 32) {
-          const float p = p_w[r * S + j] / sum;
-          p_w[r * S + j] = p;
-          dsum += __fmul_rn(dp_w[r * S + j], p);
-        }
-        dsum = warp_sum(dsum);
-        for (int j = lane; j < S; j += 32) {
-          const float ds = __fmul_rn(p_w[r * S + j], __fsub_rn(dp_w[r * S + j], dsum));
-          p_w[r * S + j] = __fmul_rn(ds, scale);
-        }
-        const int i = i0 + r;
-        if (lane == 0 && i < S) {
-          stats[bh * S + i] = mx[r];
-          stats[bhs + bh * S + i] = sum;
-          stats[2 * bhs + bh * S + i] = dsum;
-        }
-      }
-    }
-    __syncwarp();
+    if (pass_a) continue;
+    // pass B: dq += ds . K with the step before's K tile
+    __syncthreads();
+    if (out_live)  // keys past S have ds = 0 and zero K rows
+      acc_tile<DH>(o, Ds, prow, rq, ring + ((st - 1) % 3) * TILE, cg,
+                   min(kBwdTile, (S - j0 + 3) / 4 * 4));
+  }
+  if (out_live) store_f32_rows<DH>(o, dq, in, b, h, r0, prow, rq, cg, S, vec);
+}
 
-    // dq = ds . k: lanes own columns, keys in order, chunk by chunk
-    float acc[R][NACC];
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int a = 0; a < NACC; ++a) acc[r][a] = 0.f;
-    for (int c0 = 0; c0 < S; c0 += keys) {
-      stage(c0);
-      if (!active) continue;
-      const int c1 = min(c0 + keys, S);
-      for (int j = c0; j < c1; ++j) {
-        float kk[NACC];
-#pragma unroll
-        for (int a = 0; a < NACC; ++a) {
-          const int d = lane + 32 * a;
-          kk[a] = d < DH ? Ks[(j - c0) * KS + d] : 0.f;
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const float ds = p_w[r * S + j];
-#pragma unroll
-          for (int a = 0; a < NACC; ++a) acc[r][a] = fmaf(ds, kk[a], acc[r][a]);
-        }
+// dk and dv, one block per (batch, head, `rows` keys), 4 * rows threads, the
+// dq kernel's layout transposed: keys are rows, queries stream. s^T = k .
+// q^T and dp^T = v . g^T (the same sums in the same order as dq_f32_kernel,
+// so the same p and ds bits, from the statistics it wrote): the Q step
+// leaves p in the shared tile, the G step forms ds, then dv += p^T . G
+// through the tile, and dk += ds^T . Q through the same tile.
+template <int DH>
+__global__ void __launch_bounds__(4 * kBwdMaxRows, F32B_MIN_BLOCKS)
+dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ g,
+                const float* __restrict__ mask, float* __restrict__ dk,
+                float* __restrict__ dv, const float* __restrict__ stats,
+                Strides in, Strides gs, int S, int heads, int tiles, int rows,
+                size_t bhs, float scale, bool vec) {
+  constexpr int QS = kF32Stride<DH>;
+  constexpr int TILE = kBwdTile * QS;
+  constexpr int ST = 3 * kBwdTile;  // one chunk's m, l and delta
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + (size_t)rows * QS;
+  float* ring = Vs + (size_t)rows * QS;  // 3 stages
+  float* Ts = ring + 3 * TILE;
+  float* Sts = Ts + (size_t)rows * kBwdTStride;  // 3 stages
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tile = blockIdx.x % tiles;
+  const int h = (blockIdx.x / tiles) % heads;
+  const int b = blockIdx.x / (tiles * heads);
+  const size_t bh = (size_t)b * heads + h;
+  const int k0 = tile * rows;
+  const int chunks = (S + kBwdTile - 1) / kBwdTile;
+  const int steps = 2 * chunks;  // Q and its statistics, then G, a chunk
+  const int srow = warp * kBwdRowStep + lane / 16, scol = lane % 16;
+  const bool live = k0 + warp * kBwdRowStep < S;
+  const int rq = rows / 4;
+  const bool out_live = (int)threadIdx.x < rows * DH / 16;
+  const int prow = threadIdx.x / (DH / 4), cg = threadIdx.x % (DH / 4);
+
+  auto issue = [&](int st) {
+    const int i0 = st / 2 * kBwdTile;
+    float* dst = ring + (st % 3) * TILE;
+    if (st & 1) {
+      load_f32_tile<DH>(dst, g, gs, b, h, i0, kBwdTile, S, vec);
+    } else {
+      load_f32_tile<DH>(dst, q, in, b, h, i0, kBwdTile, S, vec);
+      for (int idx = threadIdx.x; idx < ST; idx += blockDim.x) {
+        const int which = idx / kBwdTile, i = i0 + idx % kBwdTile;
+        cp_async4(Sts + (st % 3) * ST + idx,
+                  stats + which * bhs + bh * S + min(i, S - 1), i < S);
       }
     }
-    if (active) {
+    cp_async_commit();
+  };
+  load_f32_tile<DH>(Ks, k, in, b, h, k0, rows, S, vec);
+  load_f32_tile<DH>(Vs, v, in, b, h, k0, rows, S, vec);
+  cp_async_commit();
+  issue(0);
+
+  float dka[4][4], dva[4][4];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int i = i0 + r;
-        if (i >= S) break;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int a = 0; a < NACC; ++a) {
-          const int d = lane + 32 * a;
-          if (d < DH) dq[at(in, b, h, i) + d] = acc[r][a];
+    for (int c = 0; c < 4; ++c) dka[i][c] = dva[i][c] = 0.f;
+  // this lane's entries of the shared tile (keys + 2r, queries + 16u): the
+  // Q step leaves p there for the G step
+  float* E = Ts + srow * kBwdTStride + scol;
+
+  for (int st = 0; st < steps; ++st) {
+    cp_async_wait<0>();
+    __syncthreads();  // as in dq_f32_kernel
+    if (st + 1 < steps) issue(st + 1);
+    const float* T = ring + (st % 3) * TILE;
+    const int i0 = st / 2 * kBwdTile;
+    if ((st & 1) == 0) {
+      if (!live) continue;
+      float sc[4][4];
+      dot_live<DH>(sc, Ks, srow, T, scol, S - i0);  // s^T
+      const float* M = Sts + (st % 3) * ST;
+      const float* L = M + kBwdTile;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int ii = scol + 16 * u, i = i0 + ii;  // query
+        const float mi = M[ii], rl = __frcp_rn(L[ii]);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int j = min(k0 + srow + 2 * r, S - 1);  // key
+          float s = __fmul_rn(sc[r][u], scale);
+          if (mask != nullptr) s = __fadd_rn(s, mask[(size_t)min(i, S - 1) * S + j]);
+          // queries past S add nothing
+          E[2 * r * kBwdTStride + 16 * u] = i < S ? expf(s - mi) * rl : 0.f;
         }
       }
+      continue;
     }
-    __syncwarp();
+    float dp[4][4];
+    if (live) {
+      dot_live<DH>(dp, Vs, srow, T, scol, S - i0);  // dp^T
+      const float* Dl = Sts + ((st - 1) % 3) * ST + 2 * kBwdTile;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float di = Dl[scol + 16 * u];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)  // ds (0 where p is)
+          dp[r][u] = __fmul_rn(
+              __fmul_rn(E[2 * r * kBwdTStride + 16 * u], __fsub_rn(dp[r][u], di)),
+              scale);
+      }
+    }
+    __syncthreads();
+    const int n = min(kBwdTile, (S - i0 + 3) / 4 * 4);
+    if (out_live) acc_tile<DH>(dva, Ts, prow, rq, T, cg, n);  // p^T . G
+    __syncthreads();
+    if (live) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) E[2 * r * kBwdTStride + 16 * u] = dp[r][u];
+    }
+    __syncthreads();
+    if (out_live)  // ds^T . Q with the step before's Q tile
+      acc_tile<DH>(dka, Ts, prow, rq, ring + ((st - 1) % 3) * TILE, cg, n);
+  }
+  if (out_live) {
+    store_f32_rows<DH>(dka, dk, in, b, h, k0, prow, rq, cg, S, vec);
+    store_f32_rows<DH>(dva, dv, in, b, h, k0, prow, rq, cg, S, vec);
   }
 }
 
+// The rows of a block (a multiple of 8, at most 64, whose shared memory
+// fits in half an SM: two blocks an SM): the fewest rows computed over the
+// head's S, each block counted 24 rows more for its fixed cost (staging,
+// its stream of the other operands, its barriers; ties go to the larger
+// block). 77 rows take two blocks of 40, 257 five of 56, 577 ten of 64
+// (kernel_variants.py times the others). A build
+// with F32B_ROWS / F32B_KEYS > 0 takes that many (0 if they do not fit).
 template <int DH>
-__global__ void __launch_bounds__(kWarps2 * 32)
-dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-            const float* __restrict__ v, const float* __restrict__ g,
-            const float* __restrict__ mask, float* __restrict__ dk,
-            float* __restrict__ dv, const float* __restrict__ stats,
-            Strides in, Strides gs, int S, int heads, int ktiles, size_t bhs,
-            float scale) {
-  constexpr int KP = DH + 1;  // f32 rows padded by one word
-  constexpr int NACC = (DH + 31) / 32;
-  constexpr int U = kKeys / kWarps2;  // keys per warp in the accumulation
-  __shared__ float Kt[kKeys * KP], Vt[kKeys * KP];
-  __shared__ float Qc[kChunk * DH], Gc[kChunk * DH];
-  __shared__ float P[kChunk * kKeys], DS[kChunk * kKeys];
-  __shared__ float Mc[kChunk], Lc[kChunk], Dc[kChunk];
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int kt = blockIdx.x % ktiles;
-  const int h = (blockIdx.x / ktiles) % heads;
-  const int b = blockIdx.x / (ktiles * heads);
-  const int j0 = kt * kKeys;
-  const size_t bh = (size_t)b * heads + h;
-
-  for (int idx = threadIdx.x; idx < kKeys * DH; idx += blockDim.x) {
-    const int jj = idx / DH, d = idx % DH, j = j0 + jj;
-    Kt[jj * KP + d] = j < S ? k[at(in, b, h, j) + d] : 0.f;
-    Vt[jj * KP + d] = j < S ? v[at(in, b, h, j) + d] : 0.f;
+int bwd_rows(int S, int limit, bool stats, int fixed) {
+  if (fixed > 0)
+    return bwd_smem_bytes<DH>(fixed, stats) <= (size_t)limit ? fixed : 0;
+  const int half = (limit + 1024) / 2 - 1024;
+  int best = 0;
+  long long best_cost = 0;
+  for (int r = kBwdRowStep; r <= kBwdMaxAuto; r += kBwdRowStep) {
+    if (bwd_smem_bytes<DH>(r, stats) > (size_t)half) break;
+    const long long cost = (long long)((S + r - 1) / r) * (r + 24);
+    if (best == 0 || cost <= best_cost) best = r, best_cost = cost;
   }
-
-  float dka[U][NACC], dva[U][NACC];
-#pragma unroll
-  for (int u = 0; u < U; ++u)
-#pragma unroll
-    for (int a = 0; a < NACC; ++a) dka[u][a] = dva[u][a] = 0.f;
-
-  const int j = j0 + lane;  // this lane's key in the tile phase
-  for (int q0 = 0; q0 < S; q0 += kChunk) {
-    __syncthreads();  // the previous chunk is consumed (and K/V staged)
-    for (int idx = threadIdx.x; idx < kChunk * DH; idx += blockDim.x) {
-      const int ii = idx / DH, d = idx % DH, i = q0 + ii;
-      Qc[idx] = i < S ? q[at(in, b, h, i) + d] : 0.f;
-      Gc[idx] = i < S ? g[at(gs, b, h, i) + d] : 0.f;
-    }
-    if (threadIdx.x < kChunk && q0 + (int)threadIdx.x < S) {
-      const size_t row = bh * S + q0 + threadIdx.x;
-      Mc[threadIdx.x] = stats[row];
-      Lc[threadIdx.x] = stats[bhs + row];
-      Dc[threadIdx.x] = stats[2 * bhs + row];
-    }
-    __syncthreads();
-
-    // the 32 x 32 tile of p and ds: warps own 4 queries, lanes own keys;
-    // the same sums as dq_kernel's, in the same order
-    float dot[kRowsPerWarp], dpd[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) dot[r] = dpd[r] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      const float kv = Kt[lane * KP + d], vv = Vt[lane * KP + d];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const int ii = warp * kRowsPerWarp + r;
-        dot[r] = fmaf(Qc[ii * DH + d], kv, dot[r]);
-        dpd[r] = fmaf(Gc[ii * DH + d], vv, dpd[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int ii = warp * kRowsPerWarp + r, i = q0 + ii;
-      float pq = 0.f, dsq = 0.f;
-      if (i < S && j < S) {
-        float s = __fmul_rn(dot[r], scale);
-        if (mask != nullptr) s = __fadd_rn(s, mask[(size_t)i * S + j]);
-        pq = expf(s - Mc[ii]) / Lc[ii];
-        dsq = __fmul_rn(__fmul_rn(pq, __fsub_rn(dpd[r], Dc[ii])), scale);
-      }
-      P[ii * kKeys + lane] = pq;
-      DS[ii * kKeys + lane] = dsq;
-    }
-    __syncthreads();
-
-    // dv += p^T g, dk += ds^T q: warps own keys, lanes own columns
-    const int rows = min(kChunk, S - q0);
-    for (int ii = 0; ii < rows; ++ii) {
-#pragma unroll
-      for (int a = 0; a < NACC; ++a) {
-        const int d = lane + 32 * a;
-        const float gv = d < DH ? Gc[ii * DH + d] : 0.f;
-        const float qv = d < DH ? Qc[ii * DH + d] : 0.f;
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int jj = warp + kWarps2 * u;
-          dva[u][a] = fmaf(P[ii * kKeys + jj], gv, dva[u][a]);
-          dka[u][a] = fmaf(DS[ii * kKeys + jj], qv, dka[u][a]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int u = 0; u < U; ++u) {
-    const int jk = j0 + warp + kWarps2 * u;
-    if (jk >= S) continue;
-#pragma unroll
-    for (int a = 0; a < NACC; ++a) {
-      const int d = lane + 32 * a;
-      if (d < DH) {
-        dk[at(in, b, h, jk) + d] = dka[u][a];
-        dv[at(in, b, h, jk) + d] = dva[u][a];
-      }
-    }
-  }
+  return best;
 }
 
 template <int DH>
@@ -399,37 +566,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
                    const float* mask, void* dq, void* dk, void* dv,
                    float* stats, int B, int S, int heads, Strides in,
                    Strides gs, float scale, cudaStream_t stream) {
+  const long long bh = (long long)B * heads;
+  if (bh == 0 || S == 0) return cudaSuccess;
+  bool vec = rows_aligned16(g, gs, 4);
+  const void* same_layout[] = {q, k, v, dq, dk, dv};
+  for (const void* p : same_layout) vec = vec && rows_aligned16(p, in, 4);
   int limit = 0;
   cudaError_t err = smem_limit(&limit);
   if (err != cudaSuccess) return err;
-  // the most warps whose score and dp rows leave room for a chunk of 32
-  // keys; then the largest chunk (a multiple of 32, or all S) that fits
-  int nwarps = 8;
-  while (nwarps > 1 && dq_smem_bytes<DH>(S, nwarps, 32) > (size_t)limit) nwarps /= 2;
-  if (dq_smem_bytes<DH>(S, nwarps, 32) > (size_t)limit)
-    return cudaErrorInvalidValue;  // one warp's score rows alone too big
-  int keys = S;
-  if (dq_smem_bytes<DH>(S, nwarps, S) > (size_t)limit) {
-    keys = 32;
-    while (dq_smem_bytes<DH>(S, nwarps, keys + 32) <= (size_t)limit) keys += 32;
-  }
-  const size_t smem = dq_smem_bytes<DH>(S, nwarps, keys);
-  auto k1 = dq_kernel<DH>;
-  err = allow_smem(k1, smem);
+  const int rows = bwd_rows<DH>(S, limit, false, F32B_ROWS);
+  const int keys = bwd_rows<DH>(S, limit, true, F32B_KEYS);
+  if (rows == 0 || keys == 0) return cudaErrorInvalidValue;
+  const size_t smem1 = bwd_smem_bytes<DH>(rows, false);
+  const size_t smem2 = bwd_smem_bytes<DH>(keys, true);
+  auto k1 = dq_f32_kernel<DH>;
+  auto k2 = dkdv_f32_kernel<DH>;
+  err = allow_smem(k1, smem1);
+  if (err == cudaSuccess) err = allow_smem(k2, smem2);
   if (err != cudaSuccess) return err;
-  const int tiles = (S + kTileRows - 1) / kTileRows;
-  const int ktiles = (S + kKeys - 1) / kKeys;
-  const long long bh = (long long)B * heads;
-  if (bh == 0 || S == 0) return cudaSuccess;
   const size_t bhs = (size_t)bh * S;
-  k1<<<(unsigned)(bh * tiles), nwarps * 32, smem, stream>>>(
+  const int tiles1 = (S + rows - 1) / rows, tiles2 = (S + keys - 1) / keys;
+  k1<<<(unsigned)(bh * tiles1), 4 * rows, smem1, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)g, mask,
-      (float*)dq, stats, in, gs, S, heads, tiles, bhs, scale, keys);
+      (float*)dq, stats, in, gs, S, heads, tiles1, rows, bhs, scale, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkdv_kernel<DH><<<(unsigned)(bh * ktiles), kWarps2 * 32, 0, stream>>>(
+  k2<<<(unsigned)(bh * tiles2), 4 * keys, smem2, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)g, mask,
-      (float*)dk, (float*)dv, stats, in, gs, S, heads, ktiles, bhs, scale);
+      (float*)dk, (float*)dv, stats, in, gs, S, heads, tiles2, keys, bhs,
+      scale, vec);
   return cudaGetLastError();
 }
 

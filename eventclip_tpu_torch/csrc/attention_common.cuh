@@ -49,6 +49,73 @@ inline cudaError_t smem_limit(int* limit) {
 }
 
 // ---------------------------------------------------------------------------
+// cp.async, shared by the f32 and the bf16 kernels
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte copy global -> shared that lands asynchronously; with valid false
+// nothing is read and the 16 bytes are zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+// the same for 4 bytes (row statistics, whose rows are not 16-byte aligned)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// f32 tiles of the CUDA-core kernels (attention_f32_kernel, dq_f32_kernel,
+// dkdv_f32_kernel): rows of DH floats padded by 4, so the 16-byte loads of
+// 4 (Q) or 8 (K) consecutive rows at one column fall in distinct banks, and
+// every row stays 16-byte aligned for cp.async
+
+template <int DH>
+constexpr int kF32Stride = DH + 4;
+
+// Start the copy of rows r0 .. r0+n-1 of one head's [S, DH] f32 operand
+// into a padded tile (rows at or past S become zeros), 16 bytes at a time,
+// or with `vec` false (rows not 16-byte aligned) 4 bytes at a time. The
+// caller commits the group.
+template <int DH>
+__device__ __forceinline__ void load_f32_tile(float* dst, const float* src,
+                                              const Strides& s, int b, int h,
+                                              int r0, int n, int S,
+                                              bool vec = true) {
+  if (vec) {
+    constexpr int P = DH / 4;  // 16-byte pieces a row
+    for (int idx = threadIdx.x; idx < n * P; idx += blockDim.x) {
+      const int r = idx / P, c = (idx % P) * 4, i = r0 + r;
+      cp_async16(dst + r * kF32Stride<DH> + c,
+                 src + at(s, b, h, min(i, S - 1)) + c, i < S);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < n * DH; idx += blockDim.x) {
+      const int r = idx / DH, c = idx % DH, i = r0 + r;
+      cp_async4(dst + r * kF32Stride<DH> + c,
+                src + at(s, b, h, min(i, S - 1)) + c, i < S);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Tensor-core helpers for the bf16 kernels: mma.sync m16n8k16 (bf16 in, f32
 // accumulate), ldmatrix and cp.async, in inline PTX.
 //
@@ -83,36 +150,6 @@ struct TcTile {
   static constexpr int kElems = kTcRows * kStride;      // one tile
   static constexpr int kPieces = DH / 8;                // 16-byte pieces a row
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16-byte copy global -> shared that lands asynchronously; with valid false
-// nothing is read and the 16 bytes are zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-// the same for 4 bytes (row statistics, whose rows are not 16-byte aligned)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // four 8x8 bf16 matrices; lanes 8m .. 8m+7 give the row addresses of
 // matrix m, and register m of each lane receives its piece of matrix m

@@ -179,3 +179,63 @@ def test_backward_wrappers_check_their_input():
         attention_bwd(q, torch.zeros(1, 2, 6, 16), q, q)
     with pytest.raises(TypeError):
         multi_head_attention(q.half(), q.half(), q.half())
+
+
+def _online_f32_backward(q, k, v, g, mask):
+    """csrc/attention_bwd.cu's f32 route for one [S, dh] head in numpy f32,
+    in its rounding order: online m, l = sum exp(s - m) and t = sum dp *
+    exp(s - m) over 64-key tiles, each row's keys split over 16 lanes
+    (keys j and j + 16 in one lane), rescaled as m grows; then delta = t / l,
+    p = exp(s - m) * rcp(l) and ds = fl(fl(p * fl(dp - delta)) * scale)."""
+    f32 = np.float32
+    S, dh = q.shape
+    scale = f32(dh ** -0.5)
+    s_all = ((q @ k.T).astype(f32) * scale).astype(f32)
+    if mask is not None:
+        s_all = (s_all + mask).astype(f32)
+    dp_all = (g @ v.T).astype(f32)
+    m = np.full(S, -np.inf, f32)
+    l, t = np.zeros((S, 16), f32), np.zeros((S, 16), f32)
+    for j0 in range(0, S, 64):
+        pad = ((0, 0), (0, 64 - min(64, S - j0)))
+        sc = np.pad(s_all[:, j0:j0 + 64], pad, constant_values=-np.inf)
+        dp = np.pad(dp_all[:, j0:j0 + 64], pad)
+        mn = np.maximum(m, sc.max(1))
+        base = np.where(mn == -np.inf, 0, mn).astype(f32)
+        e = np.exp(sc - base[:, None]).astype(f32).reshape(S, 4, 16)
+        dp = dp.reshape(S, 4, 16)
+        esum, tsum = np.zeros((S, 16), f32), np.zeros((S, 16), f32)
+        for u in range(4):
+            esum = (esum + e[:, u]).astype(f32)
+            tsum = (tsum + dp[:, u] * e[:, u]).astype(f32)
+        fac = np.exp(m - base).astype(f32)[:, None]
+        l, t, m = (l * fac + esum).astype(f32), (t * fac + tsum).astype(f32), mn
+    lsum, tsum = l.sum(1, dtype=f32), t.sum(1, dtype=f32)
+    delta, rl = (tsum / lsum).astype(f32), (f32(1) / lsum).astype(f32)
+    p = (np.exp(s_all - m[:, None]).astype(f32) * rl[:, None]).astype(f32)
+    ds = ((p * (dp_all - delta[:, None])).astype(f32) * scale).astype(f32)
+    return ds @ k, ds.T @ q, p.T @ g
+
+
+@pytest.mark.parametrize("S,masked", [(77, True), (257, False), (577, False)])
+def test_f32_online_statistics_stay_within_the_card_limits(S, masked):
+    # the f32 kernels' online softmax statistics re-round l and t at every
+    # 64-key tile; their dq, dk, dv stay within chip_smoke's f32 limits of
+    # the plain version (max-abs 1e-5, norm-relative 1e-6)
+    from chip_smoke import ATOL, REL
+
+    rng = np.random.default_rng(S)
+    q, k, v, g = (rng.standard_normal((2, 2, S, 64)).astype(np.float32)
+                  for _ in range(4))
+    mask = _mask(S) if masked else None
+    want = attention_bwd_plain(*(torch.from_numpy(x) for x in (q, k, v, g)),
+                               None if mask is None else torch.from_numpy(mask))
+    for b in range(2):
+        for h in range(2):
+            got = _online_f32_backward(q[b, h], k[b, h], v[b, h], g[b, h],
+                                       mask)
+            for a, w in zip(got, want):
+                w = w[b, h].numpy()
+                assert np.abs(a - w).max() <= ATOL["float32"]
+                assert (np.linalg.norm(a - w) / np.linalg.norm(w)
+                        <= REL["float32"])

@@ -190,12 +190,17 @@ def test_f32_forward_kernel_matches_plain_on_card(cuda, S, heads, dh, masked):
                     [attention_plain(q, k, v, mask)], torch.float32)
 
 
-@pytest.mark.parametrize("dh,masked", [(64, False), (16, True)])
-def test_f32_backward_kernel_at_577_matches_plain_on_card(cuda, dh, masked):
-    # S = 577 in f32, which the backward once refused; K and V are staged
-    # in chunks of keys
-    gen = torch.Generator(device=cuda).manual_seed(577 + dh)
-    heads, S = 2, 577
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("S", [17, 77, 257, 577, 2049])
+def test_f32_backward_kernel_at_577_matches_plain_on_card(cuda, S, dh,
+                                                          masked):
+    # the f32 backward on the CUDA cores: below, at and past one 64-row
+    # tile, ragged last tiles (77, 257, 577 and 2049 keep 13 or 1 key in
+    # their last), S = 577 (once refused) and S = 2049 (no S-long buffer),
+    # the causal mask, fused and [B, H, S, dh] layouts, two runs bit-equal
+    gen = torch.Generator(device=cuda).manual_seed(S * dh + masked)
+    heads = 2
     D = heads * dh
     qkv = torch.randn((2, S, 3 * D), generator=gen, device=cuda)
     g = torch.randn((2, S, D), generator=gen, device=cuda)
@@ -207,8 +212,11 @@ def test_f32_backward_kernel_at_577_matches_plain_on_card(cuda, dh, masked):
                     torch.float32)
     q, k, v, gh = (t.reshape(2, S, heads, dh).transpose(1, 2).contiguous()
                    for t in (*qkv.split(D, -1), g))
-    _assert_matches(attention_bwd(q, k, v, gh, mask),
-                    attention_bwd_plain(q, k, v, gh, mask), torch.float32)
+    got = attention_bwd(q, k, v, gh, mask)
+    for a, b in zip(got, attention_bwd(q, k, v, gh, mask)):
+        assert torch.equal(a, b)
+    _assert_matches(got, attention_bwd_plain(q, k, v, gh, mask),
+                    torch.float32)
 
 
 def test_misaligned_f32_rows_raise_on_card(cuda):
