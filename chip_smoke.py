@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and FT-training paths on one CUDA card.
+"""Drive the PyTorch port's serving, FT- and FS-training paths on one card.
 
     python3 chip_smoke.py
 
@@ -11,10 +11,12 @@ non-zero):
    at once).
 2. kernels vs plain on the card, at the main paths' shapes: the event
    histogram K1 (exact) on N-Caltech serving, N-Cars, the N-ImageNet
-   training batch [256, 70000, 3] @ 480x640, a 720x1280 frame (row bands)
+   training batch [256, 70000, 3] @ 480x640, the N-Caltech FS training
+   batch [64, 20000, 3] @ 180x240, a 720x1280 frame (row bands)
    and windows with every event on one pixel; the fused-qkv attention
    forward K2 and its backward K3 on the ViT-L/14 (bf16, no mask; serving
-   and training batches), text tower (f32, causal mask) and tiny-tower
+   and training batches, and the FS step's [64, 257, 3072]), text tower
+   (f32, causal mask) and tiny-tower
    (dh 32 / 16) shapes; f32 K2 / K3 at [8, 257, 3072], at phase 7's
    [64, 257, 3072] and at ViT-L/14@336's S = 577; bf16 K2 / K3 with the
    causal mask at S = 77 and
@@ -39,22 +41,34 @@ non-zero):
    fine-tune with prompt tuning, N-ImageNet 480x640, N = 70000, batch 128
    x 2 views, bf16, remat) with random towers from a seeded generator, on
    an in-memory synthetic N-ImageNet set made per item from (seed, idx),
-   built with augment=False (on-device RandAugment is not ported). The
+   with the config's img_aug (on-device RandAugment in the step). The
    EventCLIPTrainer runs its sanity eval, then one epoch of 4 steps with
    the launch counters zeroed just before and read just after (K1 1, K2 48,
-   K3 24 per step); then one step is profiled, trained and frozen leaves
-   are checked, the trainable checkpoint is saved, the parameters moved by
-   one more step, the checkpoint reloaded and evaluated to the same
-   counters.
+   K3 24 per step); then one step is profiled (RandAugment's device ms
+   apart), trained and frozen leaves are checked, the trainable checkpoint
+   is saved, the parameters moved by one more step, the checkpoint
+   reloaded and evaluated to the same counters.
 6. FT update card vs CPU: a 2-layer ViT-L/14 at full width, f32, one
    update on the same small batch with the kernels on the card and the
    plain versions on the CPU; gradient cosine and relative differences.
 7. f32 FT training: phase 5's config and trainer with bf16 = False set on
    the loaded config (f32 end to end, the f32 K2 and K3 kernels), ViT-L/14
    at full width and depth with remat, batch cut from 128 to 32 (x 2
-   views); sanity eval, 3 timed steps with the counters zeroed just before
-   and read just after (K1 1, K2 48, K3 24 per step), one profiled step
-   (K3 f32's share of it).
+   views), augment off; sanity eval, 3 timed steps with the counters zeroed
+   just before and read just after (K1 1, K2 48, K3 24 per step), one
+   profiled step (K3 f32's share of it).
+8. FS training: configs/fsclip/joint_adapter/joint_fsclip_ncaltech_params.py
+   at its own size (ViT-L/14 frozen in bf16, the text-trans adapter with
+   prompt tuning, N-Caltech 180x240, N = 20000, batch 32 x 2 views, val 64
+   x 10 views, img_aug) with random towers, on an in-memory synthetic
+   N-Caltech set (101 classes, made per item from (seed, idx)); first
+   RandAugment on the card against the CPU on the same frames and draws
+   (all 14 ops, at phase 5's and this phase's frame sizes); then the
+   trainer as in phase 5: sanity eval, 4 timed steps (K1 1, K2 24, K3 0 per
+   step: the tower is frozen, no remat, no backward through it), one
+   profiled step (RandAugment, adapter and text-feature ms apart), adapter
+   and prompts moved while the towers and logit scale stay, checkpoint
+   round trip.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}. Imports nothing
@@ -446,10 +460,17 @@ def synth_prompts(rng, n_cls, context):
     return toks
 
 
+# torch.profiler.record_function ranges in the port (ops/rasterize.py,
+# models/classifier.py); on the card each also shows as a row of its own,
+# the span of its kernels, which is not kernel time
+RANGES = ("randaugment", "adapter", "text_feats")
+
+
 def profile_call(tag, label, fn):
     """Device time by kernel over one call of fn() (torch.profiler), and
     the device's busy share of the call's wall time; returns the wall and
-    busy ms and every (ms, count, name) row."""
+    busy ms, every (ms, count, name) kernel row, and for each RANGES range
+    in the call its kernels' ms and its span on the device."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -459,14 +480,17 @@ def profile_call(tag, label, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
+    rows, spans = [], {}
     for evt in prof.key_averages():
         if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
-        rows.append((us / 1e3, evt.count, evt.key))
+        if evt.key in RANGES:
+            spans[evt.key] = us / 1e3
+        else:
+            rows.append((us / 1e3, evt.count, evt.key))
     if not rows:
         log(f"[{tag}] {label}: the profiler saw no device time; device "
             "breakdown not measured")
@@ -479,7 +503,17 @@ def profile_call(tag, label, fn):
     for ms, count, key in rows[:12]:
         log(f"[{tag}]   {ms:9.3f} ms  {100 * ms / busy:5.1f}%  x{count:<5d}"
             f" {key[:90]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy, rows=rows)
+    ranges = {}
+    for name in RANGES:
+        ms = annotated_ms(prof, name)
+        if ms is None:
+            continue
+        ranges[name] = dict(kernel_ms=ms, span_ms=spans.get(name))
+        log(f"[{tag}]   range {name}: kernels {ms:.3f} ms "
+            f"({100 * ms / busy:.1f}% of busy) over a device span of "
+            + ("not measured" if name not in spans else
+               f"{spans[name]:.3f} ms"))
+    return dict(wall_ms=wall_ms, busy_ms=busy, rows=rows, ranges=ranges)
 
 
 def check_probs(out, n, n_cls):
@@ -489,25 +523,37 @@ def check_probs(out, n, n_cls):
     assert np.allclose(probs.sum(-1), 1.0, atol=1e-3), probs.sum(-1)
 
 
-# -- phases 5-6: FT training ------------------------------------------------
+# -- phases 5-8: training ----------------------------------------------------
 
 
-class SyntheticNImageNet:
-    """In-memory N-ImageNet stand-in (480x640, 1000 classes): item idx is
-    made on demand from (seed, idx), so nothing large is held — a blob
-    whose place and drift depend on the label, over uniform noise, 60k to
-    135k events (1 or 2 windows of N = 70000), centred as the dataset
-    readers centre them. No event-space augmentation."""
+def synth_events(rng, n, label, H, W, max_t):
+    """[n, 4] x/y/t/p: a blob whose place and drift depend on the label,
+    over 30% uniform noise."""
+    cx = W * (0.15 + 0.7 * (label % 40) / 40)
+    cy = H * (0.15 + 0.7 * (label // 40) / 25)
+    t = np.arange(n, dtype=np.float32) * (max_t / n)
+    noise = rng.random(n) < 0.3
+    x = np.where(noise, rng.integers(0, W, n),
+                 np.clip(cx + 0.1 * W * t / max_t + rng.normal(0, W / 20, n),
+                         0, W - 1))
+    y = np.where(noise, rng.integers(0, H, n),
+                 np.clip(cy + rng.normal(0, H / 16, n), 0, H - 1))
+    p = np.where(rng.random(n) < 0.5, -1.0, 1.0)
+    return np.stack([np.floor(x), np.floor(y), t, p], 1).astype(np.float32)
 
-    resolution = (480, 640)
-    max_t = 0.055
-    max_n = 135000
+
+class SyntheticEvents:
+    """In-memory stand-in for an event dataset: item idx is made on demand
+    from (seed, idx), so nothing large is held; 4/9 of max_n to max_n
+    events an item, centred as the dataset readers centre them. No
+    event-space augmentation."""
+
     augmentation = False
     num_shots = None
 
-    def __init__(self, n, seed, n_classes=1000):
+    def __init__(self, n, seed):
         self.n, self.seed = n, seed
-        self.classes = [f"class_{i}" for i in range(n_classes)]
+        self.classes = [f"class_{i}" for i in range(self.n_classes)]
         self.root = f"synthetic/{seed}"
 
     def __len__(self):
@@ -519,40 +565,74 @@ class SyntheticNImageNet:
         rng = np.random.default_rng((self.seed, idx))
         label = int(rng.integers(len(self.classes)))
         n = int(rng.integers(self.max_n * 4 // 9, self.max_n + 1))
-        H, W = self.resolution
-        cx, cy = 100 + 440 * (label % 40) / 40, 80 + 320 * (label // 40) / 25
-        t = np.arange(n, dtype=np.float32) * (self.max_t / n)
-        noise = rng.random(n) < 0.3
-        x = np.where(noise, rng.integers(0, W, n),
-                     np.clip(cx + 60 * t / self.max_t
-                             + rng.normal(0, 30, n), 0, W - 1))
-        y = np.where(noise, rng.integers(0, H, n),
-                     np.clip(cy + rng.normal(0, 30, n), 0, H - 1))
-        p = np.where(rng.random(n) < 0.5, -1.0, 1.0)
-        events = np.stack([np.floor(x), np.floor(y), t, p], 1).astype(
-            np.float32)
+        events = synth_events(rng, n, label, *self.resolution, self.max_t)
         return {"events": prepare_stream(events, self.resolution),
                 "label": label, "data_idx": idx}
 
 
+class SyntheticNImageNet(SyntheticEvents):
+    """N-ImageNet geometry: 480x640, 1000 classes, 60k-135k events (1 or 2
+    windows of N = 70000)."""
+
+    resolution = (480, 640)
+    max_t = 0.055
+    max_n = 135000
+    n_classes = 1000
+
+
+class SyntheticNCaltech(SyntheticEvents):
+    """N-Caltech101 geometry: 180x240, 101 classes, 100k-225k events (5 to
+    11 windows of N = 20000; 2 train views, up to 10 at eval)."""
+
+    resolution = (180, 240)
+    max_t = 0.3
+    max_n = 225000
+    n_classes = 101
+
+
 def leaf_snapshot(params):
-    """CPU copies of a trained and a frozen leaf of each kind."""
+    """CPU-side views of a trained and a frozen leaf of each kind (FT: the
+    visual tower trains; FS: the adapter)."""
     clip = params.clip
-    return {
-        "visual wqkv[0] (trained)": clip.visual.blocks.layers[0].attn.wqkv,
-        "visual proj (trained)": clip.visual.proj,
+    leaves = {
         "text_feats (trained, prompt tuning)": params.text_feats,
         "text wqkv[0] (frozen)": clip.text.blocks.layers[0].attn.wqkv,
         "logit_scale (frozen)": clip.logit_scale,
     }
+    if params.adapter is None:
+        leaves.update({
+            "visual wqkv[0] (trained)": clip.visual.blocks.layers[0].attn.wqkv,
+            "visual proj (trained)": clip.visual.proj})
+    else:
+        leaves.update({
+            "adapter in_proj w (trained)": params.adapter.in_proj.w,
+            "adapter wqkv[1] (trained)":
+                params.adapter.blocks.layers[1].attn.wqkv,
+            "visual wqkv[0] (frozen)": clip.visual.blocks.layers[0].attn.wqkv})
+    return leaves
 
 
-def train_phase(dev, tag="5 train", n_steps=4, bf16=None, batch=None,
-                checkpoint=True):
-    """Phase 5 (and 7): the FT slice through EventCLIPTrainer. `bf16`
-    (False: f32 end to end) and `batch` (train batch; eval twice that)
-    override the loaded config, as a user would set them; `checkpoint`
-    adds the moved / frozen leaves and the checkpoint round trip."""
+def annotated_ms(prof, label):
+    """Device ms of the kernels launched inside `record_function(label)`
+    ranges of a profile (forward work only: autograd runs the backward
+    outside them), or None where the profile holds no such range."""
+    import torch
+
+    evts = [e for e in prof.events() if e.name == label
+            and e.device_type == torch.autograd.DeviceType.CPU]
+    return sum(e.device_time_total for e in evts) / 1e3 if evts else None
+
+
+def train_phase(dev, tag="5 train", config=("ftclip",
+                                            "ft_text_fsclip_nin_params.py"),
+                data=SyntheticNImageNet, n_steps=4, bf16=None, batch=None,
+                checkpoint=True, augment=True):
+    """Phases 5, 7 and 8 through EventCLIPTrainer on `config` (a path
+    under configs/) over `data`. `bf16` (False: f32 end to end) and `batch`
+    (train batch; eval twice that) override the loaded config, as a user
+    would set them; `augment` False builds the train set without the
+    config's img_aug; `checkpoint` adds the moved / frozen leaves and the
+    checkpoint round trip."""
     import torch
 
     from eventclip_tpu_torch import kernels
@@ -561,8 +641,7 @@ def train_phase(dev, tag="5 train", n_steps=4, bf16=None, batch=None,
     from eventclip_tpu_torch.engine.trainer import EventCLIPTrainer
     from eventclip_tpu_torch.utils.config import load_params
 
-    params = load_params(os.path.join(HERE, "configs", "ftclip",
-                                      "ft_text_fsclip_nin_params.py"))
+    params = load_params(os.path.join(HERE, "configs", *config))
     cuts = []
     if bf16 is not None:
         params.bf16 = bf16
@@ -574,18 +653,17 @@ def train_phase(dev, tag="5 train", n_steps=4, bf16=None, batch=None,
         params.train_batch_size, params.val_batch_size = batch, 2 * batch
     bs = int(params.train_batch_size)
     q = dict(params.quantize_args)
-    train_set = EventWindowDataset(SyntheticNImageNet(bs * n_steps, seed=1),
-                                   q, augment=False)
-    val_set = EventWindowDataset(
-        SyntheticNImageNet(int(params.val_batch_size), seed=2),
-        dict(q, max_imgs=10))
+    img_aug = bool(params.get("img_aug", False)) and augment
+    train_set = EventWindowDataset(data(bs * n_steps, seed=1), q,
+                                   augment=img_aug)
+    val_set = EventWindowDataset(data(int(params.val_batch_size), seed=2),
+                                 dict(q, max_imgs=10))
     log(f"[{tag}] {params.model} {params.clip_dict['arch']} "
         f"{params.dataset} {train_set.resolution}, N {train_set.window}, "
-        f"views {train_set.max_imgs} (val {val_set.max_imgs}), batch {bs}; "
-        f"train set built with augment=False (the config's img_aug="
-        f"{params.get('img_aug')} asks for on-device RandAugment, not "
-        "ported yet)" + "".join(f"; set on the loaded config: {c}"
-                                 for c in cuts))
+        f"views {train_set.max_imgs} (val {val_set.max_imgs}), batch {bs}, "
+        f"RandAugment {'on' if img_aug else 'off'} (config img_aug="
+        f"{params.get('img_aug')})" + "".join(f"; set on the loaded config: "
+                                              f"{c}" for c in cuts))
     out = {}
     with tempfile.TemporaryDirectory() as ckpt_dir:
         t0 = time.perf_counter()
@@ -593,9 +671,9 @@ def train_phase(dev, tag="5 train", n_steps=4, bf16=None, batch=None,
                                    smoke=True, seed=0, device=dev)
         cfg = trainer.cls_cfg
         log(f"[{tag}] trainer built in {time.perf_counter() - t0:.1f} s: "
-            f"ft_mode {cfg.ft_mode}, prompt_tuning {cfg.prompt_tuning}, "
-            f"dtype {cfg.dtype}, remat {cfg.remat}, accum {trainer.accum}, "
-            f"lr groups "
+            f"ft_mode {cfg.ft_mode}, adapter {cfg.adapter}, prompt_tuning "
+            f"{cfg.prompt_tuning}, dtype {cfg.dtype}, remat {cfg.remat}, "
+            f"accum {trainer.accum}, lr groups "
             f"{[g['name'] for g in trainer.optimizer.torch_opt.param_groups]}")
         kernels.reset_launches()
         sanity = trainer.evaluate(max_steps=1)
@@ -613,11 +691,16 @@ def train_phase(dev, tag="5 train", n_steps=4, bf16=None, batch=None,
         peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         steps = len(trainer.step_times)
         L = trainer.clip_cfg.vision.layers
-        want = {"histogram": steps, "qkv_attention": 2 * L * steps,
-                "qkv_attention_bwd": L * steps}
+        if cfg.model == "FTCLIP":
+            want = {"histogram": steps, "qkv_attention": 2 * L * steps,
+                    "qkv_attention_bwd": L * steps}
+            expect = (f"K1 1, K2 {2 * L} = {L} layers x forward + remat "
+                      f"recompute, K3 {L}")
+        else:
+            want = {"histogram": steps, "qkv_attention": L * steps}
+            expect = f"K1 1, K2 {L} = {L} layers x forward, K3 0: frozen tower"
         log(f"[{tag}] launches over the {steps} timed steps {launches} "
-            f"(per step: K1 1, K2 {2 * L} = {L} layers x forward + remat "
-            f"recompute, K3 {L} expected)")
+            f"(per step: {expect} expected)")
         if launches != want:
             raise AssertionError(f"train launches {launches} != {want}")
         step_ms = [s * 1e3 for _, s in trainer.step_times]
@@ -652,7 +735,7 @@ def train_phase(dev, tag="5 train", n_steps=4, bf16=None, batch=None,
         for name, old in before.items():
             moved = not torch.equal(old, after[name].detach().cpu())
             log(f"[{tag}]   {name}: {'moved' if moved else 'unchanged'}")
-            if moved != ("trained" in name):
+            if moved != ("(trained" in name):
                 raise AssertionError(f"{name}: moved={moved}")
 
         val = trainer.evaluate()
@@ -661,7 +744,7 @@ def train_phase(dev, tag="5 train", n_steps=4, bf16=None, batch=None,
         trainer.train_step(placed)  # move the trained leaves once more
         load_checkpoint(path, target=trainer.model_params)
         again = trainer.evaluate()
-        log(f"[{tag}] checkpoint {os.path.getsize(path) / 2 ** 20:.0f} MiB"
+        log(f"[{tag}] checkpoint {os.path.getsize(path) / 2 ** 20:.1f} MiB"
             f" saved, parameters moved by one step, reloaded: eval {val} "
             f"-> {again}")
         for k in val:
@@ -672,6 +755,91 @@ def train_phase(dev, tag="5 train", n_steps=4, bf16=None, batch=None,
         del trainer
     torch.cuda.empty_cache()
     return out, launches
+
+
+def every_op_draws(B, num_ops, H, W):
+    """[B, num_ops] op indices covering all 14 ops at every step, with
+    magnitudes from spread bins, signed ops negated on odd samples."""
+    import torch
+
+    from eventclip_tpu_torch.ops.randaugment import OP_NAMES, magnitude_table
+
+    n = len(OP_NAMES)
+    b = torch.arange(B)
+    op_idx = torch.stack([(b * (2 * i + 1) + i) % n for i in range(num_ops)],
+                         1)
+    bins = (b * 7) % 30
+    mag = magnitude_table(H, W)[op_idx, bins[:, None]]
+    return op_idx, torch.where((b % 2 == 1)[:, None], -mag, mag)
+
+
+def randaugment_card_vs_cpu(dev):
+    """RandAugment on the card against the CPU: the same rasterized frames
+    (one channel, as grayscale configs run it) and the same draws, every
+    op at every step, at phase 5's 480x640 and phase 8's 180x240, held to
+    the frame rule: identity, posterize, solarize, autocontrast and
+    equalize equal; the rest at most one quantum on under 5e-3 of the
+    pixels. Also the card's time at each phase's full batch."""
+    import torch
+
+    from eventclip_tpu_torch.ops.randaugment import (GEOMETRIC, OP_NAMES,
+                                                     apply_ops,
+                                                     magnitude_table,
+                                                     sample_ops)
+    from eventclip_tpu_torch.ops.rasterize import RasterSpec, rasterize_chw
+
+    exact = {0, 10, 11, 12, 13}
+    rows = {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for name, H, W, N, full in (("phase 5", 480, 640, 70000, 128),
+                                ("phase 8", 180, 240, 20000, 32)):
+        B, T = 28, 2  # each op twice at each step
+        wins = synth_windows(gen, B * T, N, H, W, dev).reshape(B, T, N, 3)
+        frames = rasterize_chw(RasterSpec(height=H, width=W, window=N),
+                               wins)[:, :, :1].contiguous()
+        op_idx, mag = every_op_draws(B, 2, H, W)
+        card = apply_ops(frames, op_idx.to(dev), mag.to(dev)).cpu()
+        cpu = apply_ops(frames.cpu(), op_idx, mag)
+        worst = {}
+        for b in range(B):
+            ops = tuple(op_idx[b].tolist())
+            diff = (card[b] - cpu[b]).abs()
+            same = all(o in exact for o in ops)
+            err, rate = float(diff.max()), float((diff > 0).float().mean())
+            key = "+".join(OP_NAMES[o] for o in ops)
+            worst[key] = (err, rate)
+            if (same and err > 0) or err > 1 or rate >= 5e-3:
+                raise AssertionError(
+                    f"RandAugment card vs CPU {name} {key}: max |diff| {err},"
+                    f" mismatch rate {rate}")
+        # the card's time at the phase's full batch of the step's draws
+        full_frames = frames.repeat(-(-full // B), 1, 1, 1, 1)[:full]
+        draws = sample_ops(gen, full, 2, H, W)
+        n_geo = int(sum(o in GEOMETRIC for o in draws[0].reshape(-1).tolist()))
+        ms = cuda_ms(lambda: apply_ops(full_frames, *draws), iters=5,
+                     warmup=1)
+        # one op (at magnitude bin 15) on every frame of the batch, one
+        # step: where the time goes
+        per_op = {}
+        for op in range(len(OP_NAMES)):
+            idx = torch.full((full, 1), op, dtype=torch.int64)
+            mags = magnitude_table(H, W)[op, 15].expand(full, 1).to(dev)
+            per_op[OP_NAMES[op]] = cuda_ms(
+                lambda: apply_ops(full_frames, idx, mags), iters=3, warmup=1)
+        log(f"[8 RandAugment] one op on all {2 * full} frames at {H}x{W} "
+            "(ms): " + ", ".join(f"{k} {v:.2f}" for k, v in per_op.items()))
+        rows[name] = dict(
+            frames=f"[{full}, 2, 1, {H}, {W}]", ms=ms, per_op_ms=per_op,
+            max_abs_err=max(e for e, _ in worst.values()),
+            max_mismatch_rate=max(r for _, r in worst.values()))
+        log(f"[8 RandAugment] card vs CPU at {H}x{W}, {B} samples x {T} "
+            f"views, all 14 ops at both steps: max |diff| "
+            f"{rows[name]['max_abs_err']:.0f}, worst mismatch rate "
+            f"{rows[name]['max_mismatch_rate']:.2e} (limits: 0 for the "
+            f"integer ops, 1 quantum and < 5e-3 for the rest); card "
+            f"{ms:.2f} ms for a {name} batch {rows[name]['frames']} "
+            f"({n_geo} of {2 * full} sample-steps geometric)")
+    return rows
 
 
 def update_card_vs_cpu(dev, batch_size=4):
@@ -789,12 +957,15 @@ def main() -> int:
     # -- 2 ---------------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     # each path's records at the shapes that path gives the kernel
-    rec = {"serve": {}, "train": {}, "train_f32": {}, "none": {}}
+    rec = {"serve": {}, "train": {}, "train_f32": {}, "train_fs": {},
+           "none": {}}
     rec["serve"]["histogram"] = check_histogram(
         gen, "N-Caltech serving", 320, 20000, 180, 240, dev)
     check_histogram(gen, "N-Cars", 32, 30000, 100, 120, dev)
     rec["train"]["histogram"] = check_histogram(
         gen, "N-ImageNet training", 256, 70000, 480, 640, dev)
+    rec["train_fs"]["histogram"] = check_histogram(
+        gen, "N-Caltech FS training", 64, 20000, 180, 240, dev)
     check_histogram(gen, "720x1280 (row bands)", 32, 70000, 720, 1280, dev)
     check_histogram(gen, "every event on one pixel", 16, 70000, 480, 640,
                     dev, pile=True)
@@ -814,6 +985,10 @@ def main() -> int:
            for S in (257, 577)}
     rec["train"]["qkv_attention"] = check_attention(
         gen, "ViT-L/14 training", 256, 257, 16, 64, torch.bfloat16, False,
+        dev)
+    # the FS step's frozen tower: 32 samples x 2 views
+    rec["train_fs"]["qkv_attention"] = check_attention(
+        gen, "ViT-L/14 FS training", 64, 257, 16, 64, torch.bfloat16, False,
         dev)
     rec["train"]["qkv_attention_bwd"] = check_attention_bwd(
         gen, "ViT-L/14 training", 256, 257, 16, 64, torch.bfloat16, False,
@@ -944,13 +1119,12 @@ def main() -> int:
 
     # -- 5, 6 ---------------------------------------------------------------
     train, train_launches = train_phase(dev)
-    if train["profile"] is not None:
-        train["profile"].pop("rows")
     update = update_card_vs_cpu(dev)
 
     # -- 7 ---------------------------------------------------------------
     train32, train32_launches = train_phase(
-        dev, "7 train f32", n_steps=3, bf16=False, batch=32, checkpoint=False)
+        dev, "7 train f32", n_steps=3, bf16=False, batch=32, checkpoint=False,
+        augment=False)
     prof = train32["profile"]
     if prof is not None:
         rows = prof.pop("rows")
@@ -961,6 +1135,16 @@ def main() -> int:
         log(f"[7 profile] K3 f32 (dq_f32_kernel + dkdv_f32_kernel) in one "
             f"step: {k3_ms:.1f} ms, {100 * k3_ms / prof['busy_ms']:.1f}% of "
             f"the step's device time ({prof['busy_ms']:.1f} ms)")
+
+    # -- 8 ---------------------------------------------------------------
+    augment = randaugment_card_vs_cpu(dev)
+    train_fs, train_fs_launches = train_phase(
+        dev, "8 train FS", config=("fsclip", "joint_adapter",
+                                   "joint_fsclip_ncaltech_params.py"),
+        data=SyntheticNCaltech)
+    for phase in (train, train_fs):
+        if phase["profile"] is not None:
+            phase["profile"].pop("rows", None)
 
     sources = {
         "histogram": ("eventclip_tpu_torch/csrc/histogram.cu",
@@ -976,7 +1160,7 @@ def main() -> int:
     # and bound from that path (K4 is on no path: its own check's shape);
     # by_path holds each path's own row
     counts = {"serve": launches, "train": train_launches,
-              "train_f32": train32_launches}
+              "train_f32": train32_launches, "train_fs": train_fs_launches}
     by_path = {p: {k: dict(launches=counts[p].get(k, 0), **r)
                    for k, r in recs.items()}
                for p, recs in rec.items() if p in counts}
@@ -989,7 +1173,7 @@ def main() -> int:
     ], "text_attention": text, "f32_attention": f32,
         "rounding_orders": orders,
         "requests": per_request, "train": train, "update_card_vs_cpu": update,
-        "train_f32": train32}
+        "train_f32": train32, "train_fs": train_fs, "randaugment": augment}
     log(json.dumps(line))
     log(card)
     print(json.dumps({"ok": True, "device": {

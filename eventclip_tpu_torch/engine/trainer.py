@@ -1,8 +1,9 @@
 """The trainer, and the parameter resolution shared by the entry points.
 
 Port of eventclip_tpu/engine/trainer.py on one device: `EventCLIPTrainer`
-(the reference's nerv BaseMethod / EventCLIPMethod: per-step optimizer with
-warmup-cosine schedules and FTCLIP's two LR groups, a sanity-check
+(the reference's nerv BaseMethod / EventCLIPMethod for the ZS, FS and FT
+heads: per-step optimizer with warmup-cosine schedules and FTCLIP's two LR
+groups, on-device RandAugment when the train set asks for it, a sanity-check
 validation before training, eval every `eval_interval` epochs, trainable
 checkpoints every `save_interval` epochs with `val/probs_acc` best
 tracking, resume from a full-state file), plus `resolve_clip_params` (the
@@ -211,7 +212,7 @@ class EventCLIPTrainer:
             loss_weights={"ce_loss": float(params.get("ce_loss_w", 1.0))},
             pipeline=self.pipeline,
             augment=bool(getattr(train_set, "augment", False)),
-            accum_steps=self.accum)
+            accum_steps=self.accum, seed=seed)
         self.eval_step = make_eval_step(
             self.cls_cfg, self.model_params,
             top5=params.dataset == "n_imagenet", pipeline=self.pipeline)

@@ -1,19 +1,22 @@
-"""EventCLIP classifier heads: zero-shot (ZS) and fine-tuned (FT).
+"""EventCLIP classifier heads: zero-shot (ZS), few-shot (FS), fine-tuned
+(FT).
 
 Port of eventclip_tpu/models/classifier.py (behavioral contract: reference
-models/clip_cls.py:95-192, models/clip_cls_ft.py:45-256). One forward
-serves both regimes; the regime decides which parameters receive
+models/clip_cls.py:95-350, models/clip_cls_ft.py:45-256). One forward
+serves the three regimes; the regime decides which parameters receive
 gradients (models/partition.py) and how image features are treated:
 
 - ZS: raw (un-normalized!) frozen image features against cached
   normalized text features (the reference never normalizes them in ZS);
+- FS: frozen image features -> the view adapter (models/adapter.py) ->
+  L2 norm -> mask; the adapter trains;
 - FT: a (partly) trainable visual tower, adapter bypassed, L2-normalized
-  features. With prompt tuning (`adapter_type='text-...'`) the text
-  features are a trainable parameter, re-normalized on every forward.
+  features.
 
-FSCLIP (the adapter head) comes in a later slice. The parameters are one
-`ClassifierParams` module: the CLIP towers, the text features and the
-optional LoRA deltas.
+With prompt tuning (`adapter_type='text-...'`) the text features are a
+trainable parameter, re-normalized on every forward. The parameters are
+one `ClassifierParams` module: the CLIP towers, the text features, and the
+FS adapter or the FT LoRA deltas.
 """
 
 from __future__ import annotations
@@ -23,7 +26,10 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.profiler import record_function
 
+from .adapter import (Adapter, AdapterConfig, apply_adapter,
+                      init_adapter_params)
 from .clip.config import CLIPConfig
 from .clip.model import (CLIP, LoRA, encode_image, encode_text,
                          init_clip_params, init_lora_params)
@@ -31,10 +37,11 @@ from .clip.model import (CLIP, LoRA, encode_image, encode_text,
 
 @dataclasses.dataclass(frozen=True)
 class ClassifierConfig:
-    model: str  # 'ZSCLIP' | 'FTCLIP' (FSCLIP comes later)
+    model: str  # 'ZSCLIP' | 'FSCLIP' | 'FTCLIP'
     clip: CLIPConfig
     agg_func: str = "mean"  # 'sum' | 'mean' | 'max'
     logit_scale: float = 100.0  # exp(learned tau), snapshot like the reference
+    adapter: AdapterConfig = AdapterConfig()
     prompt_tuning: bool = False
     lora: Optional[object] = None  # e.g. 16 -> 'qkv-16'; None -> disabled
     ft_mode: str = "full"  # 'full'|'conv1'|'bias'|'ln'|'cls_fc'|'cls_token'|'lora'
@@ -44,32 +51,43 @@ class ClassifierConfig:
     remat: bool = False  # recompute transformer blocks in the backward (FT)
 
     def __post_init__(self):
-        if self.model not in ("ZSCLIP", "FTCLIP"):
-            raise NotImplementedError(
-                f"{self.model}: only the ZS and FT heads are ported so far")
+        assert self.model in ("ZSCLIP", "FSCLIP", "FTCLIP"), self.model
         assert self.agg_func in ("sum", "mean", "max"), self.agg_func
         assert int(self.use_logits_loss) + int(self.use_probs_loss) == 1
+        if self.model == "FTCLIP":
+            # the reference asserts adapter==identity and bypasses it in
+            # forward (models/clip_cls_ft.py:119,228)
+            assert self.adapter.adapter_type == "identity"
 
 
 def build_classifier_config(params_cfg, clip_cfg: CLIPConfig,
                             dtype=torch.float32) -> ClassifierConfig:
     """Build from an experiment config object (utils.config.Params)."""
-    if params_cfg.model not in ("ZSCLIP", "FTCLIP"):
-        raise NotImplementedError(
-            f"{params_cfg.model}: the FS head is not ported yet")
     clip_dict = dict(params_cfg.clip_dict)
     adapter_dict = dict(params_cfg.get("adapter_dict", {}) or {})
-    adapter_type = adapter_dict.get("adapter_type", "identity").lower()
+    adapter_type = adapter_dict.pop("adapter_type", "identity").lower()
     prompt_tuning = adapter_type.startswith("text-")
     if prompt_tuning:
         adapter_type = adapter_type[len("text-"):]
-    if params_cfg.model == "FTCLIP":
-        # the reference asserts adapter==identity and bypasses it in
-        # forward (models/clip_cls_ft.py:119,228)
-        assert adapter_type == "identity", adapter_type
+    residual = AdapterConfig.residual_value(adapter_dict.pop("residual", False))
+    norm_first = adapter_dict.pop("norm_first", True)
+    assert norm_first, "reference adapters are pre-norm"
+    # in_dim always tracks the CLIP feature dim, whatever the config says
+    # (the reference overrides it the same way, train.py:42, test.py:44)
+    adapter = AdapterConfig(
+        adapter_type=adapter_type,
+        in_dim=clip_cfg.embed_dim,
+        d_model=adapter_dict.pop("d_model", 256),
+        num_heads=adapter_dict.pop("num_heads", 4),
+        ffn_dim=adapter_dict.pop("ffn_dim", 1024),
+        num_layers=adapter_dict.pop("num_layers", 2),
+        residual=residual,
+    )
     lora = clip_dict.get("lora", -1)
-    lora_enabled = isinstance(lora, str) or (
-        isinstance(lora, int) and not isinstance(lora, bool) and lora > 0)
+    # a bool counts as an int, as in the JAX package: True enables LoRA
+    # mode, and parse_lora_spec(True) then builds no deltas (tower frozen)
+    lora_enabled = isinstance(lora, str) or (isinstance(lora, int)
+                                             and lora > 0)
     ft_mode = "full"
     if params_cfg.model == "FTCLIP":
         if lora_enabled:
@@ -99,6 +117,7 @@ def build_classifier_config(params_cfg, clip_cfg: CLIPConfig,
         # override it at load (engine.trainer.snapshot_logit_scale)
         logit_scale=float(clip_dict.get("logit_scale", 100.0)),
         agg_func=clip_dict.get("agg_func", "mean"),
+        adapter=adapter,
         prompt_tuning=prompt_tuning,
         lora=lora if lora_enabled else None,
         ft_mode=ft_mode,
@@ -130,13 +149,14 @@ def compute_text_features(clip, tokens: torch.Tensor) -> torch.Tensor:
 
 class ClassifierParams(nn.Module):
     """The classifier's parameter tree (the JAX package's
-    {'clip', 'text_feats', 'lora'} dict): CLIP towers, [n_cls, C] text
-    features (trainable only under prompt tuning) and, for FT with LoRA,
-    the stacked deltas. Which parameters train is set by
-    models.partition.set_trainable."""
+    {'clip', 'text_feats', 'adapter', 'lora'} dict): CLIP towers, [n_cls, C]
+    text features (trainable only under prompt tuning), for FS the view
+    adapter and, for FT with LoRA, the stacked deltas. Which parameters
+    train is set by models.partition.set_trainable."""
 
     def __init__(self, clip: CLIP, text_feats: torch.Tensor,
-                 lora: Optional[LoRA] = None):
+                 lora: Optional[LoRA] = None,
+                 adapter: Optional[Adapter] = None):
         super().__init__()
         self.clip = clip
         # a copy: the caller's tensor (maybe made under inference_mode)
@@ -145,6 +165,7 @@ class ClassifierParams(nn.Module):
             text_feats, dtype=torch.float32).to(
                 clip.logit_scale.device).clone())
         self.lora = lora
+        self.adapter = adapter
 
 
 @torch.no_grad()
@@ -155,7 +176,8 @@ def init_classifier_params(cfg: ClassifierConfig,
                            n_classes: Optional[int] = None,
                            device=None) -> ClassifierParams:
     """Assemble the parameters, drawing what is not given from `generator`
-    in the order towers, text features, LoRA. `text_feats` seeds the
+    in the order towers, text features, adapter (FS) or LoRA (FT).
+    `text_feats` seeds the
     prompt-tuning parameter (the reference initializes the prompts from the
     frozen encoder output, clip_cls.py:253-259) or is the frozen cache."""
     device = generator.device if device is None else torch.device(device)
@@ -166,11 +188,13 @@ def init_classifier_params(cfg: ClassifierConfig,
         text_feats = normalize(torch.randn(
             (n_classes, cfg.clip.embed_dim), generator=generator,
             device=generator.device))
-    lora = None
+    lora = adapter = None
+    if cfg.model == "FSCLIP":
+        adapter = init_adapter_params(cfg.adapter, generator, device=device)
     if cfg.model == "FTCLIP" and cfg.lora is not None:
         lora = init_lora_params(cfg.clip.vision, cfg.lora, generator,
                                 device=device)
-    return ClassifierParams(clip, text_feats, lora)
+    return ClassifierParams(clip, text_feats, lora, adapter)
 
 
 # ---------------------------------------------------------------------------
@@ -201,24 +225,29 @@ def aggregate_probs(logits: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 def _encode_views(params: ClassifierParams, cfg: ClassifierConfig,
                   flat_imgs: torch.Tensor, train: bool) -> torch.Tensor:
-    """[V, 3, S, S] -> [V, C] raw (un-normalized) f32 encoder features;
-    gradient kept for FT only."""
-    feats = encode_image(
-        params.clip.visual, flat_imgs, dtype=cfg.dtype, lora=params.lora,
-        remat=cfg.remat and cfg.model == "FTCLIP" and train).float()
-    return feats if cfg.model == "FTCLIP" else feats.detach()
+    """[V, 3, S, S] -> [V, C] raw (un-normalized) f32 encoder features.
+    Only FT records a graph through the tower; ZS and FS encode under
+    no_grad (the frozen tower, the JAX package's stop_gradient)."""
+    trains_tower = cfg.model == "FTCLIP"
+    with torch.set_grad_enabled(trains_tower and torch.is_grad_enabled()):
+        return encode_image(
+            params.clip.visual, flat_imgs, dtype=cfg.dtype, lora=params.lora,
+            remat=cfg.remat and trains_tower and train).float()
 
 
 def classifier_forward(params: ClassifierParams, cfg: ClassifierConfig,
                        imgs: torch.Tensor, valid: torch.Tensor,
-                       train: bool = False) -> Dict[str, torch.Tensor]:
+                       train: bool = False,
+                       generator: Optional[torch.Generator] = None
+                       ) -> Dict[str, torch.Tensor]:
     """imgs [B, T, 3, S, S] CLIP-normalized, valid [B, T] -> output dict.
 
-    All T views are encoded (padded views carry zeros) and masked after."""
+    All T views are encoded (padded views carry zeros) and masked after.
+    `train` with a `generator` turns on the FS adapter's dropout."""
     B, T = valid.shape
     flat = imgs.reshape((B * T,) + tuple(imgs.shape[2:]))
     feats = _encode_views(params, cfg, flat, train).reshape(B, T, -1)
-    return _aggregate_head(params, cfg, feats, valid)
+    return _aggregate_head(params, cfg, feats, valid, train, generator)
 
 
 def classifier_forward_packed(params: ClassifierParams,
@@ -242,21 +271,29 @@ def classifier_forward_packed(params: ClassifierParams,
 
 
 def _aggregate_head(params: ClassifierParams, cfg: ClassifierConfig,
-                    feats: torch.Tensor,
-                    valid: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Post-encoder half: FT normalizes then masks the features (ZS uses
-    them raw, clip_cls.py:148), then logits against the text features,
-    masked, aggregated."""
-    if cfg.model == "FTCLIP":
-        # adapter bypassed (clip_cls_ft.py:228); features L2-normalized
+                    feats: torch.Tensor, valid: torch.Tensor,
+                    train: bool = False,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """Post-encoder half: FS adapts the features (zeros in padded slots
+    are masked out of its attention), FS and FT normalize then mask them
+    (ZS uses them raw, clip_cls.py:148), then logits against the text
+    features, masked, aggregated."""
+    if cfg.model == "FSCLIP":
+        with record_function("adapter"):
+            feats = apply_adapter(params.adapter, cfg.adapter, feats, valid,
+                                  train=train, generator=generator)
+    if cfg.model != "ZSCLIP":
+        # FT bypasses the adapter (clip_cls_ft.py:228)
         feats = normalize(feats) * valid[..., None]
-    text_feats = params.text_feats
-    if cfg.prompt_tuning:
-        text_feats = normalize(text_feats)  # re-normalized every forward
-    else:
-        text_feats = text_feats.detach()
-    full_logits = cfg.logit_scale * torch.einsum(
-        "btc,nc->btn", feats.float(), text_feats.float())
+    with record_function("text_feats"):
+        text_feats = params.text_feats
+        if cfg.prompt_tuning:
+            text_feats = normalize(text_feats)  # re-normalized every forward
+        else:
+            text_feats = text_feats.detach()
+        full_logits = cfg.logit_scale * torch.einsum(
+            "btc,nc->btn", feats.float(), text_feats.float())
     full_logits = full_logits * valid[..., None]
     return {
         "full_logits": full_logits,

@@ -2,11 +2,13 @@
 
 The JAX trees (eventclip_tpu/models/clip/model.py::init_clip_params, a
 converted checkpoint, or a whole classifier tree {'clip', 'text_feats',
-'lora'}) already hold weights in torch [out, in] order; their transformer
-blocks are stacked along a leading layer axis. The port keeps one `Block`
-per layer, the fused in-projection `wqkv` [L, 3, D, D] as [3D, D] per layer
-(the reshape the JAX forward does), `bqkv` as [3D], and names layer-norm
-`scale` `weight`. LoRA deltas stay stacked ([L, r, D] / [L, D, r]) on both
+'adapter', 'lora'}) already hold weights in torch [out, in] order; their
+transformer blocks are stacked along a leading layer axis. The port keeps
+one block module per layer, the CLIP towers' fused in-projection `wqkv`
+[L, 3, D, D] as [3D, D] per layer (the reshape the JAX forward does),
+`bqkv` as [3D], and names layer-norm `scale` `weight`. The FS adapter's
+`wqkv` is already [L, 3d, d] in the JAX tree, so only the towers' leaves
+are reshaped. LoRA deltas stay stacked ([L, r, D] / [L, D, r]) on both
 sides.
 
 `jax_path` is the one name map, from a port parameter name to its JAX
@@ -53,6 +55,13 @@ def flatten_tree(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
     return flat
 
 
+def _fused_qkv(path: str) -> bool:
+    """A CLIP tower's fused in-projection (stored [3, D(, D)] a layer in
+    JAX), in a classifier tree (`clip/...`) or a bare CLIP tree."""
+    return (path.startswith(("clip/", "visual/", "text/"))
+            and path.endswith(("/wqkv", "/bqkv")))
+
+
 def port_leaves(path: str, value) -> Iterable[Tuple[str, np.ndarray]]:
     """One JAX leaf -> (port name, port-shaped array) pairs: stacked block
     leaves unstack into one name per layer."""
@@ -66,7 +75,7 @@ def port_leaves(path: str, value) -> Iterable[Tuple[str, np.ndarray]]:
     i = parts.index("blocks") + 1
     for layer in range(value.shape[0]):
         leaf = value[layer]
-        if parts[-1] in ("wqkv", "bqkv"):  # [3, D(, D)] -> [3D(, D)]
+        if _fused_qkv(path):  # [3, D(, D)] -> [3D(, D)]
             leaf = leaf.reshape((-1,) + leaf.shape[2:])
         yield ".".join(parts[:i] + ["layers", str(layer)] + parts[i:]), leaf
 
@@ -74,7 +83,7 @@ def port_leaves(path: str, value) -> Iterable[Tuple[str, np.ndarray]]:
 def from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX tree (numpy leaves) -> a float32 state dict for the port: a CLIP
     tree ({'visual', 'text', 'logit_scale'}) for `CLIP.load_state_dict`, or
-    a classifier tree ({'clip', 'text_feats', 'lora'}) for
+    a classifier tree ({'clip', 'text_feats', 'adapter', 'lora'}) for
     `models.classifier.ClassifierParams`."""
     return {name: torch.from_numpy(np.array(leaf, dtype=np.float32))
             for path, value in flatten_tree(tree).items()
@@ -84,8 +93,8 @@ def from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 def to_jax_flat(named: Iterable[Tuple[str, torch.Tensor]]
                 ) -> Dict[str, np.ndarray]:
     """(port name, tensor) pairs -> {JAX path: numpy leaf in the JAX
-    shape}: per-layer tensors stacked along a leading layer axis, `wqkv` /
-    `bqkv` split back into their [3, D(, D)] form."""
+    shape}: per-layer tensors stacked along a leading layer axis, the
+    towers' `wqkv` / `bqkv` split back into their [3, D(, D)] form."""
     layers: Dict[str, Dict[int, np.ndarray]] = {}
     flat: Dict[str, np.ndarray] = {}
     for name, t in named:
@@ -94,7 +103,7 @@ def to_jax_flat(named: Iterable[Tuple[str, torch.Tensor]]
         if layer is None:
             flat[path] = a
         else:
-            if path.endswith(("wqkv", "bqkv")):
+            if _fused_qkv(path):
                 a = a.reshape((3, -1) + a.shape[1:])
             layers.setdefault(path, {})[layer] = a
     for path, by_layer in layers.items():

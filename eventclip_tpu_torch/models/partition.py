@@ -44,6 +44,8 @@ def path_trainable(cfg: ClassifierConfig, path: str) -> bool:
     """Whether the leaf at JAX tree path `path` receives gradient updates."""
     if path.startswith("text_feats"):
         return cfg.prompt_tuning
+    if path.startswith("adapter"):
+        return cfg.model == "FSCLIP"
     if path.startswith("lora"):
         return True
     if path.startswith("clip/visual"):

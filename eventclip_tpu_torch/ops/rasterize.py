@@ -6,8 +6,9 @@ datasets/vis.py:6-117). The per-window polarity histogram runs through the
 hand-written kernel csrc/histogram.cu on a CUDA tensor (`histograms`), or
 its plain PyTorch version on a CPU tensor. Everything downstream (hot-pixel
 removal, normalization, colorization, white compositing, uint8 rounding and
-the CLIP resize) is plain elementwise/reduction/matmul PyTorch, as it was
-XLA-fused (not Pallas) in the JAX package.
+the CLIP resize, and on the training path RandAugment) is plain
+elementwise/reduction/gather/matmul PyTorch, as it was XLA-fused (not
+Pallas) in the JAX package.
 
 Window layouts: [.., N, 4] float32 (x, y, t, p) and the packed
 [.., N, 3] int16 (x, y, p); polarity is the last channel in both.
@@ -20,9 +21,11 @@ from typing import Tuple, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .. import kernels
 from .preprocess import ClipPreprocess, preprocess_frames_chw
+from .randaugment import apply_ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,3 +233,25 @@ def rasterize_for_clip(spec: RasterSpec, pp: ClipPreprocess,
     """Event windows -> [..., 3, S, S] float32 CLIP-normalized images,
     channel-first end to end (no HWC frame is materialized)."""
     return preprocess_frames_chw(pp, rasterize_chw(spec, windows))
+
+
+def rasterize_augment_for_clip(spec: RasterSpec, pp: ClipPreprocess,
+                               windows: torch.Tensor, op_idx: torch.Tensor,
+                               mag: torch.Tensor) -> torch.Tensor:
+    """Training-path `rasterize_for_clip` with RandAugment between the
+    frames and the resize: [B, T, N, 4|3] windows and the draws op_idx / mag
+    [B, num_ops] (ops.randaugment.sample_ops) -> [B, T, 3, S, S]. The
+    reference augments the uint8 frames before the CLIP transforms
+    (datasets/event2img.py:120-127); the fill matches the background mode.
+    Grayscale colormaps give R = G = B and every op keeps channels equal,
+    so those frames are augmented on one channel and broadcast."""
+    op_idx = op_idx.cpu()  # read before the frames are queued
+    frames = rasterize_chw(spec, windows)  # [B, T, 3, H, W]
+    fill = 255.0 if spec.background_mask else 0.0
+    with record_function("randaugment"):
+        if spec.grayscale:
+            frames = apply_ops(frames[:, :, :1], op_idx, mag, fill).expand(
+                frames.shape)
+        else:
+            frames = apply_ops(frames, op_idx, mag, fill)
+    return preprocess_frames_chw(pp, frames)

@@ -1,7 +1,8 @@
 """Trainable checkpoints cross between the JAX package and the port.
 
 Both packages write npz archives keyed by the JAX tree paths, holding the
-trainable leaves only. A checkpoint the JAX package's `save_trainable`
+trainable leaves only (FT: tower leaves, LoRA deltas, prompts; FS: the
+adapter and prompts). A checkpoint the JAX package's `save_trainable`
 writes loads into the port's parameters (whatever they held before) and
 the port then gives the JAX package's probabilities; a checkpoint the port
 writes loads with the JAX package's `load_checkpoint(target=...)`. f32
@@ -26,11 +27,25 @@ from eventclip_tpu_torch.engine.checkpoint import (CheckpointManager,
 from eventclip_tpu_torch.engine.optim import OptimConfig, Optimizer
 from eventclip_tpu_torch.models import classifier
 from eventclip_tpu_torch.models.clip.convert import flatten_tree, to_jax_flat
-from tests.test_torch_train import N_CLS, _cfgs, _port_params, _tree
+from tests.test_torch_train import (N_CLS, _cfgs, _fs_cfgs, _port_params,
+                                    _tree)
 
 MODES = [dict(ft_mode="full", prompt_tuning=True),
          dict(ft_mode="lora", lora="qkvo-4"),
-         dict(ft_mode="bias")]
+         dict(ft_mode="bias"),
+         dict(model="FSCLIP", prompt_tuning=True),
+         dict(model="FSCLIP", prompt_tuning=False)]
+IDS = ["full", "lora", "bias", "fs_prompt", "fs"]
+
+
+def _mode_cfgs(kw):
+    """FT modes, or FSCLIP (the adapter, with or without prompt tuning;
+    dropout is off outside training anyway). FS at a logit scale of 10:
+    at 100 these random towers' probs saturate, and a changed adapter
+    moves them by less than 1e-3."""
+    if kw.get("model") == "FSCLIP":
+        return _fs_cfgs(kw["prompt_tuning"], dropout=0.1, logit_scale=10.0)
+    return _cfgs(**kw)
 
 
 def _inputs(seed=0, B=3, T=2):
@@ -77,9 +92,9 @@ def _trained_and_start(jcfg, seed):
     return trained, _replace(trained, {k: other[k] for k in keys}), keys
 
 
-@pytest.mark.parametrize("kw", MODES, ids=[m["ft_mode"] for m in MODES])
+@pytest.mark.parametrize("kw", MODES, ids=IDS)
 def test_jax_checkpoint_serves_the_same_probs_in_the_port(tmp_path, kw):
-    jcfg, pcfg = _cfgs(**kw)
+    jcfg, pcfg = _mode_cfgs(kw)
     trained, start, _ = _trained_and_start(jcfg, seed=0)
     path = str(tmp_path / "best.npz")
     ref_save(path, jcfg, jax.tree_util.tree_map(jnp.asarray, trained),
@@ -95,9 +110,9 @@ def test_jax_checkpoint_serves_the_same_probs_in_the_port(tmp_path, kw):
                                atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("kw", MODES, ids=[m["ft_mode"] for m in MODES])
+@pytest.mark.parametrize("kw", MODES, ids=IDS)
 def test_port_checkpoint_serves_the_same_probs_in_jax(tmp_path, kw):
-    jcfg, pcfg = _cfgs(**kw)
+    jcfg, pcfg = _mode_cfgs(kw)
     trained, start, keys = _trained_and_start(jcfg, seed=2)
     params = _port_params(trained, pcfg)
     path = str(tmp_path / "model_3.npz")

@@ -204,8 +204,10 @@ def test_serving_path_imports_no_jax():
 
 def test_training_path_imports_no_jax():
     """A fresh interpreter that imports every module of the port and
-    chip_smoke.py, then takes one FT update of a tiny tower with remat,
-    has neither jax nor any eventclip_tpu module loaded."""
+    chip_smoke.py, then takes one FT update of a tiny tower with remat and
+    one FS update on event windows with RandAugment, and builds a model
+    with models.factory, has neither jax nor any eventclip_tpu module
+    loaded."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import torch
@@ -219,6 +221,7 @@ def test_training_path_imports_no_jax():
         from eventclip_tpu_torch.engine.train import make_train_step
         from eventclip_tpu_torch.models import classifier
         from eventclip_tpu_torch.models.clip.config import clip_arch_config
+        from eventclip_tpu_torch.utils.config import load_params
         cfg = classifier.ClassifierConfig(
             model="FTCLIP", clip=clip_arch_config("ViT-T/8@32"), remat=True,
             prompt_tuning=True)
@@ -229,6 +232,35 @@ def test_training_path_imports_no_jax():
                   "valid_mask": torch.ones(2, 2, dtype=torch.bool),
                   "label": torch.tensor([0, 2])})
         assert torch.isfinite(m["total_loss"])
+        # the FS slice's modules by name: adapter, RandAugment, factory
+        from eventclip_tpu_torch.models import adapter, factory
+        from eventclip_tpu_torch.ops import randaugment
+        from eventclip_tpu_torch.ops.preprocess import ClipPreprocess
+        from eventclip_tpu_torch.ops.rasterize import RasterSpec
+        clip = clip_arch_config("ViT-T/8@32")
+        fs = classifier.ClassifierConfig(
+            model="FSCLIP", clip=clip, prompt_tuning=True,
+            adapter=adapter.AdapterConfig(
+                adapter_type="trans", in_dim=clip.embed_dim, d_model=16,
+                num_heads=2, ffn_dim=64))
+        q = classifier.init_classifier_params(
+            fs, torch.Generator().manual_seed(0), n_classes=3)
+        step = make_train_step(
+            fs, q, Optimizer(fs, OptimConfig(), q), augment=True,
+            pipeline=(RasterSpec(height=24, width=32, window=64),
+                      ClipPreprocess(24, 32, 32)))
+        g = torch.Generator().manual_seed(1)
+        wins = torch.stack([torch.randint(0, 32, (2, 2, 64), generator=g),
+                            torch.randint(0, 24, (2, 2, 64), generator=g),
+                            torch.ones(2, 2, 64, dtype=torch.int64)], -1)
+        m = step({"windows": wins.to(torch.int16),
+                  "valid_mask": torch.ones(2, 2, dtype=torch.bool),
+                  "label": torch.tensor([0, 2])})
+        assert torch.isfinite(m["total_loss"])
+        model = factory.build_model(
+            load_params("configs/debug/fsclip_tiny_params.py"), ["a", "b"],
+            dtype=torch.float32, device="cpu")
+        assert randaugment.OP_NAMES[0] == "Identity"
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "eventclip_tpu" or m.startswith("eventclip_tpu."))

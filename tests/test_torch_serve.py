@@ -1,4 +1,5 @@
-"""The port's ZS head and Predictor vs the JAX package's.
+"""The port's ZS and FS heads, Predictor and build_model vs the JAX
+package's.
 
 The JAX Predictor's own random towers and text features cross to the port
 (as numpy), and the same raw streams go through both. With the
@@ -191,10 +192,138 @@ def test_classifier_forward_packed_matches_jax(head_inputs):
     _compare(got, want)
 
 
-def test_unported_heads_raise():
+def _fs_configs():
     class P:
         model = "FSCLIP"
+        clip_dict = dict(arch=ARCH, agg_func="mean")
+        adapter_dict = dict(adapter_type="text-trans", d_model=16,
+                            num_heads=2, ffn_dim=64, num_layers=2,
+                            residual=0.8)
+
+        def get(self, k, d=None):
+            return getattr(self, k, d)
+
+    return (ref_cls.build_classifier_config(P(), ref_arch(ARCH)),
+            classifier.build_classifier_config(P(), clip_arch_config(ARCH)))
+
+
+@pytest.fixture(scope="module")
+def fs_inputs(head_inputs):
+    """head_inputs' towers and text features plus a JAX-drawn adapter
+    (biases random, so each leaf matters), in both packages."""
+    from eventclip_tpu.models.adapter import init_adapter_params
+    from eventclip_tpu_torch.models.adapter import Adapter
+    from eventclip_tpu_torch.models.clip.convert import from_jax_params
+
+    ref_params, port_params, imgs, valid = head_inputs
+    ref_cfg, cfg = _fs_configs()
+    rng = np.random.default_rng(6)
+    tree = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + 0.05 * rng.normal(size=a.shape).astype(
+            np.float32),
+        init_adapter_params(jax.random.PRNGKey(5), ref_cfg.adapter))
+    adapter = Adapter(cfg.adapter)
+    adapter.load_state_dict({k[len("adapter."):]: v for k, v in
+                             from_jax_params({"adapter": tree}).items()})
+    ref = dict(ref_params, adapter=jax.tree_util.tree_map(jnp.asarray, tree))
+    port = classifier.ClassifierParams(port_params.clip,
+                                       port_params.text_feats.detach(),
+                                       adapter=adapter)
+    return ref, port, imgs, valid
+
+
+def test_fs_classifier_forward_matches_jax(fs_inputs):
+    """The FS head (adapter -> normalize -> mask, prompts re-normalized),
+    padded: a row with no valid view is NaN in both."""
+    ref_params, port_params, imgs, valid = fs_inputs
+    ref_cfg, cfg = _fs_configs()
+    want = ref_cls.classifier_forward(ref_params, ref_cfg, jnp.asarray(imgs),
+                                      jnp.asarray(valid))
+    with torch.no_grad():
+        got = classifier.classifier_forward(port_params, cfg,
+                                            torch.from_numpy(imgs),
+                                            torch.from_numpy(valid))
+    _compare(got, want)
+    assert np.isnan(got["probs"][2].numpy()).all()
+
+
+def test_fs_classifier_forward_packed_matches_jax(fs_inputs):
+    ref_params, port_params, imgs, valid = fs_inputs
+    ref_cfg, cfg = _fs_configs()
+    B, T = valid.shape
+    idx = np.flatnonzero(valid.reshape(-1))
+    K = 8
+    packed = np.zeros((K,) + imgs.shape[2:], np.float32)
+    packed[: len(idx)] = imgs.reshape((B * T,) + imgs.shape[2:])[idx]
+    src = np.full(K, B * T, np.int32)
+    src[: len(idx)] = idx
+    want = ref_cls.classifier_forward_packed(
+        ref_params, ref_cfg, jnp.asarray(packed), jnp.asarray(src),
+        jnp.asarray(valid))
+    with torch.no_grad():
+        got = classifier.classifier_forward_packed(
+            port_params, cfg, torch.from_numpy(packed),
+            torch.from_numpy(src), torch.from_numpy(valid))
+    _compare(got, want)
+
+
+def test_unknown_heads_raise():
+    class P:
+        model = "XXCLIP"
         clip_dict = dict(arch=ARCH)
 
-    with pytest.raises(NotImplementedError):
-        classifier.build_classifier_config(P(), clip_arch_config(ARCH))
+        def get(self, k, d=None):
+            return getattr(self, k, d)
+
+    for build, arch in ((ref_cls.build_classifier_config, ref_arch),
+                        (classifier.build_classifier_config,
+                         clip_arch_config)):
+        with pytest.raises(AssertionError):
+            build(P(), arch(ARCH))
+
+
+@pytest.mark.parametrize("config", [CONFIG,
+                                    "configs/debug/fsclip_tiny_params.py"])
+def test_build_model_matches_jax(head_inputs, tmp_path, config):
+    """build_model from the same towers and text features in both
+    packages; for FS the adapter and prompts come from a checkpoint the
+    JAX package saved, through EventCLIPModel.load_weight."""
+    from eventclip_tpu.engine.checkpoint import save_trainable
+    from eventclip_tpu.models.factory import build_model as ref_build
+    from eventclip_tpu_torch.models.factory import build_model
+
+    ref_params, _, imgs, valid = head_inputs
+    tree = jax.tree_util.tree_map(np.asarray, ref_params["clip"])
+    tf = np.array(ref_params["text_feats"])
+    names = [f"c{i}" for i in range(tf.shape[0])]
+    ref = ref_build(ref_load_params(config), names, clip_params=ref_params[
+        "clip"], text_feats=ref_params["text_feats"], dtype=jnp.float32)
+    port = build_model(load_params(config), names, clip_params=tree,
+                       text_feats=tf, dtype=torch.float32, device="cpu")
+    assert port.cfg.model == ref.cfg.model
+    if port.cfg.model == "FSCLIP":
+        path = str(tmp_path / "best.npz")
+        save_trainable(path, ref.cfg, ref.params)
+        port.load_weight(path)
+    want = ref({"img": jnp.asarray(imgs), "valid_mask": jnp.asarray(valid)})
+    got = port({"img": torch.from_numpy(imgs),
+                "valid_mask": torch.from_numpy(valid)})
+    _compare(got, want)
+
+
+def test_build_model_text_features_rule(head_inputs):
+    """Pretrained towers without text features raise (there is no
+    tokenizer); random towers draw both, on the device asked for."""
+    from eventclip_tpu_torch.models.factory import build_model
+
+    ref_params = head_inputs[0]
+    tree = jax.tree_util.tree_map(np.asarray, ref_params["clip"])
+    params = load_params(CONFIG)
+    with pytest.raises(FileNotFoundError, match="text_feats"):
+        build_model(params, NAMES, clip_params=tree, device="cpu")
+    model = build_model(params, NAMES, device="cpu",
+                        generator=torch.Generator().manual_seed(1))
+    tf = model.params.text_feats
+    assert tuple(tf.shape) == (len(NAMES), model.cfg.clip.embed_dim)
+    torch.testing.assert_close(tf.norm(dim=-1), torch.ones(len(NAMES)))
+    assert model.cfg.dtype == torch.bfloat16  # the JAX factory's default

@@ -1,4 +1,4 @@
-"""The port's FT training vs the JAX package's, on a tiny tower.
+"""The port's FT and FS training vs the JAX package's, on a tiny tower.
 
 The same parameters (drawn by the JAX package, biases, norms and LoRA `b`
 filled at random so every leaf carries gradient, crossed through
@@ -49,6 +49,7 @@ from eventclip_tpu.utils.pytree import path_str
 from eventclip_tpu_torch.engine.optim import (OptimConfig, Optimizer,
                                               optimizer_labels)
 from eventclip_tpu_torch.engine.schedule import warmup_cosine
+from eventclip_tpu_torch.engine import train
 from eventclip_tpu_torch.engine.train import make_train_step
 from eventclip_tpu_torch.models import classifier
 from eventclip_tpu_torch.models.clip import config
@@ -436,15 +437,193 @@ def test_classifier_tree_round_trips_through_the_bridge():
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def test_augment_is_refused_until_ported():
-    _, pcfg = _cfgs()
-    params = classifier.init_classifier_params(
-        pcfg, torch.Generator().manual_seed(0), n_classes=N_CLS)
-    optim = Optimizer(pcfg, OptimConfig(), params)
-    with pytest.raises(NotImplementedError):
-        make_train_step(pcfg, params, optim, augment=True)
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(pcfg, model="FSCLIP")
+def test_fs_classifier_tree_round_trips_through_the_bridge():
+    """An FS tree: the adapter's stacked [L, 3d, d] wqkv is not reshaped as
+    the towers' [L, 3, D, D] is."""
+    jcfg, pcfg = _fs_cfgs(prompt_tuning=True)
+    tree = _tree(jcfg)
+    assert tree["adapter"]["blocks"]["attn"]["wqkv"].shape == (2, 48, 16)
+    params = _port_params(tree, pcfg)
+    assert tuple(params.adapter.blocks.layers[1].attn.wqkv.shape) == (48, 16)
+    got = to_jax_flat(params.named_parameters())
+    want = flatten_tree(tree)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_augment_step_draws_from_seed_and_update_count():
+    """augment=True builds and steps on event windows; its RandAugment
+    draws are a function of (seed, update count, microbatch): the same
+    seed gives the same update, another seed another one."""
+    jcfg, pcfg = _cfgs(ft_mode="full", prompt_tuning=True)
+    tree = _tree(jcfg, seed=2)
+    batch = _batch(seed=2, windows=True)
+    _, pipe = _pipelines()
+
+    def run(seed):
+        params = _port_params(tree, pcfg)
+        optim = Optimizer(pcfg, _opt_cfgs()[1], params)
+        step = make_train_step(pcfg, params, optim, pipeline=pipe,
+                               augment=True, seed=seed)
+        m = step({k: torch.from_numpy(v) for k, v in batch.items()})
+        return float(m["total_loss"]), to_jax_flat(params.named_parameters())
+
+    (loss_a, a), (loss_b, b), (loss_c, _) = run(0), run(0), run(1)
+    assert np.isfinite(loss_a) and loss_a == loss_b
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert loss_c != loss_a
+    assert train.step_seeds(0, 3, 0) == train.step_seeds(0, 3, 0)
+    seeds = {train.step_seeds(*k) for k in ((0, 3, 0), (0, 4, 0), (0, 3, 1),
+                                            (1, 3, 0))}
+    assert len(seeds) == 4 and all(a != f for a, f in seeds)
+
+
+LORA_SPECS = [True, False, 0, -1, 4, "qv-8"]
+
+
+@pytest.mark.parametrize("lora", LORA_SPECS, ids=[repr(v) for v in LORA_SPECS])
+def test_lora_setting_matches_jax(lora):
+    """clip_dict['lora'] as both packages read it: a bool counts as an int
+    (True: LoRA mode with no deltas, the tower frozen), then the trainable
+    leaves of the classifier built from that config."""
+    path = os.path.join(ROOT, "configs", "ftclip", "ft_text_fsclip_nin_params.py")
+    ref_p, p = ref_load_params(path), load_params(path)
+    ref_p.clip_dict = dict(ref_p.clip_dict, lora=lora)
+    p.clip_dict = dict(p.clip_dict, lora=lora)
+    jcfg = ref_cls.build_classifier_config(ref_p, _clip_cfg(ref_config))
+    pcfg = classifier.build_classifier_config(p, _clip_cfg(config))
+    assert (pcfg.ft_mode, pcfg.lora) == (jcfg.ft_mode, jcfg.lora)
+    tree = _tree(jcfg)
+    want = flatten_tree(jax.tree_util.tree_map(np.asarray, ref_mask(
+        jcfg, jax.tree_util.tree_map(jnp.asarray, tree))))
+    got = {jax_path(n)[0]: m for n, m in
+           trainable_mask(pcfg, _port_params(tree, pcfg)).items()}
+    assert got == {k: bool(v) for k, v in want.items()}
+
+
+def _fs_cfgs(prompt_tuning=True, dropout=0.0, **kw):
+    """FSCLIP on the tiny tower: a 2-layer adapter (d_model 16, 2 heads)
+    over its 32-wide features, in both packages."""
+    ad = dict(adapter_type="trans", in_dim=32, d_model=16, num_heads=2,
+              ffn_dim=64, num_layers=2, residual=0.8, dropout=dropout)
+    from eventclip_tpu.models.adapter import AdapterConfig as RefAdapterConfig
+    from eventclip_tpu_torch.models.adapter import AdapterConfig
+
+    jcfg, pcfg = _cfgs(model="FSCLIP", prompt_tuning=prompt_tuning, **kw)
+    return (dataclasses.replace(jcfg, adapter=RefAdapterConfig(**ad)),
+            dataclasses.replace(pcfg, adapter=AdapterConfig(**ad)))
+
+
+@pytest.mark.parametrize("prompt_tuning", [False, True])
+def test_fs_update_matches_jax(pallas_attention, prompt_tuning):
+    """One FS update (the adapter, and the prompts when tuned) in f32, no
+    augment, dropout 0: the JAX step's updated leaves and jax.grad's
+    gradients, as test_ft_update_matches_jax holds the FT ones."""
+    jcfg, pcfg = _fs_cfgs(prompt_tuning)
+    tree = _tree(jcfg, seed=3)
+    batch = _batch(seed=3)
+    jax_new, jax_m = _jax_step(jcfg, tree, batch)
+    params = _port_params(tree, pcfg)
+    port_m = _port_step(pcfg, params, batch)
+    _assert_metrics_match(port_m, jax_m)
+    _assert_update_matches(tree, jax_new, params, pcfg)
+    want = _jax_grads(jcfg, tree, batch)
+    got = _port_grads(params)
+    assert {k.split("/")[0] for k in got} == (
+        {"adapter", "text_feats"} if prompt_tuning else {"adapter"})
+    for path, g in got.items():
+        np.testing.assert_allclose(g, want[path], rtol=1e-4,
+                                   atol=1e-6 * np.abs(want[path]).max(),
+                                   err_msg=path)
+    # the frozen tower recorded no graph: no visual leaf got a gradient
+    assert all(p.grad is None for n, p in params.named_parameters()
+               if n.startswith("clip."))
+
+
+@pytest.mark.parametrize("prompt_tuning", [False, True])
+def test_fs_trainable_mask_matches_jax(prompt_tuning):
+    jcfg, pcfg = _fs_cfgs(prompt_tuning)
+    tree = _tree(jcfg)
+    want = flatten_tree(jax.tree_util.tree_map(np.asarray, ref_mask(
+        jcfg, jax.tree_util.tree_map(jnp.asarray, tree))))
+    got = {jax_path(n)[0]: m for n, m in
+           trainable_mask(pcfg, _port_params(tree, pcfg)).items()}
+    assert got == {k: bool(v) for k, v in want.items()}
+    assert any(k.startswith("adapter/") and v for k, v in got.items())
+
+
+FS_CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "fsclip", "**",
+                                           "*.py"), recursive=True)) + [
+    os.path.join(ROOT, "configs", "debug", "fsclip_tiny_params.py")]
+
+
+@pytest.mark.parametrize("path", FS_CONFIGS,
+                         ids=[os.path.basename(p) for p in FS_CONFIGS])
+def test_fs_classifier_config_matches_jax(path):
+    want = ref_cls.build_classifier_config(
+        ref_load_params(path), ref_config.clip_arch_config("ViT-T/8@32"))
+    got = classifier.build_classifier_config(
+        load_params(path), config.clip_arch_config("ViT-T/8@32"))
+    assert got.model == "FSCLIP"
+    assert dataclasses.asdict(got.adapter) == dataclasses.asdict(want.adapter)
+    for field in ("model", "agg_func", "logit_scale", "prompt_tuning", "lora",
+                  "ft_mode", "use_logits_loss", "use_probs_loss", "remat"):
+        assert getattr(got, field) == getattr(want, field), field
+
+
+def test_fs_trainer_learns_with_augment(tmp_path):
+    """EventCLIPTrainer on configs/debug/fsclip_tiny_params.py on the CPU
+    (tiny tower, FS adapter with prompt tuning, RandAugment on): over a
+    separable set (each class a blob in its own quadrant) the training
+    loss falls."""
+    from eventclip_tpu_torch.data.event_windows import EventWindowDataset
+    from eventclip_tpu_torch.data.host_ops import prepare_stream
+    from eventclip_tpu_torch.engine.trainer import EventCLIPTrainer
+
+    class Quadrants:
+        resolution = (40, 48)
+        max_t = 0.1
+        max_n = 2000
+        augmentation = False
+        num_shots = None
+        root = "quadrants"
+
+        def __init__(self, n, seed):
+            self.n, self.seed = n, seed
+            self.classes = [f"c{i}" for i in range(4)]
+
+        def __len__(self):
+            return self.n
+
+        def __getitem__(self, idx):
+            rng = np.random.default_rng((self.seed, idx))
+            label, (H, W) = idx % 4, self.resolution
+            n = int(rng.integers(1200, 2000))
+            cy, cx = 10 + 20 * (label // 2), 12 + 24 * (label % 2)
+            ev = np.stack([
+                np.floor(np.clip(rng.normal(cx, 4, n), 0, W - 1)),
+                np.floor(np.clip(rng.normal(cy, 4, n), 0, H - 1)),
+                np.sort(rng.uniform(0, self.max_t, n)),
+                rng.choice([-1.0, 1.0], n)], 1).astype(np.float32)
+            return {"events": prepare_stream(ev, self.resolution),
+                    "label": label, "data_idx": idx}
+
+    params = load_params(os.path.join(ROOT, "configs", "debug",
+                                      "fsclip_tiny_params.py"))
+    params.max_epochs = 12
+    params.bf16 = False
+    q = dict(params.quantize_args)
+    train_set = EventWindowDataset(Quadrants(16, 0), q, augment=True)
+    val_set = EventWindowDataset(Quadrants(8, 1), dict(q, max_imgs=10))
+    trainer = EventCLIPTrainer(params, train_set, val_set, str(tmp_path),
+                               smoke=True, device="cpu")
+    assert trainer.cls_cfg.model == "FSCLIP" and trainer.train_set.augment
+    assert trainer.evaluate(max_steps=1)["n"] == 4  # sanity eval, packed
+    losses = [trainer.train_epoch(e)["total_loss"] for e in range(12)]
+    assert np.isfinite(losses).all()
+    assert np.mean(losses[-4:]) < 0.5 * np.mean(losses[:4]), losses
 
 
 def test_trainer_fits_saves_and_resumes(tmp_path):
