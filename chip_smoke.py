@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, FT- and FS-training paths on one card.
+"""Drive the PyTorch port on one card: serving, FT and FS training, and the
+train / test CLIs from a dataset tree and checkpoint files on disk.
 
     python3 chip_smoke.py
 
@@ -69,15 +70,35 @@ non-zero):
    profiled step (RandAugment, adapter and text-feature ms apart), adapter
    and prompts moved while the towers and logit scale stay, checkpoint
    round trip.
+9. data to accuracy, in a temporary directory: random ViT-L/14 towers
+   saved in fp16 in OpenAI's key layout (a .pt as released), a merge table
+   learned from the 101 prompts (EVENTCLIP_BPE_PATH), and an N-Caltech101
+   tree of synth_events streams whose training/ holds the files the
+   shipped 2-shot split names and testing/ one stream a class. (a)
+   cli.test on configs/zsclip/zsclip_ncaltech_params.py with --clip_ckpt:
+   the loaded leaf equals the file's, the prompts tokenize to [101, 77],
+   counters K2 12 for the text tower and K1 1 / K2 24 per eval batch,
+   eval time, samples/s, host-loader wait, finite probabilities; then the
+   host's ms an item and a profile of the same eval from the device
+   cache. (b)
+   cli.train on joint_fsclip_ncaltech_params.py --num_shots 2
+   --max_epochs 1: counters K1 1 / K2 24 / K3 0 per step and eval batch,
+   ms a step, a best.npz. (c) cli.test --weight best.npz, then the same
+   weights exported to the reference's best.pth and found by
+   --train_shots 2: equal correct counts. Then K1 and K2 held to their
+   plain versions at the eval CLI's first packed batch.
 
-Then one JSON line with every kernel's numbers, the card's name and power
-limit, and as the last line {"ok": true, "device": {...}}. Imports nothing
+Then one JSON line with every kernel's numbers (by_path adds the eval
+CLI's `cli` rows; `eval_cli`, `train_cli` and `trained_eval` hold phase
+9), the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}. Imports nothing
 of JAX. Fails when no CUDA device is present or the port is missing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gzip
 import json
 import os
 import statistics
@@ -926,6 +947,330 @@ def update_card_vs_cpu(dev, batch_size=4):
                 weights_max_rel=w_rel)
 
 
+# -- phase 9: data to accuracy -------------------------------------------------
+
+
+def openai_state_dict(clip, dtype=None):
+    """The port's CLIP towers -> a state dict in OpenAI's key layout (the
+    released checkpoints' names), optionally cast to `dtype` (the releases
+    are fp16). The inverse of models/clip/convert.py's key map; the port
+    itself never writes this layout."""
+    import torch
+
+    v, t = clip.visual, clip.text
+    ps = v.cfg.patch_size
+    sd = {
+        "visual.conv1.weight": v.patch_embed.reshape(-1, 3, ps, ps),
+        "visual.class_embedding": v.class_embedding,
+        "visual.positional_embedding": v.positional_embedding,
+        "visual.ln_pre.weight": v.ln_pre.weight,
+        "visual.ln_pre.bias": v.ln_pre.bias,
+        "visual.ln_post.weight": v.ln_post.weight,
+        "visual.ln_post.bias": v.ln_post.bias,
+        "visual.proj": v.proj,
+        "token_embedding.weight": t.token_embedding,
+        "positional_embedding": t.positional_embedding,
+        "ln_final.weight": t.ln_final.weight,
+        "ln_final.bias": t.ln_final.bias,
+        "text_projection": t.projection,
+        "logit_scale": clip.logit_scale,
+    }
+    for prefix, tower in (("visual.transformer.resblocks", v),
+                          ("transformer.resblocks", t)):
+        for i, blk in enumerate(tower.blocks.layers):
+            pre = f"{prefix}.{i}"
+            sd.update({
+                f"{pre}.attn.in_proj_weight": blk.attn.wqkv,
+                f"{pre}.attn.in_proj_bias": blk.attn.bqkv,
+                f"{pre}.attn.out_proj.weight": blk.attn.wo,
+                f"{pre}.attn.out_proj.bias": blk.attn.bo,
+                f"{pre}.ln_1.weight": blk.ln_1.weight,
+                f"{pre}.ln_1.bias": blk.ln_1.bias,
+                f"{pre}.ln_2.weight": blk.ln_2.weight,
+                f"{pre}.ln_2.bias": blk.ln_2.bias,
+                f"{pre}.mlp.c_fc.weight": blk.mlp.w1,
+                f"{pre}.mlp.c_fc.bias": blk.mlp.b1,
+                f"{pre}.mlp.c_proj.weight": blk.mlp.w2,
+                f"{pre}.mlp.c_proj.bias": blk.mlp.b2,
+            })
+    with torch.no_grad():
+        return {k: x.detach().to("cpu", dtype or x.dtype).clone()
+                for k, x in sd.items()}
+
+
+def synth_merges(texts, n):
+    """A BPE merge table learned from `texts` (at most `n` merges, each the
+    most frequent adjacent pair, ties by order), as the released vocab
+    file's text: a version line, then one merge a line."""
+    from collections import Counter
+
+    words = Counter(tuple(w[:-1]) + (w[-1] + "</w>",)
+                    for t in texts for w in t.lower().split())
+    merges = []
+    while len(merges) < n:
+        pairs = Counter()
+        for word, count in words.items():
+            for pair in zip(word[:-1], word[1:]):
+                pairs[pair] += count
+        if not pairs:
+            break
+        best = max(sorted(pairs), key=pairs.__getitem__)
+        merges.append(best)
+        merged = Counter()
+        for word, count in words.items():
+            out, i = [], 0
+            while i < len(word):
+                if word[i:i + 2] == best:
+                    out.append(best[0] + best[1])
+                    i += 2
+                else:
+                    out.append(word[i])
+                    i += 1
+            merged[tuple(out)] += count
+        words = merged
+    return "#version: 0.2\n" + "\n".join(" ".join(m) for m in merges) + "\n"
+
+
+def write_ncaltech_tree(root, seed):
+    """An N-Caltech101 tree of synth_events streams (100k-225k events, made
+    from (seed, file index)): training/ holds exactly the files the shipped
+    2-shot split names, testing/ one stream a class for the 101 classes."""
+    from eventclip_tpu_torch.data.datasets import load_split_asset
+
+    split = load_split_asset("NCaltech101", 2, True)
+    classes = sorted({rel.split("/")[-2] for rel in split})
+    files = [(os.path.join("training", *rel.split("/")[-2:]), label)
+             for rel, label in split.items()]
+    files += [(os.path.join("testing", c, f"{c}_0.npy"), i)
+              for i, c in enumerate(classes)]
+    for i, (rel, label) in enumerate(files):
+        rng = np.random.default_rng((seed, i))
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        np.save(path, synth_events(rng, int(rng.integers(100000, 225001)),
+                                   label, 180, 240, 0.3))
+    return classes, len(files)
+
+
+def data_to_accuracy(dev, gen):
+    """Phase 9: a ViT-L/14 checkpoint, a merge table and an N-Caltech tree
+    on disk, then (a) zero-shot eval through cli.test, (b) FS training
+    through cli.train, (c) the trained checkpoint evaluated through
+    cli.test as .npz and, exported, as the reference's .pth. Returns the
+    phase's record and the eval CLI's kernel rows (K1 and K2 at its
+    first batch's packed shape)."""
+    import shutil
+
+    import torch
+
+    from eventclip_tpu_torch import kernels
+    from eventclip_tpu_torch.cli import test as cli_test
+    from eventclip_tpu_torch.cli import train as cli_train
+    from eventclip_tpu_torch.engine.checkpoint import load_checkpoint
+    from eventclip_tpu_torch.models.classifier import (
+        classifier_forward_packed, tokenize_prompts)
+    from eventclip_tpu_torch.models.clip.config import clip_arch_config
+    from eventclip_tpu_torch.models.clip.convert_method import (
+        save_method_checkpoint, unflatten)
+    from eventclip_tpu_torch.models.clip.model import init_clip_params
+    from eventclip_tpu_torch.models.clip.tokenizer import SimpleTokenizer
+    from eventclip_tpu_torch.ops.rasterize import rasterize_for_clip
+    from eventclip_tpu_torch.utils.config import load_params
+
+    tag = "9 data"
+    t_phase = time.perf_counter()
+    zs = os.path.join(HERE, "configs", "zsclip", "zsclip_ncaltech_params.py")
+    fs = os.path.join(HERE, "configs", "fsclip", "joint_adapter",
+                      "joint_fsclip_ncaltech_params.py")
+    clip_cfg = clip_arch_config(load_params(zs).clip_dict["arch"])
+    L, Lt = clip_cfg.vision.layers, clip_cfg.text.layers
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        clip = init_clip_params(clip_cfg, torch.Generator(device=dev)
+                                .manual_seed(9), device=dev)
+        sd = openai_state_dict(clip, torch.float16)  # fp16, as released
+        del clip
+        pt = os.path.join(tmp, "ViT-L-14.pt")
+        torch.save(sd, pt)
+        tree = os.path.join(tmp, "N-Caltech101")
+        classes, n_files = write_ncaltech_tree(tree, seed=9)
+        prompt = load_params(zs).clip_dict["prompt"]
+        vocab = os.path.join(tmp, "bpe_simple_vocab_16e6.txt.gz")
+        with gzip.open(vocab, "wt", encoding="utf-8") as f:
+            f.write(synth_merges([prompt.format(c.lower().replace("_", " "))
+                                  for c in classes], 400))
+        os.environ["EVENTCLIP_BPE_PATH"] = vocab
+        tok = SimpleTokenizer()
+        log(f"[{tag}] inputs in {time.perf_counter() - t0:.1f} s: "
+            f"{clip_cfg.name} random towers saved in fp16 in OpenAI's key "
+            f"layout ({os.path.getsize(pt) / 2 ** 30:.2f} GiB), a merge "
+            f"table of {len(tok.bpe_ranks)} merges, an N-Caltech101 tree of "
+            f"{n_files} streams (training/: the shipped 2-shot split's 202 "
+            "files; testing/: one a class)")
+
+        # (a) zero-shot evaluation through the test CLI: the counts are
+        # zeroed just before and read just after
+        kernels.reset_launches()
+        res = cli_test.main(["--params", zs, "--clip_ckpt", pt,
+                             "--data_root", tree])
+        torch.cuda.synchronize(dev)
+        launches = dict(kernels.LAUNCHES)
+        ctx = res["ctx"]
+        ev = ctx["evals"][-1]
+        b = ev["batches"]
+        want = {"histogram": b, "qkv_attention": Lt + L * b}
+        log(f"[{tag}] (a) eval CLI launches {launches}: K2 {Lt} for the text "
+            f"tower, then K1 1 / K2 {L} per eval batch over {b} batches")
+        if launches != want:
+            raise AssertionError(f"eval CLI launches {launches} != {want}")
+        params = ctx["template"]
+        exact = torch.equal(
+            params.clip.visual.blocks.layers[0].attn.wqkv.detach().cpu(),
+            sd["visual.transformer.resblocks.0.attn.in_proj_weight"].float())
+        if not exact:
+            raise AssertionError("loaded visual wqkv[0] differs from the "
+                                 "file's fp16 values cast to f32")
+        names = ctx["loader"].dataset.classes
+        tokens = tokenize_prompts(names, prompt, tok,
+                                  clip_cfg.text.context_length)
+        if tokens.shape != (len(classes), clip_cfg.text.context_length):
+            raise AssertionError(f"prompt tokens {tokens.shape}")
+        views = [(int(d["valid_mask"].sum()), int(d["windows"].shape[0]))
+                 for d in ctx["dev_batches"]]
+        first = ctx["dev_batches"][0]
+        spec, pp = ctx["raster"]
+        with torch.inference_mode():
+            probs = classifier_forward_packed(
+                params, ctx["cls_cfg"],
+                rasterize_for_clip(spec, pp, first["windows"]),
+                first["view_src"], first["valid_mask"])["probs"]
+        if not (torch.isfinite(probs).all() and 0 <= res["probs_acc"] <= 1
+                and 0 <= res["logits_acc"] <= 1):
+            raise AssertionError("non-finite probabilities or accuracies "
+                                 "outside [0, 1]")
+        shapes = {"histogram": tuple(first["windows"].shape),
+                  "qkv_attention": (first["windows"].shape[0],
+                                    clip_cfg.vision.seq_len,
+                                    3 * clip_cfg.vision.width)}
+        log(f"[{tag}] (a) CLIP .pt loaded in {ctx['timing']['clip_s']:.2f} "
+            "s; visual wqkv[0] equals the file's fp16 values cast to f32 "
+            f"exactly; prompt tokens {tokens.shape} through the port's "
+            f"tokenizer; text features in "
+            f"{ctx['timing']['text_feats_s'] * 1e3:.1f} ms; eval of "
+            f"{int(ev['n'])} samples in {ev['wall_s']:.2f} s "
+            f"({ev['n'] / ev['wall_s']:.1f} samples/s; host loader wait "
+            f"{ev['wait_s']:.2f} s, {100 * ev['wait_s'] / ev['wall_s']:.1f}%"
+            f"); views per batch (real, packed) {views}; probs "
+            f"finite; accuracy probs {res['probs_acc']:.4f} / logits "
+            f"{res['logits_acc']:.4f} (random towers: chance, measures "
+            "nothing)")
+        # where the eval's time goes: the host's work an item (np.load,
+        # centring, windowing; the loader spreads it over its threads),
+        # and the card's on the same batches from the device cache
+        val_set = ctx["loader"].dataset
+        t0 = time.perf_counter()
+        for i in range(len(val_set)):
+            val_set[i]
+        item_ms = (time.perf_counter() - t0) * 1e3 / len(val_set)
+        log(f"[{tag}] (a) host: {item_ms:.1f} ms an item (np.load, "
+            f"centring, windowing; {len(val_set)} items, one thread; the "
+            f"loader runs {ctx['loader'].num_workers} threads)")
+        args = cli_test.parse_args(["--params", zs, "--data_root", tree])
+        zs_params, _ = cli_test.load_and_override(args)
+        prof = profile_call(f"{tag} profile", "eval from the device cache",
+                            lambda: cli_test.evaluate(zs_params, args,
+                                                      printing=False,
+                                                      ctx=ctx))
+        if prof is not None:
+            prof.pop("rows")
+        out["eval_cli"] = dict(
+            host_item_ms=item_ms, profile=prof,
+            clip_load_s=ctx["timing"]["clip_s"],
+            text_feats_ms=ctx["timing"]["text_feats_s"] * 1e3,
+            tokens=list(tokens.shape), views=views, wall_s=ev["wall_s"],
+            samples_per_s=ev["n"] / ev["wall_s"], host_wait_s=ev["wait_s"],
+            batches=b, n=ev["n"], launches=launches,
+            first_batch=shapes, probs_acc=res["probs_acc"],
+            logits_acc=res["logits_acc"])
+        del ctx, res, params, first, probs
+        torch.cuda.empty_cache()
+
+        # (b) few-shot training through the train CLI
+        base = os.path.join(tmp, "checkpoint")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        trainer = cli_train.main([
+            "--params", fs, "--num_shots", "2", "--max_epochs", "1",
+            "--clip_ckpt", pt, "--data_root", tree, "--ckpt_base", base])
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        steps = len(trainer.step_times)
+        evals = min(2, len(trainer.val_loader)) + len(trainer.val_loader)
+        want = {"histogram": steps + evals,
+                "qkv_attention": Lt + L * (steps + evals)}
+        log(f"[{tag}] (b) train CLI launches {launches}: K2 {Lt} for the "
+            f"text tower, then K1 1 / K2 {L} / K3 0 per train step and per "
+            f"eval batch ({steps} steps, {evals} eval batches)")
+        if launches != want:
+            raise AssertionError(f"train CLI launches {launches} != {want}")
+        step_ms = [s * 1e3 for _, s in trainer.step_times]
+        wait_ms = [w * 1e3 for w, _ in trainer.step_times]
+        med = statistics.median(step_ms)
+        bs = trainer.global_batch
+        models = os.path.join(base, "joint_fsclip_ncaltech_params-2shot",
+                              "models")
+        best = os.path.join(models, "best.npz")
+        if not os.path.exists(best):
+            raise AssertionError(f"no {best}")
+        log(f"[{tag}] (b) {len(trainer.train_set)} training samples, "
+            f"{steps} steps (ms): {[round(x, 1) for x in step_ms]}; median "
+            f"{med:.1f} ms, {bs / (med / 1e3):.1f} samples/s; host loader "
+            f"wait {[round(x, 1) for x in wait_ms]} ms; CLI wall "
+            f"{wall:.1f} s; best.npz written")
+        out["train_cli"] = dict(
+            steps=steps, step_ms=step_ms, median_step_ms=med,
+            samples_per_s=bs / (med / 1e3), host_wait_ms=wait_ms,
+            wall_s=wall, launches=launches,
+            launches_per_step={"histogram": 1, "qkv_attention": L,
+                               "qkv_attention_bwd": 0})
+        del trainer
+        torch.cuda.empty_cache()
+
+        # (c) the trained weights as .npz, then as the reference's .pth
+        argv = ["--params", fs, "--clip_ckpt", pt, "--data_root", tree]
+        npz = cli_test.main(argv + ["--weight", best])["ctx"]["evals"][-1]
+        flat, _ = load_checkpoint(best)
+        save_method_checkpoint(os.path.join(models, "best.pth"),
+                               unflatten(flat))
+        shutil.move(best, os.path.join(tmp, "best.npz"))
+        pth = cli_test.main(argv + ["--train_shots", "2", "--ckpt_base",
+                                    base])["ctx"]["evals"][-1]
+        keys = ("n", "probs_correct", "logits_correct")
+        log(f"[{tag}] (c) trained checkpoint as .npz: "
+            f"{ {k: npz[k] for k in keys} }; as the exported .pth through "
+            f"--train_shots 2 ({os.path.basename(pth['weight'])}): "
+            f"{ {k: pth[k] for k in keys} }")
+        if not pth["weight"].endswith("best.pth") or any(
+                npz[k] != pth[k] for k in keys):
+            raise AssertionError(f"npz {npz} vs pth {pth}")
+        out["trained_eval"] = {k: npz[k] for k in keys}
+        os.environ.pop("EVENTCLIP_BPE_PATH")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{tag}] phase 9 in {out['phase_s']:.1f} s")
+
+    rows = {"histogram": check_histogram(gen, "N-Caltech eval CLI",
+                                         *shapes["histogram"][:2], 180, 240,
+                                         dev),
+            "qkv_attention": check_attention(
+                gen, "ViT-L/14 eval CLI", shapes["qkv_attention"][0],
+                clip_cfg.vision.seq_len, clip_cfg.vision.heads,
+                clip_cfg.vision.width // clip_cfg.vision.heads,
+                torch.bfloat16, False, dev)}
+    return out, rows
+
+
 def main() -> int:
     import torch
 
@@ -958,7 +1303,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     # each path's records at the shapes that path gives the kernel
     rec = {"serve": {}, "train": {}, "train_f32": {}, "train_fs": {},
-           "none": {}}
+           "cli": {}, "none": {}}
     rec["serve"]["histogram"] = check_histogram(
         gen, "N-Caltech serving", 320, 20000, 180, 240, dev)
     check_histogram(gen, "N-Cars", 32, 30000, 100, 120, dev)
@@ -1146,6 +1491,9 @@ def main() -> int:
         if phase["profile"] is not None:
             phase["profile"].pop("rows", None)
 
+    # -- 9 ---------------------------------------------------------------
+    data, rec["cli"] = data_to_accuracy(dev, gen)
+
     sources = {
         "histogram": ("eventclip_tpu_torch/csrc/histogram.cu",
                       "eventclip_tpu/ops/rasterize.py:123"),
@@ -1160,7 +1508,8 @@ def main() -> int:
     # and bound from that path (K4 is on no path: its own check's shape);
     # by_path holds each path's own row
     counts = {"serve": launches, "train": train_launches,
-              "train_f32": train32_launches, "train_fs": train_fs_launches}
+              "train_f32": train32_launches, "train_fs": train_fs_launches,
+              "cli": data["eval_cli"]["launches"]}
     by_path = {p: {k: dict(launches=counts[p].get(k, 0), **r)
                    for k, r in recs.items()}
                for p, recs in rec.items() if p in counts}
@@ -1173,7 +1522,8 @@ def main() -> int:
     ], "text_attention": text, "f32_attention": f32,
         "rounding_orders": orders,
         "requests": per_request, "train": train, "update_card_vs_cpu": update,
-        "train_f32": train32, "train_fs": train_fs, "randaugment": augment}
+        "train_f32": train32, "train_fs": train_fs, "randaugment": augment,
+        **data}
     log(json.dumps(line))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,12 @@ Ported so far: zero-shot serving (`serve.Predictor`): raw event streams ->
 host windowing -> event histogram (CUDA kernel, csrc/histogram.cu) -> frame
 finish + CLIP preprocess -> CLIP ViT with the fused-qkv attention kernel
 (csrc/attention.cu) -> class probabilities against text-tower features;
-and FTCLIP fine-tuning on one device (`engine.trainer.EventCLIPTrainer`),
-whose backward runs the attention backward kernel (csrc/attention_bwd.cu).
+FTCLIP fine-tuning and FSCLIP few-shot training on one device
+(`engine.trainer.EventCLIPTrainer`), whose backward runs the attention
+backward kernel (csrc/attention_bwd.cu); and the path from files on disk
+to an accuracy: the dataset readers (`data.datasets`), the BPE tokenizer,
+OpenAI CLIP `.pt` and reference method `.pth` loading, and the train /
+test CLIs (`python -m eventclip_tpu_torch.cli.train` / `.cli.test`).
 
 Entry points run on the card (`device="cuda"`) unless the caller passes
 `device="cpu"`; on CPU tensors every kernel wrapper takes its plain PyTorch

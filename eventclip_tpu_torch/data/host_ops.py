@@ -40,6 +40,17 @@ def center_events(events: np.ndarray, resolution: Tuple[int, int]) -> np.ndarray
     return events
 
 
+def shift_events(
+    events: np.ndarray,
+    max_shift: int,
+    resolution: Tuple[int, int],
+    rng: np.random.Generator,
+) -> np.ndarray:
+    """Random spatial shift; events pushed out of frame are dropped."""
+    dx, dy = rng.integers(-max_shift, max_shift + 1, size=2)
+    return shift_events_by(events, int(dx), int(dy), resolution)
+
+
 def shift_events_by(
     events: np.ndarray, dx: int, dy: int, resolution: Tuple[int, int]
 ) -> np.ndarray:
@@ -82,6 +93,20 @@ def tflip_events(
     return events
 
 
+def draw_augment(
+    rng: np.random.Generator, flip_time: bool, max_shift: int
+) -> Tuple[bool, int, int, bool]:
+    """Draw the (tflip, dx, dy, hflip) augmentation parameters, consuming
+    the generator with exactly the reference's in-op draws in its order
+    (tflip_events' rng.random(), shift_events' rng.integers(size=2),
+    hflip_events' rng.random()), so draws keyed on (seed, epoch, idx)
+    replay across versions."""
+    tflip = bool(rng.random() < 0.5) if flip_time else False
+    dx, dy = (int(v) for v in rng.integers(-max_shift, max_shift + 1, size=2))
+    hflip = bool(rng.random() < 0.5)
+    return tflip, dx, dy, hflip
+
+
 def prepare_stream(
     events: np.ndarray,
     resolution: Tuple[int, int],
@@ -92,13 +117,10 @@ def prepare_stream(
 ) -> np.ndarray:
     """center_events (+ the training augmentations) in one call.
 
-    Never mutates `events`. The augmentation draws consume `rng` in the
-    reference's order (tflip, shift, hflip)."""
+    Never mutates `events`; the augmentation draws come from
+    `draw_augment`."""
     if augment:
-        tflip = bool(rng.random() < 0.5) if flip_time else False
-        dx, dy = (int(v) for v in rng.integers(-max_shift, max_shift + 1,
-                                               size=2))
-        hflip = bool(rng.random() < 0.5)
+        tflip, dx, dy, hflip = draw_augment(rng, flip_time, max_shift)
     events = center_events(events.astype(np.float32, copy=True), resolution)
     if not augment:
         return events

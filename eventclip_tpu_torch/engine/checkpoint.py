@@ -9,7 +9,9 @@ Port of eventclip_tpu/engine/checkpoint.py, with the same conventions:
 - the format is the JAX package's: npz keyed by its '/'-joined tree paths,
   leaves in its shapes (stacked layers), written through
   models/clip/convert.py::to_jax_flat. So either package loads the other's
-  trainable checkpoints.
+  trainable checkpoints;
+- `load_checkpoint` also takes the reference's torch method checkpoints
+  (`.pth` / `.pt`), converted on the fly (models/clip/convert_method.py).
 
 Resume state (trainable leaves, the optimizer's moments and count, epoch,
 best metric) uses the port's own format, `resume.pt` via torch.save: the
@@ -29,7 +31,8 @@ import torch
 from torch import nn
 
 from ..models.classifier import ClassifierConfig
-from ..models.clip.convert import port_leaves, to_jax_flat
+from ..models.clip.convert import flatten_tree, port_leaves, to_jax_flat
+from ..models.clip.convert_method import load_method_checkpoint
 from ..models.partition import trainable_mask
 
 
@@ -47,7 +50,9 @@ def save_checkpoint(path: str, flat: Dict[str, np.ndarray], *,
 
 @torch.no_grad()
 def load_checkpoint(path: str, target: Optional[nn.Module] = None):
-    """Load an npz checkpoint -> (flat {path: array}, extra).
+    """Load an npz checkpoint, or a reference-trained `.pth` / `.pt`
+    method checkpoint (converted on the fly), -> (flat {path: array},
+    extra).
 
     With `target` (a ClassifierParams), every saved leaf is copied into the
     matching parameters in place and (target, extra) is returned; leaves
@@ -55,10 +60,14 @@ def load_checkpoint(path: str, target: Optional[nn.Module] = None):
     weights stay). A saved leaf that matches no parameter raises: loading
     would otherwise evaluate an untrained model while claiming it loaded.
     """
-    with np.load(path, allow_pickle=False) as z:
-        flat = {k: z[k] for k in z.files if not k.startswith("__extra__/")}
-        extra = {k[len("__extra__/"):]: z[k] for k in z.files
-                 if k.startswith("__extra__/")}
+    if path.endswith((".pth", ".pt")):
+        flat, extra = flatten_tree(load_method_checkpoint(path)), {}
+    else:
+        with np.load(path, allow_pickle=False) as z:
+            flat = {k: z[k] for k in z.files
+                    if not k.startswith("__extra__/")}
+            extra = {k[len("__extra__/"):]: z[k] for k in z.files
+                     if k.startswith("__extra__/")}
     if target is None:
         return flat, extra
     named = dict(target.named_parameters())

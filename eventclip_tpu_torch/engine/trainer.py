@@ -6,16 +6,11 @@ heads: per-step optimizer with warmup-cosine schedules and FTCLIP's two LR
 groups, on-device RandAugment when the train set asks for it, a sanity-check
 validation before training, eval every `eval_interval` epochs, trainable
 checkpoints every `save_interval` epochs with `val/probs_acc` best
-tracking, resume from a full-state file), plus `resolve_clip_params` (the
-smoke/debug random-init branch), `snapshot_logit_scale` and
-`build_text_features`. The multi-host, ZeRO-1, preemption-signal,
-profiler and visualization parts of the JAX trainer are not ported.
-
-Loading released CLIP weights and the BPE tokenizer come in later slices;
-until then text features computed elsewhere
-(models.classifier.compute_text_features on prompt token ids) are passed
-in, and otherwise random ones stand in (smoke/debug runs only, as in the
-JAX package without the vocab).
+tracking, resume from a full-state file), plus `resolve_clip_params`
+(a released OpenAI `.pt`, a converted `.npz`, or the smoke/debug random
+init), `snapshot_logit_scale` and `build_text_features` (prompts through
+the BPE tokenizer). The multi-host, ZeRO-1, preemption-signal, profiler
+and visualization parts of the JAX trainer are ROADMAP item 7.
 """
 
 from __future__ import annotations
@@ -24,6 +19,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import time
 from typing import Any, Dict, Optional, Sequence
 
@@ -32,11 +28,16 @@ import torch
 
 from ..data.loader import (PrefetchLoader, device_prefetch,
                            eval_pack_buckets, pack_view_batch)
-from ..models.classifier import (ClassifierConfig, build_classifier_config,
-                                 init_classifier_params, normalize)
+from ..models.classifier import (DEFAULT_PROMPT, ClassifierConfig,
+                                 build_classifier_config,
+                                 class_text_features, init_classifier_params,
+                                 normalize)
 from ..models.clip.config import clip_arch_config
-from ..models.clip.convert import clip_from_jax
+from ..models.clip.convert import (clip_from_jax, flatten_tree, jax_shapes,
+                                   load_clip_checkpoint)
+from ..models.clip.convert_method import unflatten
 from ..models.clip.model import CLIP, init_clip_params
+from ..models.clip.tokenizer import SimpleTokenizer
 from ..ops.preprocess import ClipPreprocess
 from ..utils.meters import AverageMeter
 from .checkpoint import CheckpointManager, load_checkpoint
@@ -44,21 +45,57 @@ from .optim import OptimConfig, Optimizer
 from .train import make_eval_step, make_train_step
 
 
+def _checked_tree(flat: Dict[str, np.ndarray], clip_cfg, ckpt: str):
+    """The CLIP tree of `clip_cfg` from {JAX path: array}: every leaf the
+    towers need, each of their shape; leaves the towers lack are ignored."""
+    want = jax_shapes(CLIP(clip_cfg, device="meta").named_parameters())
+    missing = [k for k in want if k not in flat]
+    if missing:
+        # a partly matching file must not leave random leaves in towers
+        # treated as pretrained
+        raise ValueError(
+            f"{ckpt} is missing {len(missing)} parameter(s) the "
+            f"{clip_cfg.name!r} towers need (e.g. {missing[:3]}); loading "
+            "it would silently mix random weights into towers treated as "
+            "pretrained")
+    for key, shape in want.items():
+        if tuple(flat[key].shape) != shape:
+            raise ValueError(
+                f"{key}: ckpt {tuple(flat[key].shape)} vs model {shape}: is "
+                f"{ckpt} converted for {clip_cfg.name!r}?")
+    return unflatten({k: flat[k] for k in want})
+
+
 def resolve_clip_params(params_cfg, clip_cfg, generator: torch.Generator,
-                        smoke: bool = False, device="cuda"):
-    """(CLIP towers, pretrained) — random init in smoke/debug mode.
+                        clip_ckpt: Optional[str] = None, smoke: bool = False,
+                        device="cuda"):
+    """(CLIP towers, pretrained): released weights from `clip_ckpt` (or the
+    config's `clip_ckpt`), an OpenAI `.pt` or a converted `.npz` keyed by
+    the JAX tree paths; else random init in smoke/debug mode.
 
     Running without a checkpoint is an error unless `smoke` is set or the
     arch is a debug tower (no released weights), because random towers
     give garbage accuracies without otherwise failing."""
-    if params_cfg.get("clip_ckpt", None):
-        raise NotImplementedError(
-            "loading released CLIP weights is not ported yet; pass the "
-            "towers as clip_params= or run with smoke=True")
+    ckpt = clip_ckpt or params_cfg.get("clip_ckpt", None)
+    if ckpt and not os.path.exists(ckpt):
+        raise FileNotFoundError(f"CLIP checkpoint not found: {ckpt}")
+    if ckpt:
+        if ckpt.endswith(".npz"):
+            flat, _ = load_checkpoint(ckpt)
+        else:
+            flat = flatten_tree(load_clip_checkpoint(ckpt)[0])
+        tree = _checked_tree(flat, clip_cfg, ckpt)
+        return clip_from_jax(tree, clip_cfg, device), True
     if not (smoke or clip_cfg.debug):
         raise FileNotFoundError(
-            f"No CLIP checkpoint for {clip_cfg.name!r}; pass smoke=True to "
-            "run with RANDOM weights (throughput/pipeline testing only)")
+            f"No CLIP checkpoint for {clip_cfg.name!r}. Real runs need the "
+            "released OpenAI weights (the reference downloads them via "
+            "clip.load, reference train.py:26):\n"
+            "  - pass --clip_ckpt /path/to/checkpoint.pt (torch archive), or"
+            "\n  - a converted .npz (scripts/convert_clip.py),\n"
+            "  - or set the CLIP_CKPT environment variable.\n"
+            "Pass --smoke to run with RANDOM weights (throughput/pipeline "
+            "testing only; every reported accuracy will be garbage).")
     print("WARNING: smoke mode - RANDOM CLIP weights; accuracies are garbage")
     return init_clip_params(clip_cfg, generator, device=device), False
 
@@ -82,23 +119,36 @@ def snapshot_logit_scale(cls_cfg, clip: CLIP, pretrained: bool):
     if not pretrained:
         return cls_cfg
     return dataclasses.replace(
-        cls_cfg, logit_scale=math.exp(float(clip.logit_scale)))
+        cls_cfg, logit_scale=math.exp(float(clip.logit_scale.detach())))
 
 
 def build_text_features(clip: CLIP, clip_cfg, class_names: Sequence[str],
-                        pretrained: bool) -> torch.Tensor:
-    """L2-normalized class text features [n_cls, C] for a Predictor given
-    none: with no tokenizer in the port yet, random features drawn from a
-    seeded generator stand in — refused for pretrained towers, where they
-    would silently produce garbage zero-shot numbers."""
-    if pretrained:
-        raise FileNotFoundError(
-            "no tokenizer yet: pass text_feats= (compute_text_features on "
-            "prompt token ids) to classify with real CLIP weights")
-    print("WARNING: no tokenizer - random text features (smoke mode)")
-    gen = torch.Generator(device="cpu").manual_seed(1234)
-    feats = torch.randn((len(class_names), clip_cfg.embed_dim), generator=gen)
-    return normalize(feats).to(clip.logit_scale.device)
+                        prompt: str, pretrained: bool) -> torch.Tensor:
+    """L2-normalized prompted class text features [n_cls, C] through the
+    BPE tokenizer and the text tower. Without the vocab, random features
+    from a seeded generator stand in, for towers that are not pretrained
+    only: with real weights they would silently give garbage zero-shot
+    numbers. EVENTCLIP_ALLOW_RANDOM_TEXT=1 lifts that refusal; it is sound
+    only where the text features are overwritten afterwards (prompt-tuned
+    checkpoints carry their own)."""
+    try:
+        tokenizer = SimpleTokenizer()
+    except (FileNotFoundError, OSError) as e:
+        hatch = os.environ.get("EVENTCLIP_ALLOW_RANDOM_TEXT") == "1"
+        if pretrained and not hatch:
+            raise FileNotFoundError(
+                "BPE vocab asset missing; drop bpe_simple_vocab_16e6.txt.gz "
+                "into eventclip_tpu_torch/assets/ or set EVENTCLIP_BPE_PATH "
+                f"to tokenize prompts with real CLIP weights. ({e})") from e
+        print("WARNING: BPE vocab asset missing - random text features "
+              "(smoke mode)" + (" [EVENTCLIP_ALLOW_RANDOM_TEXT]"
+                                if hatch else ""))
+        gen = torch.Generator(device="cpu").manual_seed(1234)
+        feats = torch.randn((len(class_names), clip_cfg.embed_dim),
+                            generator=gen)
+        return normalize(feats).to(clip.logit_scale.device)
+    with torch.inference_mode():
+        return class_text_features(clip, class_names, prompt, tokenizer)
 
 
 def _log_jsonl(path: Optional[str], record: Dict[str, Any]) -> None:
@@ -107,7 +157,7 @@ def _log_jsonl(path: Optional[str], record: Dict[str, Any]) -> None:
             f.write(json.dumps(record) + "\n")
 
 
-def _sync(device: torch.device) -> None:
+def sync_device(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -116,11 +166,14 @@ class EventCLIPTrainer:
     """Train and evaluate one classifier on one device.
 
     params: the experiment config (utils.config.Params). train_set /
-    val_set: `data.event_windows.EventWindowDataset`s. clip_params /
-    text_feats: optional towers (a port `CLIP` or a JAX tree, copied) and
-    [n_cls, C] class features; without them, random towers (smoke/debug
-    only) and random features. Everything runs on `device` ("cuda" unless
-    the caller passes "cpu").
+    val_set: `data.event_windows.EventWindowDataset`s. clip_ckpt: released
+    CLIP weights (`.pt` or converted `.npz`; the config's `clip_ckpt` when
+    omitted). clip_params / text_feats: optional towers (a port `CLIP` or a
+    JAX tree, copied, treated as not pretrained) and [n_cls, C] class
+    features; without towers or a checkpoint, random towers (smoke/debug
+    only); without features, the prompts through the tokenizer (random
+    ones for random towers without a vocab). Everything runs on `device`
+    ("cuda" unless the caller passes "cpu").
 
     Each train step ends in a device synchronize, so `step_times` (per
     step of the last epoch: seconds spent waiting for the host loader and
@@ -134,6 +187,7 @@ class EventCLIPTrainer:
         train_set,
         val_set,
         ckpt_dir: str,
+        clip_ckpt: Optional[str] = None,
         clip_params=None,
         text_feats=None,
         log_file: Optional[str] = None,
@@ -156,7 +210,8 @@ class EventCLIPTrainer:
         gen = torch.Generator(device=self.device).manual_seed(seed)
         if clip_params is None:
             clip, self.pretrained = resolve_clip_params(
-                params, self.clip_cfg, gen, smoke=smoke, device=self.device)
+                params, self.clip_cfg, gen, clip_ckpt, smoke=smoke,
+                device=self.device)
         else:
             clip, self.pretrained = copy_clip(
                 clip_params, self.clip_cfg, self.device), False
@@ -164,7 +219,9 @@ class EventCLIPTrainer:
                                             self.pretrained)
         if text_feats is None:
             text_feats = build_text_features(
-                clip, self.clip_cfg, train_set.classes, self.pretrained)
+                clip, self.clip_cfg, train_set.classes,
+                params.clip_dict.get("prompt", DEFAULT_PROMPT),
+                self.pretrained)
         self.model_params = init_classifier_params(
             self.cls_cfg, gen, clip=clip, text_feats=text_feats,
             device=self.device)
@@ -247,7 +304,7 @@ class EventCLIPTrainer:
                 break
             t_step = time.perf_counter()
             metric_hist.append(self.train_step(batch))
-            _sync(self.device)
+            sync_device(self.device)
             self.step_times.append((t_step - t_wait,
                                     time.perf_counter() - t_step))
         meters: Dict[str, AverageMeter] = {}

@@ -22,8 +22,9 @@ FS adapter or the FT LoRA deltas.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 from torch.profiler import record_function
@@ -33,6 +34,11 @@ from .adapter import (Adapter, AdapterConfig, apply_adapter,
 from .clip.config import CLIPConfig
 from .clip.model import (CLIP, LoRA, encode_image, encode_text,
                          init_clip_params, init_lora_params)
+from .clip.tokenizer import SimpleTokenizer, tokenize
+
+# the reference's prompt template (configs override it with
+# clip_dict['prompt']); every consumer falls back to this one constant
+DEFAULT_PROMPT = "a point cloud image of a {}"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,11 +141,32 @@ def normalize(x: torch.Tensor, dim: int = -1,
     return x / torch.clamp(n, min=eps)
 
 
+def tokenize_prompts(class_names: Sequence[str], prompt: str,
+                     tokenizer: SimpleTokenizer,
+                     context_length: int) -> np.ndarray:
+    """Class names -> [n_cls, context] prompted token ids: lowercased,
+    underscores to spaces, formatted into `prompt` (reference
+    models/clip_cls.py:64-93)."""
+    names = [c.lower().replace("_", " ") for c in class_names]
+    return tokenize([prompt.format(c) for c in names], tokenizer,
+                    context_length)
+
+
 @torch.no_grad()
 def compute_text_features(clip, tokens: torch.Tensor) -> torch.Tensor:
     """Prompt token ids [n_cls, context] -> L2-normalized features
     [n_cls, C] (the text tower runs in f32, as the JAX package's)."""
     return normalize(encode_text(clip.text, tokens))
+
+
+def class_text_features(clip, class_names: Sequence[str], prompt: str,
+                        tokenizer: SimpleTokenizer) -> torch.Tensor:
+    """Class names -> L2-normalized prompted text features [n_cls, C]
+    (the JAX package's `compute_text_features`)."""
+    tokens = tokenize_prompts(class_names, prompt, tokenizer,
+                              clip.text.cfg.context_length)
+    return compute_text_features(clip, torch.from_numpy(tokens).to(
+        clip.logit_scale.device))
 
 
 # ---------------------------------------------------------------------------

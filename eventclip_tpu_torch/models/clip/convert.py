@@ -15,16 +15,22 @@ sides.
 '/'-joined tree path (and layer): partitioning, the optimizer's groups and
 checkpoints all decide on and store under the JAX paths, so each package
 reads the other's trainable checkpoints.
+
+Released OpenAI checkpoints (a torch state dict, or the .pt archives)
+convert to the JAX package's tree as numpy first (`convert_clip_state_dict`,
+`load_clip_checkpoint`: a copy of eventclip_tpu/models/clip/convert.py's
+ViT branch, every leaf cast to float32), and `clip_from_jax` builds the
+port's towers from that tree. ResNet towers are ROADMAP item 4.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, Optional, Tuple
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .config import CLIPConfig
+from .config import CLIPConfig, TextConfig, VisionConfig
 from .model import CLIP
 
 
@@ -90,6 +96,25 @@ def from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             for name, leaf in port_leaves(path, value)}
 
 
+def jax_shapes(named: Iterable[Tuple[str, torch.Tensor]]
+               ) -> Dict[str, Tuple[int, ...]]:
+    """(port name, tensor) pairs -> {JAX path: the leaf's JAX shape}, as
+    `to_jax_flat` would give them (reads shapes only: meta tensors do)."""
+    shapes: Dict[str, Tuple[int, ...]] = {}
+    layers: Dict[str, Tuple[int, Tuple[int, ...]]] = {}
+    for name, t in named:
+        path, layer = jax_path(name)
+        shape = tuple(t.shape)
+        if layer is None:
+            shapes[path] = shape
+            continue
+        if _fused_qkv(path):
+            shape = (3, shape[0] // 3) + shape[1:]
+        layers[path] = (layers.get(path, (0, shape))[0] + 1, shape)
+    shapes.update({p: (n,) + s for p, (n, s) in layers.items()})
+    return shapes
+
+
 def to_jax_flat(named: Iterable[Tuple[str, torch.Tensor]]
                 ) -> Dict[str, np.ndarray]:
     """(port name, tensor) pairs -> {JAX path: numpy leaf in the JAX
@@ -119,3 +144,127 @@ def clip_from_jax(tree: Dict[str, Any], cfg: CLIPConfig,
     model = model.to_empty(device=device)
     model.load_state_dict(from_jax_params(tree), strict=True)
     return model
+
+
+# ---------------------------------------------------------------------------
+# released OpenAI checkpoints (ViT) -> the JAX package's tree, as numpy
+# ---------------------------------------------------------------------------
+
+RESNET_REFUSAL = ("ResNet CLIP towers (RN50...RN50x64) are not ported yet "
+                  "(ROADMAP item 4); use a ViT checkpoint")
+
+
+def _np(t) -> np.ndarray:
+    if hasattr(t, "detach"):
+        t = t.detach().cpu().float().numpy()
+    return np.asarray(t, dtype=np.float32)
+
+
+def _refuse_resnet(sd: Mapping[str, Any]) -> None:
+    if "visual.attnpool.c_proj.weight" in sd:
+        raise NotImplementedError(RESNET_REFUSAL)
+
+
+def infer_config_from_state_dict(sd: Mapping[str, Any]) -> CLIPConfig:
+    """Recover a ViT checkpoint's architecture from its shapes."""
+    _refuse_resnet(sd)
+    conv1 = _np(sd["visual.conv1.weight"])
+    width, _, patch, _ = conv1.shape
+    seq_len = _np(sd["visual.positional_embedding"]).shape[0]
+    grid = int(round((seq_len - 1) ** 0.5))
+    image_size = grid * patch
+    v_layers = 1 + max(int(k.split(".")[3]) for k in sd
+                       if k.startswith("visual.transformer.resblocks."))
+    output_dim = _np(sd["visual.proj"]).shape[1]
+    t_width = _np(sd["ln_final.weight"]).shape[0]
+    t_layers = 1 + max(int(k.split(".")[2]) for k in sd
+                       if k.startswith("transformer.resblocks."))
+    vocab, _ = _np(sd["token_embedding.weight"]).shape
+    context = _np(sd["positional_embedding"]).shape[0]
+    return CLIPConfig(
+        name=f"ViT-{width}/{patch}@{image_size}",
+        vision=VisionConfig(image_size=image_size, patch_size=patch,
+                            width=width, layers=v_layers,
+                            heads=max(width // 64, 1),
+                            output_dim=output_dim),
+        text=TextConfig(vocab_size=vocab, context_length=context,
+                        width=t_width, layers=t_layers,
+                        heads=max(t_width // 64, 1), output_dim=output_dim),
+    )
+
+
+def _stack_blocks(sd: Mapping[str, Any], prefix: str,
+                  layers: int) -> Dict[str, Any]:
+    def gather(suffix):
+        return np.stack([_np(sd[f"{prefix}.{i}.{suffix}"])
+                         for i in range(layers)])
+
+    wqkv = gather("attn.in_proj_weight")  # [L, 3D, D]
+    bqkv = gather("attn.in_proj_bias")  # [L, 3D]
+    L, _, D = wqkv.shape
+    return {
+        "ln_1": {"scale": gather("ln_1.weight"), "bias": gather("ln_1.bias")},
+        "ln_2": {"scale": gather("ln_2.weight"), "bias": gather("ln_2.bias")},
+        "attn": {
+            "wqkv": wqkv.reshape(L, 3, D, D),
+            "bqkv": bqkv.reshape(L, 3, D),
+            "wo": gather("attn.out_proj.weight"),
+            "bo": gather("attn.out_proj.bias"),
+        },
+        "mlp": {
+            "w1": gather("mlp.c_fc.weight"),
+            "b1": gather("mlp.c_fc.bias"),
+            "w2": gather("mlp.c_proj.weight"),
+            "b2": gather("mlp.c_proj.bias"),
+        },
+    }
+
+
+def convert_vit_visual(sd: Mapping[str, Any],
+                       layers: Optional[int] = None) -> Dict[str, Any]:
+    """ViT visual-tower keys (`visual.*`) -> the JAX visual tree (also
+    used by convert_method: FT checkpoints carry `model.visual.*` only)."""
+    if layers is None:
+        layers = 1 + max(int(k.split(".")[3]) for k in sd
+                         if k.startswith("visual.transformer.resblocks."))
+    conv1 = _np(sd["visual.conv1.weight"])
+    return {
+        "patch_embed": conv1.reshape(conv1.shape[0], -1),
+        "class_embedding": _np(sd["visual.class_embedding"]),
+        "positional_embedding": _np(sd["visual.positional_embedding"]),
+        "ln_pre": {"scale": _np(sd["visual.ln_pre.weight"]),
+                   "bias": _np(sd["visual.ln_pre.bias"])},
+        "ln_post": {"scale": _np(sd["visual.ln_post.weight"]),
+                    "bias": _np(sd["visual.ln_post.bias"])},
+        "proj": _np(sd["visual.proj"]),
+        "blocks": _stack_blocks(sd, "visual.transformer.resblocks", layers),
+    }
+
+
+def convert_clip_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """OpenAI state dict -> {'visual', 'text', 'logit_scale'} (the JAX
+    package's tree, float32 numpy leaves)."""
+    cfg = infer_config_from_state_dict(sd)
+    text = {
+        "token_embedding": _np(sd["token_embedding.weight"]),
+        "positional_embedding": _np(sd["positional_embedding"]),
+        "ln_final": {"scale": _np(sd["ln_final.weight"]),
+                     "bias": _np(sd["ln_final.bias"])},
+        "projection": _np(sd["text_projection"]),
+        "blocks": _stack_blocks(sd, "transformer.resblocks", cfg.text.layers),
+    }
+    return {
+        "visual": convert_vit_visual(sd, cfg.vision.layers),
+        "text": text,
+        "logit_scale": _np(sd["logit_scale"]).reshape(()),
+    }
+
+
+def load_clip_checkpoint(path: str):
+    """An OpenAI CLIP .pt (jit archive or plain state dict) -> (the JAX
+    tree as numpy, the inferred CLIPConfig). Full unpickling, as the JAX
+    package does: the released archives are TorchScript."""
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    if hasattr(obj, "state_dict"):
+        obj = obj.state_dict()
+    return convert_clip_state_dict(obj), infer_config_from_state_dict(obj)

@@ -15,8 +15,11 @@ Example:
                                  class_names=names, smoke=True)
     out = pred(list_of_event_arrays)       # {'label', 'probs', 'names', 'topk'}
 
-Later slices: `embed`, `set_classes`, `StreamSession`, int8, token pruning,
-data parallelism, checkpoint loading.
+Released CLIP weights load from `clip_ckpt` (an OpenAI `.pt` or a
+converted `.npz`); without `text_feats`, the config's prompt goes through
+the BPE tokenizer and the text tower. Later slices (ROADMAP item 3):
+`weight=`, `embed`, `set_classes`, `StreamSession`, int8, token pruning,
+data parallelism.
 """
 
 from __future__ import annotations
@@ -33,8 +36,9 @@ from .data.host_ops import gather_event_windows, prepare_stream, tta_variants
 from .data.loader import eval_pack_buckets, pack_view_batch
 from .engine.trainer import (build_text_features, copy_clip,
                              resolve_clip_params, snapshot_logit_scale)
-from .models.classifier import (ClassifierParams, build_classifier_config,
-                                classifier_forward, classifier_forward_packed)
+from .models.classifier import (DEFAULT_PROMPT, ClassifierParams,
+                                build_classifier_config, classifier_forward,
+                                classifier_forward_packed)
 from .models.clip.config import clip_arch_config
 from .ops.preprocess import ClipPreprocess
 from .ops.rasterize import RasterSpec, rasterize_for_clip
@@ -44,13 +48,17 @@ from .utils.config import load_params
 class Predictor:
     """Event-stream classifier on one device (see module docstring).
 
-    clip_params: optional CLIP towers — a port `CLIP` module, or the JAX
-        package's parameter tree as numpy arrays (crossed by
+    clip_ckpt: released CLIP weights (an OpenAI `.pt` or a converted
+        `.npz`; the config's `clip_ckpt` when omitted): pretrained towers,
+        whose logit scale replaces the config's.
+    clip_params: optional CLIP towers instead, a port `CLIP` module or the
+        JAX package's parameter tree as numpy arrays (crossed by
         models/clip/convert.py); treated as not pretrained (the logit scale
-        stays the config's). Without it, random towers (smoke/debug only).
+        stays the config's). Without either, random towers (smoke/debug
+        only).
     text_feats: optional numpy/tensor [n_cls, C] L2-normalized class
-        features (e.g. models.classifier.compute_text_features on prompt
-        token ids); without it they are random (smoke/debug only).
+        features; without it, the config's prompt through the tokenizer
+        (random features for random towers when the vocab is missing).
     """
 
     def __init__(
@@ -58,6 +66,7 @@ class Predictor:
         params,
         class_names: Sequence[str],
         *,
+        clip_ckpt=None,
         clip_params=None,
         text_feats=None,
         smoke: bool = False,
@@ -87,14 +96,16 @@ class Predictor:
         if clip_params is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
             clip, pretrained = resolve_clip_params(
-                params, clip_cfg, gen, smoke=smoke, device=self.device)
+                params, clip_cfg, gen, clip_ckpt, smoke=smoke,
+                device=self.device)
         else:
             clip, pretrained = copy_clip(clip_params, clip_cfg,
                                          self.device), False
         self._cfg = snapshot_logit_scale(self._cfg, clip, pretrained)
         if text_feats is None:
-            text_feats = build_text_features(clip, clip_cfg,
-                                             self.class_names, pretrained)
+            text_feats = build_text_features(
+                clip, clip_cfg, self.class_names,
+                params.clip_dict.get("prompt", DEFAULT_PROMPT), pretrained)
         self._params = ClassifierParams(clip, torch.as_tensor(
             np.array(text_feats, dtype=np.float32)
             if isinstance(text_feats, np.ndarray) else text_feats,

@@ -143,11 +143,12 @@ def test_config_loader_takes_dotted_module_paths(monkeypatch):
 
 def test_sensor_and_arch_tables_equal_reference():
     assert set(DATASET_CLASSES) == set(REF_DATASETS)
-    for name, stats in DATASET_CLASSES.items():
+    for name, reader in DATASET_CLASSES.items():
         ref = REF_DATASETS[name]
-        for field in dataclasses.fields(stats):
-            assert getattr(stats, field.name) == getattr(ref, field.name), (
-                name, field.name)
+        assert reader.__name__ == ref.__name__
+        for attr in ("resolution", "max_t", "max_n", "max_shift",
+                     "flip_time", "new_cnames"):
+            assert getattr(reader, attr) == getattr(ref, attr), (name, attr)
     assert set(CLIP_ARCHS) == set(REF_ARCHS)
     for name, cfg in CLIP_ARCHS.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(REF_ARCHS[name])
@@ -205,9 +206,10 @@ def test_serving_path_imports_no_jax():
 def test_training_path_imports_no_jax():
     """A fresh interpreter that imports every module of the port and
     chip_smoke.py, then takes one FT update of a tiny tower with remat and
-    one FS update on event windows with RandAugment, and builds a model
-    with models.factory, has neither jax nor any eventclip_tpu module
-    loaded."""
+    one FS update on event windows with RandAugment, builds a model with
+    models.factory, tokenizes prompts, reads a split asset and converts
+    towers through the OpenAI key layout, has neither jax, nor regex, nor
+    any eventclip_tpu module loaded."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import torch
@@ -261,8 +263,20 @@ def test_training_path_imports_no_jax():
             load_params("configs/debug/fsclip_tiny_params.py"), ["a", "b"],
             dtype=torch.float32, device="cpu")
         assert randaugment.OP_NAMES[0] == "Identity"
+        # the data-to-accuracy slice: tokenizer, readers, converters, CLIs
+        from eventclip_tpu_torch.cli import test as cli_test
+        from eventclip_tpu_torch.data import datasets
+        from eventclip_tpu_torch.models.clip import convert, tokenizer
+        tok = tokenizer.SimpleTokenizer(merges=[("a", "t</w>"),
+                                                ("c", "at</w>")])
+        ids = tokenizer.tokenize(["a cat", "\u0430 \u088f 4\u0663!"], tok)
+        assert ids.shape == (2, 77) and ids[0, 2] == tok.encoder["cat</w>"]
+        assert len(datasets.load_split_asset("NCaltech101", 2, True)) == 202
+        assert datasets.build_dataset and cli_test.find_weight
+        sd = chip_smoke.openai_state_dict(model.params.clip)
+        assert convert.infer_config_from_state_dict(sd).vision.layers == 2
         bad = sorted(m for m in sys.modules
-                     if m == "jax" or m.startswith("jax.")
+                     if m in ("jax", "regex") or m.startswith("jax.")
                      or m == "eventclip_tpu" or m.startswith("eventclip_tpu."))
         print("LOADED", bad)
         sys.exit(1 if bad else 0)

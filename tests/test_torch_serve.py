@@ -311,15 +311,19 @@ def test_build_model_matches_jax(head_inputs, tmp_path, config):
     _compare(got, want)
 
 
-def test_build_model_text_features_rule(head_inputs):
-    """Pretrained towers without text features raise (there is no
-    tokenizer); random towers draw both, on the device asked for."""
+def test_build_model_text_features_rule(head_inputs, monkeypatch,
+                                        tmp_path):
+    """Pretrained towers without text features and without the BPE vocab
+    raise; random towers draw both, on the device asked for."""
+    from eventclip_tpu_torch.models.clip import tokenizer
     from eventclip_tpu_torch.models.factory import build_model
 
+    monkeypatch.setenv("EVENTCLIP_BPE_PATH", str(tmp_path / "none.txt.gz"))
+    monkeypatch.setattr(tokenizer, "DEFAULT_BPE_PATHS", ())
     ref_params = head_inputs[0]
     tree = jax.tree_util.tree_map(np.asarray, ref_params["clip"])
     params = load_params(CONFIG)
-    with pytest.raises(FileNotFoundError, match="text_feats"):
+    with pytest.raises(FileNotFoundError, match="BPE vocab"):
         build_model(params, NAMES, clip_params=tree, device="cpu")
     model = build_model(params, NAMES, device="cpu",
                         generator=torch.Generator().manual_seed(1))
@@ -327,3 +331,33 @@ def test_build_model_text_features_rule(head_inputs):
     assert tuple(tf.shape) == (len(NAMES), model.cfg.clip.embed_dim)
     torch.testing.assert_close(tf.norm(dim=-1), torch.ones(len(NAMES)))
     assert model.cfg.dtype == torch.bfloat16  # the JAX factory's default
+
+
+def test_build_model_and_predictor_tokenize_like_jax(head_inputs,
+                                                     monkeypatch, tmp_path):
+    """With the vocab (a synthetic merge table on EVENTCLIP_BPE_PATH) and
+    no text features, build_model and Predictor compute them from the
+    config's prompt, to the JAX build_model's / Predictor's features
+    (rtol 2e-4, atol 2e-5)."""
+    import gzip
+
+    from eventclip_tpu.models.factory import build_model as ref_build_model
+    from eventclip_tpu_torch.models.factory import build_model
+
+    from .test_tokenizer import MERGES
+
+    vocab = tmp_path / "bpe.txt.gz"
+    with gzip.open(vocab, "wt", encoding="utf-8") as f:
+        f.write("#version: 0.2\n"
+                + "\n".join(" ".join(m) for m in MERGES) + "\n")
+    monkeypatch.setenv("EVENTCLIP_BPE_PATH", str(vocab))
+    tree = jax.tree_util.tree_map(np.asarray, head_inputs[0]["clip"])
+    want = np.asarray(ref_build_model(ref_load_params(CONFIG), NAMES,
+                                      clip_params=tree).params["text_feats"])
+    got = build_model(load_params(CONFIG), NAMES, clip_params=tree,
+                      device="cpu").params.text_feats.detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+    pred = Predictor(load_params(CONFIG), NAMES, clip_params=tree,
+                     device="cpu")
+    np.testing.assert_allclose(pred._params.text_feats.detach().numpy(),
+                               want, rtol=2e-4, atol=2e-5)
