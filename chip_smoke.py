@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port on one card: serving, FT and FS training, and the
-train / test CLIs from a dataset tree and checkpoint files on disk.
+"""Drive the PyTorch port on one card: serving and its options, FT and FS
+training, and the train / test CLIs and the serve CLI from a dataset tree
+and checkpoint files on disk.
 
     python3 chip_smoke.py
 
@@ -86,11 +87,33 @@ non-zero):
    ms a step, a best.npz. (c) cli.test --weight best.npz, then the same
    weights exported to the reference's best.pth and found by
    --train_shots 2: equal correct counts. Then K1 and K2 held to their
-   plain versions at the eval CLI's first packed batch.
+   plain versions at the eval CLI's first packed batch. The temporary
+   directory lives on through phase 10.
+10. serving options at ViT-L/14 on phase 3's towers, 101 classes, batch
+   32, phase 3's 32 x 225k request: (a) the host half on the numpy and the
+   native route (library loaded; prep = copy + polarity remap + crc seed,
+   centre, gather: ms each, median of 3), windows and valid masks
+   bit-equal, and the native library's calls over phase 3's timed requests
+   (one transform and one pack a stream); (b) `int8=True` (dynamic
+   scales; every product through torch._int_mm on the card, 97 a request):
+   ms a request, device busy ms, agreement with bf16; then static scales
+   calibrated on 4 streams, held to the dynamic answer within 0.08 on the
+   probabilities; (c) `prune_tokens=128`: ms a request, K1 1 / K2 24,
+   device busy ms, K2 held to its plain version at [320, 129, 3072]; (d) `embed=True`: [32,
+   768] unit rows, the first 8 embedded alone within the bf16 limit of
+   their rows, and the TTA embedding; (e) `set_classes` to 50 names and
+   back, through phase 9's merge table: the text tower's K2 12 a swap,
+   probabilities back bit for bit; (f) `weight=` phase 9's best.npz and
+   its .pth over the testing tree read by `load_event_file` (FS config,
+   phase 9's .pt): correct counts equal phase 9(c)'s; (g) a StreamSession
+   fed one stream in 10 chunks equals predict on its buffer; (h) `python
+   -m eventclip_tpu_torch.serve` in a subprocess: 101 JSONL lines with
+   (f)'s labels, then `serve.main` with --embed_out: 101 unit rows.
 
 Then one JSON line with every kernel's numbers (by_path adds the eval
-CLI's `cli` rows; `eval_cli`, `train_cli` and `trained_eval` hold phase
-9), the card's name and power limit, and as the last line
+CLI's `cli` rows and the pruned request's `serve_pruned` K2 row;
+`eval_cli`, `train_cli` and `trained_eval` hold phase 9, `serve_options`
+phase 10), the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Imports nothing
 of JAX. Fails when no CUDA device is present or the port is missing.
 """
@@ -118,6 +141,11 @@ ATOL = {"float32": 1e-5, "bfloat16": 2e-2}  # kernel vs plain, see PERF.md
 # rounding order from another one; this limit tells them apart (see
 # other_rounding_orders and PERF.md)
 REL = {"float32": 1e-6, "bfloat16": 5e-4}
+# int8 (W8A8) vs bf16 at ViT-L/14: what the 24 blocks add to a view's
+# tokens, norm-relative (phase 10(b)): twice the dynamic route's worst
+# view as measured on an H100 (see PERF.md); on a ViT-T/8@32 tower a
+# wrong scale or a shuffled code order gave 0.47-1.34
+INT8_BLOCKS_REL = {"dynamic": 0.06, "calibrated": 0.06}
 
 
 def log(msg: str) -> None:
@@ -1052,13 +1080,14 @@ def write_ncaltech_tree(root, seed):
     return classes, len(files)
 
 
-def data_to_accuracy(dev, gen):
+def data_to_accuracy(dev, gen, tmp):
     """Phase 9: a ViT-L/14 checkpoint, a merge table and an N-Caltech tree
-    on disk, then (a) zero-shot eval through cli.test, (b) FS training
-    through cli.train, (c) the trained checkpoint evaluated through
-    cli.test as .npz and, exported, as the reference's .pth. Returns the
-    phase's record and the eval CLI's kernel rows (K1 and K2 at its
-    first batch's packed shape)."""
+    on disk in `tmp`, then (a) zero-shot eval through cli.test, (b) FS
+    training through cli.train, (c) the trained checkpoint evaluated
+    through cli.test as .npz and, exported, as the reference's .pth.
+    Returns the phase's record, the eval CLI's kernel rows (K1 and K2 at
+    its first batch's packed shape) and the files phase 10 serves from;
+    the merge table stays on EVENTCLIP_BPE_PATH for phase 10."""
     import shutil
 
     import torch
@@ -1085,178 +1114,179 @@ def data_to_accuracy(dev, gen):
     clip_cfg = clip_arch_config(load_params(zs).clip_dict["arch"])
     L, Lt = clip_cfg.vision.layers, clip_cfg.text.layers
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        clip = init_clip_params(clip_cfg, torch.Generator(device=dev)
-                                .manual_seed(9), device=dev)
-        sd = openai_state_dict(clip, torch.float16)  # fp16, as released
-        del clip
-        pt = os.path.join(tmp, "ViT-L-14.pt")
-        torch.save(sd, pt)
-        tree = os.path.join(tmp, "N-Caltech101")
-        classes, n_files = write_ncaltech_tree(tree, seed=9)
-        prompt = load_params(zs).clip_dict["prompt"]
-        vocab = os.path.join(tmp, "bpe_simple_vocab_16e6.txt.gz")
-        with gzip.open(vocab, "wt", encoding="utf-8") as f:
-            f.write(synth_merges([prompt.format(c.lower().replace("_", " "))
-                                  for c in classes], 400))
-        os.environ["EVENTCLIP_BPE_PATH"] = vocab
-        tok = SimpleTokenizer()
-        log(f"[{tag}] inputs in {time.perf_counter() - t0:.1f} s: "
-            f"{clip_cfg.name} random towers saved in fp16 in OpenAI's key "
-            f"layout ({os.path.getsize(pt) / 2 ** 30:.2f} GiB), a merge "
-            f"table of {len(tok.bpe_ranks)} merges, an N-Caltech101 tree of "
-            f"{n_files} streams (training/: the shipped 2-shot split's 202 "
-            "files; testing/: one a class)")
+    t0 = time.perf_counter()
+    clip = init_clip_params(clip_cfg, torch.Generator(device=dev)
+                            .manual_seed(9), device=dev)
+    sd = openai_state_dict(clip, torch.float16)  # fp16, as released
+    del clip
+    pt = os.path.join(tmp, "ViT-L-14.pt")
+    torch.save(sd, pt)
+    tree = os.path.join(tmp, "N-Caltech101")
+    classes, n_files = write_ncaltech_tree(tree, seed=9)
+    prompt = load_params(zs).clip_dict["prompt"]
+    vocab = os.path.join(tmp, "bpe_simple_vocab_16e6.txt.gz")
+    with gzip.open(vocab, "wt", encoding="utf-8") as f:
+        f.write(synth_merges([prompt.format(c.lower().replace("_", " "))
+                              for c in classes], 400))
+    os.environ["EVENTCLIP_BPE_PATH"] = vocab
+    tok = SimpleTokenizer()
+    log(f"[{tag}] inputs in {time.perf_counter() - t0:.1f} s: "
+        f"{clip_cfg.name} random towers saved in fp16 in OpenAI's key "
+        f"layout ({os.path.getsize(pt) / 2 ** 30:.2f} GiB), a merge "
+        f"table of {len(tok.bpe_ranks)} merges, an N-Caltech101 tree of "
+        f"{n_files} streams (training/: the shipped 2-shot split's 202 "
+        "files; testing/: one a class)")
 
-        # (a) zero-shot evaluation through the test CLI: the counts are
-        # zeroed just before and read just after
-        kernels.reset_launches()
-        res = cli_test.main(["--params", zs, "--clip_ckpt", pt,
-                             "--data_root", tree])
-        torch.cuda.synchronize(dev)
-        launches = dict(kernels.LAUNCHES)
-        ctx = res["ctx"]
-        ev = ctx["evals"][-1]
-        b = ev["batches"]
-        want = {"histogram": b, "qkv_attention": Lt + L * b}
-        log(f"[{tag}] (a) eval CLI launches {launches}: K2 {Lt} for the text "
-            f"tower, then K1 1 / K2 {L} per eval batch over {b} batches")
-        if launches != want:
-            raise AssertionError(f"eval CLI launches {launches} != {want}")
-        params = ctx["template"]
-        exact = torch.equal(
-            params.clip.visual.blocks.layers[0].attn.wqkv.detach().cpu(),
-            sd["visual.transformer.resblocks.0.attn.in_proj_weight"].float())
-        if not exact:
-            raise AssertionError("loaded visual wqkv[0] differs from the "
-                                 "file's fp16 values cast to f32")
-        names = ctx["loader"].dataset.classes
-        tokens = tokenize_prompts(names, prompt, tok,
-                                  clip_cfg.text.context_length)
-        if tokens.shape != (len(classes), clip_cfg.text.context_length):
-            raise AssertionError(f"prompt tokens {tokens.shape}")
-        views = [(int(d["valid_mask"].sum()), int(d["windows"].shape[0]))
-                 for d in ctx["dev_batches"]]
-        first = ctx["dev_batches"][0]
-        spec, pp = ctx["raster"]
-        with torch.inference_mode():
-            probs = classifier_forward_packed(
-                params, ctx["cls_cfg"],
-                rasterize_for_clip(spec, pp, first["windows"]),
-                first["view_src"], first["valid_mask"])["probs"]
-        if not (torch.isfinite(probs).all() and 0 <= res["probs_acc"] <= 1
-                and 0 <= res["logits_acc"] <= 1):
-            raise AssertionError("non-finite probabilities or accuracies "
-                                 "outside [0, 1]")
-        shapes = {"histogram": tuple(first["windows"].shape),
-                  "qkv_attention": (first["windows"].shape[0],
-                                    clip_cfg.vision.seq_len,
-                                    3 * clip_cfg.vision.width)}
-        log(f"[{tag}] (a) CLIP .pt loaded in {ctx['timing']['clip_s']:.2f} "
-            "s; visual wqkv[0] equals the file's fp16 values cast to f32 "
-            f"exactly; prompt tokens {tokens.shape} through the port's "
-            f"tokenizer; text features in "
-            f"{ctx['timing']['text_feats_s'] * 1e3:.1f} ms; eval of "
-            f"{int(ev['n'])} samples in {ev['wall_s']:.2f} s "
-            f"({ev['n'] / ev['wall_s']:.1f} samples/s; host loader wait "
-            f"{ev['wait_s']:.2f} s, {100 * ev['wait_s'] / ev['wall_s']:.1f}%"
-            f"); views per batch (real, packed) {views}; probs "
-            f"finite; accuracy probs {res['probs_acc']:.4f} / logits "
-            f"{res['logits_acc']:.4f} (random towers: chance, measures "
-            "nothing)")
-        # where the eval's time goes: the host's work an item (np.load,
-        # centring, windowing; the loader spreads it over its threads),
-        # and the card's on the same batches from the device cache
-        val_set = ctx["loader"].dataset
-        t0 = time.perf_counter()
-        for i in range(len(val_set)):
-            val_set[i]
-        item_ms = (time.perf_counter() - t0) * 1e3 / len(val_set)
-        log(f"[{tag}] (a) host: {item_ms:.1f} ms an item (np.load, "
-            f"centring, windowing; {len(val_set)} items, one thread; the "
-            f"loader runs {ctx['loader'].num_workers} threads)")
-        args = cli_test.parse_args(["--params", zs, "--data_root", tree])
-        zs_params, _ = cli_test.load_and_override(args)
-        prof = profile_call(f"{tag} profile", "eval from the device cache",
-                            lambda: cli_test.evaluate(zs_params, args,
-                                                      printing=False,
-                                                      ctx=ctx))
-        if prof is not None:
-            prof.pop("rows")
-        out["eval_cli"] = dict(
-            host_item_ms=item_ms, profile=prof,
-            clip_load_s=ctx["timing"]["clip_s"],
-            text_feats_ms=ctx["timing"]["text_feats_s"] * 1e3,
-            tokens=list(tokens.shape), views=views, wall_s=ev["wall_s"],
-            samples_per_s=ev["n"] / ev["wall_s"], host_wait_s=ev["wait_s"],
-            batches=b, n=ev["n"], launches=launches,
-            first_batch=shapes, probs_acc=res["probs_acc"],
-            logits_acc=res["logits_acc"])
-        del ctx, res, params, first, probs
-        torch.cuda.empty_cache()
+    # (a) zero-shot evaluation through the test CLI: the counts are
+    # zeroed just before and read just after
+    kernels.reset_launches()
+    res = cli_test.main(["--params", zs, "--clip_ckpt", pt,
+                         "--data_root", tree])
+    torch.cuda.synchronize(dev)
+    launches = dict(kernels.LAUNCHES)
+    ctx = res["ctx"]
+    ev = ctx["evals"][-1]
+    b = ev["batches"]
+    want = {"histogram": b, "qkv_attention": Lt + L * b}
+    log(f"[{tag}] (a) eval CLI launches {launches}: K2 {Lt} for the text "
+        f"tower, then K1 1 / K2 {L} per eval batch over {b} batches")
+    if launches != want:
+        raise AssertionError(f"eval CLI launches {launches} != {want}")
+    params = ctx["template"]
+    exact = torch.equal(
+        params.clip.visual.blocks.layers[0].attn.wqkv.detach().cpu(),
+        sd["visual.transformer.resblocks.0.attn.in_proj_weight"].float())
+    if not exact:
+        raise AssertionError("loaded visual wqkv[0] differs from the "
+                             "file's fp16 values cast to f32")
+    names = ctx["loader"].dataset.classes
+    tokens = tokenize_prompts(names, prompt, tok,
+                              clip_cfg.text.context_length)
+    if tokens.shape != (len(classes), clip_cfg.text.context_length):
+        raise AssertionError(f"prompt tokens {tokens.shape}")
+    views = [(int(d["valid_mask"].sum()), int(d["windows"].shape[0]))
+             for d in ctx["dev_batches"]]
+    first = ctx["dev_batches"][0]
+    spec, pp = ctx["raster"]
+    with torch.inference_mode():
+        probs = classifier_forward_packed(
+            params, ctx["cls_cfg"],
+            rasterize_for_clip(spec, pp, first["windows"]),
+            first["view_src"], first["valid_mask"])["probs"]
+    if not (torch.isfinite(probs).all() and 0 <= res["probs_acc"] <= 1
+            and 0 <= res["logits_acc"] <= 1):
+        raise AssertionError("non-finite probabilities or accuracies "
+                             "outside [0, 1]")
+    shapes = {"histogram": tuple(first["windows"].shape),
+              "qkv_attention": (first["windows"].shape[0],
+                                clip_cfg.vision.seq_len,
+                                3 * clip_cfg.vision.width)}
+    log(f"[{tag}] (a) CLIP .pt loaded in {ctx['timing']['clip_s']:.2f} "
+        "s; visual wqkv[0] equals the file's fp16 values cast to f32 "
+        f"exactly; prompt tokens {tokens.shape} through the port's "
+        f"tokenizer; text features in "
+        f"{ctx['timing']['text_feats_s'] * 1e3:.1f} ms; eval of "
+        f"{int(ev['n'])} samples in {ev['wall_s']:.2f} s "
+        f"({ev['n'] / ev['wall_s']:.1f} samples/s; host loader wait "
+        f"{ev['wait_s']:.2f} s, {100 * ev['wait_s'] / ev['wall_s']:.1f}%"
+        f"); views per batch (real, packed) {views}; probs "
+        f"finite; accuracy probs {res['probs_acc']:.4f} / logits "
+        f"{res['logits_acc']:.4f} (random towers: chance, measures "
+        "nothing)")
+    # where the eval's time goes: the host's work an item (np.load,
+    # centring, windowing; the loader spreads it over its threads),
+    # and the card's on the same batches from the device cache
+    val_set = ctx["loader"].dataset
+    t0 = time.perf_counter()
+    for i in range(len(val_set)):
+        val_set[i]
+    item_ms = (time.perf_counter() - t0) * 1e3 / len(val_set)
+    log(f"[{tag}] (a) host: {item_ms:.1f} ms an item (np.load, "
+        f"centring, windowing; {len(val_set)} items, one thread; the "
+        f"loader runs {ctx['loader'].num_workers} threads)")
+    args = cli_test.parse_args(["--params", zs, "--data_root", tree])
+    zs_params, _ = cli_test.load_and_override(args)
+    prof = profile_call(f"{tag} profile", "eval from the device cache",
+                        lambda: cli_test.evaluate(zs_params, args,
+                                                  printing=False,
+                                                  ctx=ctx))
+    if prof is not None:
+        prof.pop("rows")
+    out["eval_cli"] = dict(
+        host_item_ms=item_ms, profile=prof,
+        clip_load_s=ctx["timing"]["clip_s"],
+        text_feats_ms=ctx["timing"]["text_feats_s"] * 1e3,
+        tokens=list(tokens.shape), views=views, wall_s=ev["wall_s"],
+        samples_per_s=ev["n"] / ev["wall_s"], host_wait_s=ev["wait_s"],
+        batches=b, n=ev["n"], launches=launches,
+        first_batch=shapes, probs_acc=res["probs_acc"],
+        logits_acc=res["logits_acc"])
+    del ctx, res, params, first, probs
+    torch.cuda.empty_cache()
 
-        # (b) few-shot training through the train CLI
-        base = os.path.join(tmp, "checkpoint")
-        kernels.reset_launches()
-        t0 = time.perf_counter()
-        trainer = cli_train.main([
-            "--params", fs, "--num_shots", "2", "--max_epochs", "1",
-            "--clip_ckpt", pt, "--data_root", tree, "--ckpt_base", base])
-        torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-        launches = dict(kernels.LAUNCHES)
-        steps = len(trainer.step_times)
-        evals = min(2, len(trainer.val_loader)) + len(trainer.val_loader)
-        want = {"histogram": steps + evals,
-                "qkv_attention": Lt + L * (steps + evals)}
-        log(f"[{tag}] (b) train CLI launches {launches}: K2 {Lt} for the "
-            f"text tower, then K1 1 / K2 {L} / K3 0 per train step and per "
-            f"eval batch ({steps} steps, {evals} eval batches)")
-        if launches != want:
-            raise AssertionError(f"train CLI launches {launches} != {want}")
-        step_ms = [s * 1e3 for _, s in trainer.step_times]
-        wait_ms = [w * 1e3 for w, _ in trainer.step_times]
-        med = statistics.median(step_ms)
-        bs = trainer.global_batch
-        models = os.path.join(base, "joint_fsclip_ncaltech_params-2shot",
-                              "models")
-        best = os.path.join(models, "best.npz")
-        if not os.path.exists(best):
-            raise AssertionError(f"no {best}")
-        log(f"[{tag}] (b) {len(trainer.train_set)} training samples, "
-            f"{steps} steps (ms): {[round(x, 1) for x in step_ms]}; median "
-            f"{med:.1f} ms, {bs / (med / 1e3):.1f} samples/s; host loader "
-            f"wait {[round(x, 1) for x in wait_ms]} ms; CLI wall "
-            f"{wall:.1f} s; best.npz written")
-        out["train_cli"] = dict(
-            steps=steps, step_ms=step_ms, median_step_ms=med,
-            samples_per_s=bs / (med / 1e3), host_wait_ms=wait_ms,
-            wall_s=wall, launches=launches,
-            launches_per_step={"histogram": 1, "qkv_attention": L,
-                               "qkv_attention_bwd": 0})
-        del trainer
-        torch.cuda.empty_cache()
+    # (b) few-shot training through the train CLI
+    base = os.path.join(tmp, "checkpoint")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer = cli_train.main([
+        "--params", fs, "--num_shots", "2", "--max_epochs", "1",
+        "--clip_ckpt", pt, "--data_root", tree, "--ckpt_base", base])
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    steps = len(trainer.step_times)
+    evals = min(2, len(trainer.val_loader)) + len(trainer.val_loader)
+    want = {"histogram": steps + evals,
+            "qkv_attention": Lt + L * (steps + evals)}
+    log(f"[{tag}] (b) train CLI launches {launches}: K2 {Lt} for the "
+        f"text tower, then K1 1 / K2 {L} / K3 0 per train step and per "
+        f"eval batch ({steps} steps, {evals} eval batches)")
+    if launches != want:
+        raise AssertionError(f"train CLI launches {launches} != {want}")
+    step_ms = [s * 1e3 for _, s in trainer.step_times]
+    wait_ms = [w * 1e3 for w, _ in trainer.step_times]
+    med = statistics.median(step_ms)
+    bs = trainer.global_batch
+    models = os.path.join(base, "joint_fsclip_ncaltech_params-2shot",
+                          "models")
+    best = os.path.join(models, "best.npz")
+    if not os.path.exists(best):
+        raise AssertionError(f"no {best}")
+    log(f"[{tag}] (b) {len(trainer.train_set)} training samples, "
+        f"{steps} steps (ms): {[round(x, 1) for x in step_ms]}; median "
+        f"{med:.1f} ms, {bs / (med / 1e3):.1f} samples/s; host loader "
+        f"wait {[round(x, 1) for x in wait_ms]} ms; CLI wall "
+        f"{wall:.1f} s; best.npz written")
+    out["train_cli"] = dict(
+        steps=steps, step_ms=step_ms, median_step_ms=med,
+        samples_per_s=bs / (med / 1e3), host_wait_ms=wait_ms,
+        wall_s=wall, launches=launches,
+        launches_per_step={"histogram": 1, "qkv_attention": L,
+                           "qkv_attention_bwd": 0})
+    del trainer
+    torch.cuda.empty_cache()
 
-        # (c) the trained weights as .npz, then as the reference's .pth
-        argv = ["--params", fs, "--clip_ckpt", pt, "--data_root", tree]
-        npz = cli_test.main(argv + ["--weight", best])["ctx"]["evals"][-1]
-        flat, _ = load_checkpoint(best)
-        save_method_checkpoint(os.path.join(models, "best.pth"),
-                               unflatten(flat))
-        shutil.move(best, os.path.join(tmp, "best.npz"))
-        pth = cli_test.main(argv + ["--train_shots", "2", "--ckpt_base",
-                                    base])["ctx"]["evals"][-1]
-        keys = ("n", "probs_correct", "logits_correct")
-        log(f"[{tag}] (c) trained checkpoint as .npz: "
-            f"{ {k: npz[k] for k in keys} }; as the exported .pth through "
-            f"--train_shots 2 ({os.path.basename(pth['weight'])}): "
-            f"{ {k: pth[k] for k in keys} }")
-        if not pth["weight"].endswith("best.pth") or any(
-                npz[k] != pth[k] for k in keys):
-            raise AssertionError(f"npz {npz} vs pth {pth}")
-        out["trained_eval"] = {k: npz[k] for k in keys}
-        os.environ.pop("EVENTCLIP_BPE_PATH")
+    # (c) the trained weights as .npz, then as the reference's .pth
+    argv = ["--params", fs, "--clip_ckpt", pt, "--data_root", tree]
+    npz = cli_test.main(argv + ["--weight", best])["ctx"]["evals"][-1]
+    flat, _ = load_checkpoint(best)
+    save_method_checkpoint(os.path.join(models, "best.pth"),
+                           unflatten(flat))
+    shutil.move(best, os.path.join(tmp, "best.npz"))
+    pth = cli_test.main(argv + ["--train_shots", "2", "--ckpt_base",
+                                base])["ctx"]["evals"][-1]
+    keys = ("n", "probs_correct", "logits_correct")
+    log(f"[{tag}] (c) trained checkpoint as .npz: "
+        f"{ {k: npz[k] for k in keys} }; as the exported .pth through "
+        f"--train_shots 2 ({os.path.basename(pth['weight'])}): "
+        f"{ {k: pth[k] for k in keys} }")
+    if not pth["weight"].endswith("best.pth") or any(
+            npz[k] != pth[k] for k in keys):
+        raise AssertionError(f"npz {npz} vs pth {pth}")
+    out["trained_eval"] = {k: npz[k] for k in keys}
+    files = dict(pt=pt, tree=tree, fs=fs, classes=classes,
+                 npz=os.path.join(tmp, "best.npz"),
+                 pth=os.path.join(models, "best.pth"))
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[{tag}] phase 9 in {out['phase_s']:.1f} s")
 
@@ -1268,7 +1298,358 @@ def data_to_accuracy(dev, gen):
                 clip_cfg.vision.seq_len, clip_cfg.vision.heads,
                 clip_cfg.vision.width // clip_cfg.vision.heads,
                 torch.bfloat16, False, dev)}
-    return out, rows
+    return out, rows, files
+
+
+# -- phase 10: serving options ------------------------------------------------
+
+
+def host_split(pred, streams):
+    """One request's host half by stage, on the current host-ops route:
+    prep (copy, polarity remap, crc seed), centre (prepare_stream) and
+    gather (windows, int16 packing); returns the ms of each and the
+    stacked windows and valid masks."""
+    from eventclip_tpu_torch.data.host_ops import (gather_event_windows,
+                                                   prepare_stream)
+
+    ms = {"prep": 0.0, "center": 0.0, "gather": 0.0}
+    wins, valids = [], []
+    for s in streams:
+        t0 = time.perf_counter()
+        ev, rng = pred._canonical(s)
+        t1 = time.perf_counter()
+        ev = prepare_stream(ev, pred.resolution)
+        t2 = time.perf_counter()
+        w, v = gather_event_windows(ev, pred.window, pred.views, rng=rng,
+                                    packed=True)
+        t3 = time.perf_counter()
+        ms["prep"] += (t1 - t0) * 1e3
+        ms["center"] += (t2 - t1) * 1e3
+        ms["gather"] += (t3 - t2) * 1e3
+        wins.append(w)
+        valids.append(v)
+    return ms, np.stack(wins), np.stack(valids)
+
+
+def timed_requests(pred, streams, n=3):
+    """Median ms of n requests (host windowing + device, ending in the
+    probabilities on the host), the kernel launches of one, the output."""
+    import torch
+
+    from eventclip_tpu_torch import kernels
+
+    times = []
+    for _ in range(n):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = pred.predict(streams)
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3, dict(kernels.LAUNCHES), out
+
+
+def blocks_delta(pred, streams):
+    """What the visual tower's blocks add to the tokens of one request
+    (their output less their input), f32 [views, S, D], read through
+    pred.predict. Random towers map every stream to nearly one feature, so
+    the probabilities and features cannot tell a right tower from a wrong
+    one; this can."""
+    import torch
+
+    seen = []
+    hook = pred._params.clip.visual.blocks.register_forward_hook(
+        lambda m, args, out: seen.append(out.float() - args[0].float()))
+    try:
+        pred.predict(streams)
+    finally:
+        hook.remove()
+    return torch.cat(seen)
+
+
+def serving_options(dev, gen, pred, clip, text_feats, names, streams,
+                    native_calls, files, trained_eval):
+    """Phase 10: the serving options at ViT-L/14 on phase 3's towers and
+    request (32 x 225k events), phase 9's files for weight= and the CLI.
+    Returns the phase's record, the pruned path's K2 row and its
+    launches."""
+    import glob
+
+    import torch
+
+    from eventclip_tpu_torch import kernels, native
+    from eventclip_tpu_torch.ops import quant
+    from eventclip_tpu_torch.serve import (Predictor, StreamSession,
+                                           load_event_file,
+                                           resolve_class_names)
+    from eventclip_tpu_torch.serve import main as serve_main
+    from eventclip_tpu_torch.utils.config import load_params
+
+    tag = "10 serve options"
+    t_phase = time.perf_counter()
+    zs = os.path.join(HERE, "configs", "zsclip", "zsclip_ncaltech_params.py")
+    out = {}
+
+    def build(**kw):
+        p = Predictor(load_params(zs), names, clip_params=clip,
+                      text_feats=text_feats, batch_size=32, device=dev, **kw)
+        p.warm_up()
+        return p
+
+    # (a) the host half on both routes, same request
+    if not native.available():
+        raise AssertionError("the native host-ops library did not load: "
+                             f"{native.load_error()}")
+    split = {}
+    for route, env in (("numpy", "0"), ("native", "1")):
+        os.environ["EVENTCLIP_NATIVE"] = env
+        native.reset_for_tests()
+        if native.available() != (route == "native"):
+            raise AssertionError(f"EVENTCLIP_NATIVE={env} did not switch "
+                                 "the host-ops route")
+        runs = [host_split(pred, streams) for _ in range(3)]
+        split[route] = {k: statistics.median(r[0][k] for r in runs)
+                        for k in ("prep", "center", "gather")}
+        split[route]["total"] = sum(split[route].values())
+        split[route]["windows"] = runs[0][1:]
+        want = pred.gather_windows(streams)
+        for got, ref in zip(runs[0][1:], want):
+            if not np.array_equal(got, ref):
+                raise AssertionError(f"{route}: stage-timed windows differ "
+                                     "from gather_windows")
+    os.environ.pop("EVENTCLIP_NATIVE")
+    native.reset_for_tests()
+    if not native.available():
+        raise AssertionError("the native library did not load again: "
+                             f"{native.load_error()}")
+    equal = all(np.array_equal(a, b) for a, b in
+                zip(split["numpy"].pop("windows"),
+                    split["native"].pop("windows")))
+    if not equal:
+        raise AssertionError("native and numpy windows / valid masks differ")
+    want_calls = {"transform": 3 * 41, "pack_spans": 3 * 41}
+    log(f"[{tag}] (a) host windowing of the 32 x 225k request, median of 3 "
+        f"(ms): numpy {split['numpy']}, native {split['native']}; windows "
+        f"and valid masks bit-equal; native calls over phase 3's 9 timed "
+        f"requests {native_calls} (123 streams)")
+    if native_calls != want_calls:
+        raise AssertionError(f"native calls {native_calls} != {want_calls}")
+    out["host_split_ms"] = split
+    out["native_calls_phase3"] = native_calls
+
+    base = pred.predict(streams)
+    # (b) int8: dynamic scales, then static from 4 streams
+    int_mm = {"calls": 0, "on_card": True}
+    orig_int_mm = quant._int_mm
+
+    def counted_int_mm(a, b):
+        int_mm["calls"] += 1
+        int_mm["on_card"] &= a.device.type == b.device.type == dev.type
+        return orig_int_mm(a, b)
+
+    quant._int_mm = counted_int_mm
+    try:
+        q8 = build(int8=True)
+        int_mm["calls"] = 0
+        ms, launches, dyn = timed_requests(q8, streams)
+        per_forward = int_mm["calls"] / 3
+        prof = profile_call(f"{tag} profile", "int8 request",
+                            lambda: q8.predict(streams))
+        if prof is not None:
+            prof.pop("rows")
+        # the blocks' contribution to the request's tokens, int8 vs bf16
+        d8, d16 = blocks_delta(q8, streams), blocks_delta(pred, streams)
+        del q8
+        cal = build(int8=True, int8_calib_streams=streams[:4])
+        stat = cal.predict(streams)
+        dcal = blocks_delta(cal, streams)
+        del cal
+    finally:
+        quant._int_mm = orig_int_mm
+    torch.cuda.empty_cache()
+    check_probs(dyn, len(streams), len(names))
+    agree = float((dyn["label"] == base["label"]).mean())
+    dprob = float(np.abs(dyn["probs"] - base["probs"]).max())
+    dstat = float(np.abs(stat["probs"] - dyn["probs"]).max())
+    rel8 = {}
+    for mode, d in (("dynamic", d8), ("calibrated", dcal)):
+        per_view = (d - d16).flatten(1).norm(dim=1) / d16.flatten(1).norm(
+            dim=1)
+        rel8[mode] = dict(request=float((d - d16).norm() / d16.norm()),
+                          worst_view=float(per_view.max()))
+    del d8, dcal, d16
+    log(f"[{tag}] (b) int8 (dynamic): {ms:.1f} ms a request, median of 3; "
+        f"launches {launches}; torch._int_mm {per_forward:.0f} calls a "
+        f"request, all on the card: {int_mm['on_card']}; device busy "
+        + ("not measured" if prof is None else f"{prof['busy_ms']:.1f} ms "
+           f"of {prof['wall_ms']:.1f}") + f"; vs bf16: argmax equal "
+        f"{agree:.4f}, max |dprob| {dprob:.3g}; the blocks' contribution "
+        f"to the tokens vs bf16, norm-relative over the request and the "
+        f"worst view (limit {INT8_BLOCKS_REL}): {rel8}; calibrated on 4 "
+        f"streams: "
+        f"max |dprob| vs dynamic {dstat:.3g} (limit 0.08)")
+    want = 1 + 4 * clip.cfg.vision.layers  # patch_embed + 4 a block
+    if not int_mm["on_card"] or per_forward != want:
+        raise AssertionError(f"int8 products {int_mm}: want {want} a "
+                             "request, on the card")
+    if not dstat <= 0.08:
+        raise AssertionError(f"calibrated int8 vs dynamic {dstat} > 0.08")
+    for mode, r in rel8.items():
+        if not r["worst_view"] <= INT8_BLOCKS_REL[mode]:
+            raise AssertionError(f"int8 ({mode}) blocks vs bf16: {r} > "
+                                 f"{INT8_BLOCKS_REL[mode]} norm-relative")
+    out["int8"] = dict(ms=ms, launches=launches, profile=prof,
+                       int_mm_per_request=per_forward, argmax_equal=agree,
+                       max_dprob_vs_bf16=dprob, blocks_rel_vs_bf16=rel8,
+                       calibrated_max_dprob_vs_dynamic=dstat)
+
+    # (c) pruning: 128 of 256 patches a view
+    pr = build(prune_tokens=128)
+    ms, pruned_launches, pout = timed_requests(pr, streams)
+    check_probs(pout, len(streams), len(names))
+    pprof = profile_call(f"{tag} profile", "pruned request",
+                         lambda: pr.predict(streams))
+    if pprof is not None:
+        pprof.pop("rows")
+    del pr
+    torch.cuda.empty_cache()
+    want = {"histogram": 1, "qkv_attention": clip.cfg.vision.layers}
+    log(f"[{tag}] (c) pruned to 128 tokens: {ms:.1f} ms a request, median "
+        f"of 3; launches {pruned_launches}; vs bf16 argmax equal "
+        f"{float((pout['label'] == base['label']).mean()):.4f}")
+    if pruned_launches != want:
+        raise AssertionError(f"pruned launches {pruned_launches} != {want}")
+    row = check_attention(gen, "ViT-L/14 pruned 128", 320, 129, 16, 64,
+                          torch.bfloat16, False, dev)
+    out["pruned"] = dict(ms=ms, launches=pruned_launches, profile=pprof)
+
+    # (d) embeddings, plain and TTA
+    em = build(embed=True)
+    f32 = em.embed(streams)
+    f8 = em.embed(streams[:8])
+    norms = np.linalg.norm(f32, axis=-1)
+    d8 = float(np.abs(f8 - f32[:8]).max())
+    em.tta = True
+    ftta = em.embed(streams[:8])
+    em.tta = False
+    log(f"[{tag}] (d) embed: {f32.shape}, norms {norms.min():.6f}.."
+        f"{norms.max():.6f}; the first 8 alone vs in the 32: max |d| "
+        f"{d8:.3g} (limit {ATOL['bfloat16']}); TTA {ftta.shape}, norms "
+        f"{np.linalg.norm(ftta, axis=-1).min():.6f}")
+    if f32.shape != (32, clip.cfg.embed_dim) or not np.allclose(
+            norms, 1.0, atol=1e-4) or not d8 <= ATOL["bfloat16"]:
+        raise AssertionError("embeddings: shape, norm or batch invariance")
+    if ftta.shape != (8, clip.cfg.embed_dim) or not np.allclose(
+            np.linalg.norm(ftta, axis=-1), 1.0, atol=1e-4):
+        raise AssertionError("TTA embeddings: shape or norm")
+    out["embed"] = dict(shape=list(f32.shape), first8_max_diff=d8)
+
+    # (e) label swaps through the tokenizer (phase 9's merge table)
+    few = streams[:8]
+    kernels.reset_launches()
+    em.set_classes(names)
+    torch.cuda.synchronize()
+    text_launches = dict(kernels.LAUNCHES)
+    p0 = em.predict(few)["probs"]
+    em.set_classes(names[:50])
+    p50 = em.predict(few)["probs"]
+    em.set_classes(names)
+    p1 = em.predict(few)["probs"]
+    log(f"[{tag}] (e) set_classes: text tower launches {text_launches} a "
+        f"swap; {p0.shape} -> {p50.shape} -> {p1.shape}; back to the "
+        f"original names bit for bit: {np.array_equal(p0, p1)}")
+    if p50.shape != (8, 50) or not np.array_equal(p0, p1):
+        raise AssertionError("set_classes: shape, or the swap back changed "
+                             "the probabilities")
+    if text_launches != {"qkv_attention": clip.cfg.text.layers}:
+        raise AssertionError(f"text tower launches {text_launches}")
+    out["set_classes"] = dict(text_launches=text_launches)
+
+    # (g) StreamSession: one stream in 10 chunks
+    sess = StreamSession(pred)
+    for chunk in np.array_split(streams[0], 10):
+        sess.append(chunk)
+    rolling = sess.predict()
+    direct = pred.predict([sess.events()])
+    log(f"[{tag}] (g) StreamSession: {sess.n_events} events buffered of "
+        f"{len(streams[0])} (horizon {sess.horizon}); rolling == predict "
+        f"on the buffer: {np.array_equal(rolling['probs'], direct['probs'][0])}")
+    if not np.array_equal(rolling["probs"], direct["probs"][0]):
+        raise AssertionError("StreamSession differs from predict([buffer])")
+    del em
+    torch.cuda.empty_cache()
+
+    # (f) weight=: phase 9's trained FS checkpoint as .npz and .pth
+    fs = load_params(files["fs"])
+    classes = resolve_class_names(fs, data_root=files["tree"])
+    paths = sorted(glob.glob(os.path.join(files["tree"], "testing", "**",
+                                          "*.npy"), recursive=True))
+    folders = sorted(os.listdir(os.path.join(files["tree"], "testing")))
+    truth = np.array([folders.index(os.path.basename(os.path.dirname(p)))
+                      for p in paths])
+    events = [load_event_file(p) for p in paths]
+    bs = int(fs.get("val_batch_size", 64))
+    labels = {}
+    for fmt in ("npz", "pth"):
+        t0 = time.perf_counter()
+        fp = Predictor(fs, classes, weight=files[fmt],
+                       clip_ckpt=files["pt"], batch_size=bs, device=dev)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        labels[fmt] = fp.predict(events)["label"]
+        wall = time.perf_counter() - t0
+        del fp
+        torch.cuda.empty_cache()
+        correct = int((labels[fmt] == truth).sum())
+        log(f"[{tag}] (f) weight={os.path.basename(files[fmt])}: built in "
+            f"{build_s:.2f} s, {len(events)} streams in {wall:.2f} s; "
+            f"correct {correct} (phase 9(c): "
+            f"{int(trained_eval['probs_correct'])})")
+        if correct != int(trained_eval["probs_correct"]):
+            raise AssertionError(f"weight={fmt}: {correct} correct != phase "
+                                 f"9(c)'s {trained_eval['probs_correct']}")
+        out[f"weight_{fmt}"] = dict(correct=correct, build_s=build_s,
+                                    wall_s=wall)
+    if not np.array_equal(labels["npz"], labels["pth"]):
+        raise AssertionError(".npz and .pth served different labels")
+
+    # (h) the serve CLI: JSONL from a subprocess, then --embed_out (in
+    # this process: a second interpreter only repeats the start-up)
+    tmp = os.path.dirname(files["npz"])
+    argv = ["--params", files["fs"], "--weight", files["npz"],
+            "--clip_ckpt", files["pt"], "--data_root", files["tree"],
+            "--batch_size", str(bs), "--inputs",
+            os.path.join(files["tree"], "testing", "**", "*.npy")]
+    jsonl = os.path.join(tmp, "serve.jsonl")
+    emb = os.path.join(tmp, "serve_embed.npz")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "eventclip_tpu_torch.serve"]
+                   + argv + ["--out", jsonl], cwd=HERE, check=True,
+                   timeout=300, stdout=subprocess.DEVNULL)
+    cli_s = [time.perf_counter() - t0]
+    t0 = time.perf_counter()
+    serve_main(argv + ["--embed_out", emb])
+    torch.cuda.empty_cache()
+    cli_s.append(time.perf_counter() - t0)
+    with open(jsonl) as f:
+        recs = [json.loads(ln) for ln in f]
+    cli_labels = np.array([r["label"] for r in recs])
+    with np.load(emb) as z:
+        rows = z["embeddings"]
+        emb_paths = list(z["paths"])
+    log(f"[{tag}] (h) serve CLI: {len(recs)} JSONL lines in {cli_s[0]:.1f} "
+        f"s (labels equal (f)'s: {np.array_equal(cli_labels, labels['npz'])}"
+        f"); --embed_out {rows.shape} in {cli_s[1]:.1f} s, norms "
+        f"{np.linalg.norm(rows, axis=-1).min():.6f}..")
+    if len(recs) != len(paths) or [r["path"] for r in recs] != paths or \
+            not np.array_equal(cli_labels, labels["npz"]):
+        raise AssertionError("serve CLI JSONL differs from Predictor")
+    if rows.shape[0] != len(paths) or emb_paths != paths or not np.allclose(
+            np.linalg.norm(rows, axis=-1), 1.0, atol=1e-4):
+        raise AssertionError("serve CLI embeddings: rows or norms")
+    out["cli"] = dict(lines=len(recs), jsonl_s=cli_s[0], embed_s=cli_s[1])
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{tag}] phase 10 in {out['phase_s']:.1f} s")
+    return out, row, pruned_launches
 
 
 def main() -> int:
@@ -1283,7 +1664,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from eventclip_tpu_torch import kernels
+    from eventclip_tpu_torch import kernels, native
     from eventclip_tpu_torch.models.classifier import compute_text_features
     from eventclip_tpu_torch.models.clip.config import clip_arch_config
     from eventclip_tpu_torch.models.clip.model import init_clip_params
@@ -1410,8 +1791,13 @@ def main() -> int:
         ("1 x 5k", [synth_stream(rng, 5000)]),
     ]
     # the main path's run: the counts are zeroed here and read right after
-    # the timed requests, so they hold these requests' launches only
+    # the timed requests, so they hold these requests' launches only (the
+    # host half's calls into the native library too)
+    if not native.available():
+        raise AssertionError("the native host-ops library did not build or "
+                             f"load: {native.load_error()}")
     kernels.reset_launches()
+    native.reset_calls()
     per_request = {}
     for label, streams in requests:
         times, host = [], []
@@ -1435,7 +1821,9 @@ def main() -> int:
             "finite, rows sum to 1")
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    log(f"[3 main path] launches over the 9 timed requests {launches}")
+    native_calls = dict(native.CALLS)
+    log(f"[3 main path] launches over the 9 timed requests {launches}; "
+        f"native host-ops calls {native_calls}")
     for k in ("histogram", "qkv_attention"):
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"main path never launched the {k} kernel")
@@ -1491,8 +1879,15 @@ def main() -> int:
         if phase["profile"] is not None:
             phase["profile"].pop("rows", None)
 
-    # -- 9 ---------------------------------------------------------------
-    data, rec["cli"] = data_to_accuracy(dev, gen)
+    # -- 9, 10 -----------------------------------------------------------
+    # phase 10 serves from phase 9's files: one temporary directory
+    with tempfile.TemporaryDirectory() as tmp:
+        data, rec["cli"], files = data_to_accuracy(dev, gen, tmp)
+        options, pruned_row, pruned_launches = serving_options(
+            dev, gen, pred, clip, text_feats, names, requests[0][1],
+            native_calls, files, data["trained_eval"])
+    os.environ.pop("EVENTCLIP_BPE_PATH")
+    rec["serve_pruned"] = {"qkv_attention": pruned_row}
 
     sources = {
         "histogram": ("eventclip_tpu_torch/csrc/histogram.cu",
@@ -1509,7 +1904,8 @@ def main() -> int:
     # by_path holds each path's own row
     counts = {"serve": launches, "train": train_launches,
               "train_f32": train32_launches, "train_fs": train_fs_launches,
-              "cli": data["eval_cli"]["launches"]}
+              "cli": data["eval_cli"]["launches"],
+              "serve_pruned": pruned_launches}
     by_path = {p: {k: dict(launches=counts[p].get(k, 0), **r)
                    for k, r in recs.items()}
                for p, recs in rec.items() if p in counts}
@@ -1523,7 +1919,7 @@ def main() -> int:
         "rounding_orders": orders,
         "requests": per_request, "train": train, "update_card_vs_cpu": update,
         "train_f32": train32, "train_fs": train_fs, "randaugment": augment,
-        **data}
+        "serve_options": options, **data}
     log(json.dumps(line))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,12 @@ FTCLIP fine-tuning and FSCLIP few-shot training on one device
 backward kernel (csrc/attention_bwd.cu); and the path from files on disk
 to an accuracy: the dataset readers (`data.datasets`), the BPE tokenizer,
 OpenAI CLIP `.pt` and reference method `.pth` loading, and the train /
-test CLIs (`python -m eventclip_tpu_torch.cli.train` / `.cli.test`).
+test CLIs (`python -m eventclip_tpu_torch.cli.train` / `.cli.test`); and
+the rest of serving: the native host ops (`native`, a fused C++ pass built
+by g++ at first use, with the numpy path as the fallback), trained-weight
+serving, the W8A8 int8 tower (`ops.quant`), token pruning, embeddings,
+label swaps, `serve.StreamSession` and the offline serve CLI
+(`python -m eventclip_tpu_torch.serve`).
 
 Entry points run on the card (`device="cuda"`) unless the caller passes
 `device="cpu"`; on CPU tensors every kernel wrapper takes its plain PyTorch

@@ -8,23 +8,28 @@ unless --cpu is given:
         --clip_ckpt ViT-L-14.pt --data_root data/N-Caltech101 \
         [--weight ckpt.npz|ckpt.pth] [--N n] [--arch A] [--prompt P] \
         [--bs B] [--subset 1..9] [--train_shots K1 K2 ...] [--fp32]
+        [--int8 [--int8_calib NB]] [--prune_tokens K]
 
 - prints probs-based and logits-based top-1 (and top-5 on N-ImageNet);
 - `--train_shots` sweeps `<ckpt_base>/<cfg>[-dupX]-<K>shot/models/`
   (best.npz / best.pth preferred, else the latest model_<step>), averaging
   over seed-duplicated runs and printing a LaTeX-ready `&`-joined row;
-- `--subset` selects one of the 9 N-ImageNet robustness validation sets.
+- `--subset` selects one of the 9 N-ImageNet robustness validation sets;
+- `--int8` evaluates the W8A8 int8 visual tower (ops/quant.py), quantized
+  after each checkpoint loads; with `--int8_calib NB` its activation
+  scales are static, fitted on the float tower over the first NB val
+  batches; `--prune_tokens K` keeps the K highest-variance patches.
 
 Text features come from the config's prompt through the BPE tokenizer
 (EVENTCLIP_BPE_PATH, or bpe_simple_vocab_16e6.txt.gz under
-eventclip_tpu_torch/assets/). `--int8`, `--int8_calib` and
-`--prune_tokens` are ROADMAP item 3, `--n_model > 1` item 7: each is
-refused, never ignored.
+eventclip_tpu_torch/assets/). `--n_model > 1` is ROADMAP item 7: refused,
+never ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 from typing import Any, Dict, List, Optional
@@ -42,6 +47,8 @@ from ..models.classifier import (DEFAULT_PROMPT, build_classifier_config,
                                  init_classifier_params)
 from ..models.clip.config import clip_arch_config
 from ..ops.preprocess import ClipPreprocess
+from ..ops.quant import calibrate_visual_amax, quantize_classifier_params
+from ..ops.rasterize import rasterize_for_clip
 from ..utils.config import load_params
 from ..utils.meters import AverageMeter
 
@@ -69,20 +76,17 @@ def parse_args(argv: Optional[List[str]] = None):
     parser.add_argument("--fp32", action="store_true",
                         help="run activations in f32 instead of bf16")
     parser.add_argument("--int8", action="store_true",
-                        help="W8A8 int8 tower (not ported: ROADMAP item 3)")
+                        help="W8A8 int8 visual tower (inference only)")
     parser.add_argument("--int8_calib", type=int, default=0,
-                        help="static int8 scales (not ported: ROADMAP "
-                        "item 3)")
+                        help="with --int8: static activation scales from "
+                        "the first N val batches (0: dynamic per-token)")
     parser.add_argument("--prune_tokens", type=int, default=0,
-                        help="ViT token pruning (not ported: ROADMAP "
-                        "item 3)")
+                        help="keep the K highest-variance ViT patches "
+                        "(0: all)")
     return parser.parse_args(argv)
 
 
 def refuse_unported(args) -> None:
-    if args.int8 or args.int8_calib > 0 or args.prune_tokens > 0:
-        raise SystemExit("--int8, --int8_calib and --prune_tokens are not "
-                         "ported yet (ROADMAP item 3, serving options)")
     if args.n_model > 1:
         raise SystemExit("--n_model > 1 (tensor parallelism) is not ported "
                          "yet (ROADMAP item 7, multi-GPU)")
@@ -144,6 +148,8 @@ def build_eval_context(params, args) -> Dict[str, Any]:
     sync_device(device)
     t1 = time.perf_counter()
     cls_cfg = snapshot_logit_scale(cls_cfg, clip, pretrained)
+    if args.prune_tokens > 0:
+        cls_cfg = dataclasses.replace(cls_cfg, keep_tokens=args.prune_tokens)
     text_feats = build_text_features(
         clip, clip_cfg, val_set.classes,
         params.clip_dict.get("prompt", DEFAULT_PROMPT), pretrained)
@@ -174,6 +180,33 @@ def build_eval_context(params, args) -> Dict[str, Any]:
     }
 
 
+def quantized_template(args, ctx):
+    """The int8 copy of ctx's template, as it holds the checkpoint just
+    loaded (the float template stays for the next one of a sweep). With
+    --int8_calib NB, static activation scales: the max-abs per (layer,
+    site) over the first NB val batches through the FLOAT tower (LoRA
+    deltas left out of the pass, as in the JAX package)."""
+    template, cls_cfg = ctx["template"], ctx["cls_cfg"]
+    act_amax = None
+    if args.int8_calib > 0:
+        spec, pp = ctx["raster"]
+        for i, batch in enumerate(ctx["loader"]):
+            if i >= args.int8_calib:
+                break
+            with torch.no_grad():
+                imgs = rasterize_for_clip(spec, pp, torch.from_numpy(
+                    batch["windows"]).to(ctx["device"]))
+            a = calibrate_visual_amax(
+                template.clip.visual,
+                imgs.reshape((-1,) + tuple(imgs.shape[-3:])),
+                dtype=cls_cfg.dtype)
+            act_amax = a if act_amax is None else torch.maximum(act_amax, a)
+    try:
+        return quantize_classifier_params(template, act_amax=act_amax)
+    except ValueError as e:
+        raise SystemExit(f"--int8: {e}") from None
+
+
 def evaluate(params, args, weight: str = "", printing: bool = True,
              ctx=None):
     """(probs top-1, logits top-1) over the val set. A --train_shots sweep
@@ -190,6 +223,10 @@ def evaluate(params, args, weight: str = "", printing: bool = True,
     else:
         assert params.model == "ZSCLIP", "non-ZS evaluation needs --weight"
     device, eval_step, top5 = ctx["device"], ctx["eval_step"], ctx["top5"]
+    if args.int8:
+        eval_step = make_eval_step(ctx["cls_cfg"], quantized_template(args,
+                                                                      ctx),
+                                   top5=top5, pipeline=ctx["raster"])
 
     def prep(batch):
         dev = {k: v for k, v in batch.items()

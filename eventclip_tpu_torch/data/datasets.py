@@ -18,8 +18,9 @@ Few-shot split assets: the reference's pickled splits, carried as json.gz
 files under this package's own assets/splits/<ClassName>/
 <K>shot-repeat=<bool>.json.gz (a relative event path -> its integer
 label), byte-equal to the JAX package's copies, so published few-shot
-protocols reproduce exactly. N-ImageNet archives decode on the numpy path;
-the JAX package's native decode is ROADMAP item 2.
+protocols reproduce exactly. N-ImageNet archives decode in one native
+pass when the host-ops library loads (eventclip_tpu_torch/native), else on
+the bit-identical numpy path.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from .host_ops import prepare_stream
 
 ASSETS_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "assets")
@@ -276,14 +278,18 @@ def load_event_npz(event_path: str) -> np.ndarray:
     Column-wise decode straight into the float32 layout the pipeline
     consumes, bit-identical to the reference chain (stack -> float64 ->
     µs/1e6 -> ±1 remap -> float32 downcast; t runs through the same
-    float64 divide before the downcast)."""
+    float64 divide before the downcast). One fused native pass
+    (native.decode_struct) when the library is loadable."""
     event = _read_npz_member(event_path, "event_data.npy")
     if event is None:
         event = np.load(event_path)["event_data"]
     if len(event) == 0:
-        # keep corrupt archives loud (the JAX package's native decode would
-        # return a (0, 4) array)
+        # keep corrupt archives loud on both routes: the native pass would
+        # silently return a (0, 4) array
         raise ValueError(f"empty event_data in {event_path}")
+    dec = native.decode_struct(event)
+    if dec is not None:
+        return dec
     out = np.empty((len(event), 4), np.float32)
     out[:, 0] = event["x"]
     out[:, 1] = event["y"]

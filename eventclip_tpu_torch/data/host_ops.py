@@ -1,12 +1,14 @@
-"""Host-side event array operations (numpy).
+"""Host-side event array operations.
 
 O(n) index arithmetic over raw event streams stays on the host; all O(H*W)
 image work runs on the card (eventclip_tpu_torch.ops). The host only ships
 the selected windows -- [T, N, 3] int16 per sample -- to the device.
 
-Port of eventclip_tpu/data/host_ops.py, numpy path only: the JAX package
-also dispatches to a native C++ library that is bit-identical to these
-functions; a binding of it is later work.
+Port of eventclip_tpu/data/host_ops.py. The numpy functions below are the
+behavioral reference; the hot per-item entry points (prepare_stream,
+tta_variants, gather_event_windows) dispatch to the fused native C++
+library (eventclip_tpu_torch/native) when it is available,
+bit-identically (tests/test_torch_native.py).
 
 Behavioral contracts (reference):
 - center_events            datasets/utils.py:38-57
@@ -22,6 +24,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from .. import native
 from ..ops.windows import event_count_windows
 
 
@@ -115,12 +118,18 @@ def prepare_stream(
     flip_time: bool = False,
     max_shift: int = 0,
 ) -> np.ndarray:
-    """center_events (+ the training augmentations) in one call.
-
-    Never mutates `events`; the augmentation draws come from
-    `draw_augment`."""
+    """center_events (+ the training augmentations) in one call: the fused
+    native pass (one pass, GIL released) when the library is available,
+    else the numpy ops above, bit-identically. Never mutates `events`; the
+    augmentation draws come from `draw_augment`."""
     if augment:
         tflip, dx, dy, hflip = draw_augment(rng, flip_time, max_shift)
+    if native.available():
+        if not augment:
+            return native.transform_events(events, resolution, center=True)
+        return native.transform_events(
+            events, resolution, center=True, tflip=tflip, shift=(dx, dy),
+            hflip=hflip)
     events = center_events(events.astype(np.float32, copy=True), resolution)
     if not augment:
         return events
@@ -136,7 +145,15 @@ def tta_variants(
     events: np.ndarray, resolution: Tuple[int, int]
 ) -> Tuple[np.ndarray, ...]:
     """The 4-way TTA family (id, h-flip, t-flip, h+t-flip) of an
-    already-centered stream (reference datasets/event2img.py:94-112)."""
+    already-centered stream (reference datasets/event2img.py:94-112).
+    h-flip and t-flip touch disjoint columns, so the native pass's
+    tflip-then-hflip order is bit-identical to tflip(hflip(.))."""
+    if native.available():
+        tr = native.transform_events
+        return (events,
+                tr(events, resolution, hflip=True),
+                tr(events, resolution, tflip=True),
+                tr(events, resolution, tflip=True, hflip=True))
     h = hflip_events(events.copy(), resolution=resolution, p=1.0)
     # hflip mutates in place (hence the copy); tflip at p=1 always returns
     # a fresh array, so its inputs need no defensive copy
@@ -184,6 +201,9 @@ def gather_event_windows(
         spans = [spans[i] for i in sel]
     valid = np.zeros((num_views,), dtype=bool)
     valid[: len(spans)] = True
+    if native.available():
+        return native.pack_spans(events, spans, num_views, window,
+                                 packed=packed), valid
     if packed:
         out = np.zeros((num_views, window, 3), dtype=np.int16)
         for i, (a, b) in enumerate(spans):

@@ -55,6 +55,10 @@ class ClassifierConfig:
     use_probs_loss: bool = False
     dtype: torch.dtype = torch.float32  # visual tower activations
     remat: bool = False  # recompute transformer blocks in the backward (FT)
+    # eval-time ViT token pruning: keep the K highest-variance patches
+    # (sparse event frames are mostly uniform background); None = full
+    # sequence. Ignored during training.
+    keep_tokens: Optional[int] = None
 
     def __post_init__(self):
         assert self.model in ("ZSCLIP", "FSCLIP", "FTCLIP"), self.model
@@ -259,7 +263,8 @@ def _encode_views(params: ClassifierParams, cfg: ClassifierConfig,
     with torch.set_grad_enabled(trains_tower and torch.is_grad_enabled()):
         return encode_image(
             params.clip.visual, flat_imgs, dtype=cfg.dtype, lora=params.lora,
-            remat=cfg.remat and trains_tower and train).float()
+            remat=cfg.remat and trains_tower and train,
+            keep_tokens=None if train else cfg.keep_tokens).float()
 
 
 def classifier_forward(params: ClassifierParams, cfg: ClassifierConfig,

@@ -18,8 +18,12 @@ matmul is rounded to bf16 before it reaches the f32 master weight.
 body). LoRA deltas are [L, ...]-stacked like the JAX package's
 (`init_lora_params`), applied in the attention as (x A^T) B^T.
 
-`keep_tokens` pruning, int8 `qdense` and tensor parallelism come in later
-slices.
+Inference options, as the JAX package's: `keep_tokens` prunes the patch
+sequence to its highest-variance patches before the tower; a tower whose
+weights were quantized by ops/quant.py runs its products through `qdense`
+(`dense` dispatches on the `QWeight`); a calibration copy holding
+`AmaxRecorder`s in their place notes the max-abs of those products'
+inputs. Tensor parallelism is ROADMAP item 7.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import fused_qkv_attention
+from ...ops.quant import AmaxRecorder, QWeight, qdense
 from .config import CLIPConfig, TextConfig, VisionConfig
 
 
@@ -67,17 +72,23 @@ class _DenseF32Acc(torch.autograd.Function):
         return gx, gw, gb
 
 
-def dense(x: torch.Tensor, w: torch.Tensor,
-          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
+          ) -> torch.Tensor:
     """x @ w.T + b; w is [out, in]. The product of x and w rounded to x's
     dtype, accumulated in f32, plus the f32 bias, rounded once to x's
-    dtype: the JAX package's `dense`.
+    dtype: the JAX package's `dense`. An int8 `QWeight` (ops/quant.py)
+    takes the W8A8 product, `qdense`; an `AmaxRecorder` notes max |x| and
+    takes the float product.
 
     On CUDA a bf16 product writes its f32 accumulator (`out_dtype`) with the
     bias added there. The CPU has no such matmul; there the f32 product of
     the rounded operands is the same sum, since a product of two bf16
     values is exact in f32, and autograd through the casts gives JAX's
     gradient rules."""
+    if isinstance(w, QWeight):
+        return qdense(x, w, b)
+    if isinstance(w, AmaxRecorder):
+        w = w.see(x)
     w = w.to(x.dtype)
     if x.dtype == torch.float32:
         return F.linear(x, w, b)
@@ -269,11 +280,28 @@ class CLIP(nn.Module):
         self.logit_scale = _param((), device=device)
 
 
+def prune_patches(x: torch.Tensor, keep_tokens: int) -> torch.Tensor:
+    """[B, P, F] dtype-rounded patches -> [B, K] indices of the K
+    highest-variance patches, in raster order. The score is the population
+    variance in f32 (JAX `var`, ddof 0). Event frames are mostly uniform
+    background, so ties at the cut are the normal case; among equal scores
+    the lowest index wins, as in `jax.lax.top_k` (a stable descending
+    sort, where `torch.topk` leaves the order of ties unspecified)."""
+    score = x.float().var(dim=-1, correction=0)
+    order = torch.sort(score, dim=-1, descending=True, stable=True).indices
+    return torch.sort(order[:, :keep_tokens], dim=-1).values
+
+
 def encode_image(visual: VisionTower, images: torch.Tensor, *,
                  dtype: torch.dtype = torch.float32,
                  lora: Optional[LoRA] = None,
-                 remat: bool = False) -> torch.Tensor:
-    """[B, 3, H, W] CLIP-normalized images -> [B, output_dim] f32 features."""
+                 remat: bool = False,
+                 keep_tokens: Optional[int] = None) -> torch.Tensor:
+    """[B, 3, H, W] CLIP-normalized images -> [B, output_dim] f32 features.
+
+    keep_tokens=K (eval-time, opt-in) keeps the K highest-variance patches
+    (`prune_patches`), each with its own positional embedding, in raster
+    order; K = grid² reproduces the full forward."""
     cfg = visual.cfg
     B = images.shape[0]
     ps, g, D = cfg.patch_size, cfg.grid, cfg.width
@@ -282,7 +310,13 @@ def encode_image(visual: VisionTower, images: torch.Tensor, *,
     x = x.reshape(B, 3, g, ps, g, ps).permute(0, 2, 4, 1, 3, 5)
     x = x.reshape(B, g * g, 3 * ps * ps)
     pos = visual.positional_embedding.to(dtype)
-    x = dense(x, visual.patch_embed) + pos[1:][None]
+    if keep_tokens is not None and keep_tokens < g * g:
+        idx = prune_patches(x, keep_tokens)
+        x = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+        pos_tok = pos[1:][idx]  # [B, K, D]: embeddings follow their patches
+    else:
+        pos_tok = pos[1:][None]
+    x = dense(x, visual.patch_embed) + pos_tok
     cls = (visual.class_embedding.to(dtype) + pos[0]).expand(B, 1, D)
     x = torch.cat([cls, x], dim=1)
     x = layer_norm(x, visual.ln_pre)

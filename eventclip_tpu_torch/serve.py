@@ -1,13 +1,25 @@
 """Batch inference API: raw event streams -> class predictions, on the card.
 
-Port of eventclip_tpu/serve.py::Predictor (zero-shot): window gathering on
-the host -> histogram kernel, frame finish and CLIP preprocess on the
-device -> CLIP ViT (fused-qkv attention kernel) -> aggregation against
-text features. Requests of any size are cut into chunks of the batch size
-(the tail padded), and chunks with idle view slots run view-PACKED at one
-of 4 bucketed view counts, so short streams never pay for empty encodes.
-`tta=True` averages the probabilities over the 4 event-TTA variants
-(identity, h-flip, t-flip, both).
+Port of eventclip_tpu/serve.py: window gathering on the host (the native
+host-ops library when it loads) -> histogram kernel, frame finish and CLIP
+preprocess on the device -> CLIP ViT (fused-qkv attention kernel) ->
+aggregation against text features. Requests of any size are cut into
+chunks of the batch size (the tail padded), and chunks with idle view
+slots run view-PACKED at one of 4 bucketed view counts, so short streams
+never pay for empty encodes.
+
+Options, as the JAX package's:
+- `weight=`: serve a trained FS/FT checkpoint (`.npz` of either package,
+  or the reference's `.pth`); trainable models refuse to serve without one;
+- `int8=True`: the W8A8 int8 visual tower (ops/quant.py), dynamic
+  per-token activation scales, or static ones calibrated on
+  `int8_calib_streams` through the production windowing;
+- `prune_tokens=K`: keep the K highest-variance patches of each view;
+- `tta=True`: probabilities averaged over the 4 event-TTA variants
+  (identity, h-flip, t-flip, both);
+- `embed=True` + `embed()`: one L2-normalized CLIP feature per stream;
+- `set_classes()`: swap the label set at run time (one text-tower pass);
+- `StreamSession`: a rolling prediction over a live stream's newest events.
 
 Example:
     from eventclip_tpu_torch.serve import Predictor
@@ -17,30 +29,37 @@ Example:
 
 Released CLIP weights load from `clip_ckpt` (an OpenAI `.pt` or a
 converted `.npz`); without `text_feats`, the config's prompt goes through
-the BPE tokenizer and the text tower. Later slices (ROADMAP item 3):
-`weight=`, `embed`, `set_classes`, `StreamSession`, int8, token pruning,
-data parallelism.
+the BPE tokenizer and the text tower. Offline batch inference over files:
+`python -m eventclip_tpu_torch.serve --help`. Data parallelism over
+several cards is ROADMAP item 7 and frozen export bundles item 6: both are
+refused, never ignored.
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
+import threading
 import zlib
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
-from .data.datasets import DATASET_CLASSES
+from .data.datasets import DATASET_CLASSES, build_dataset, load_event_npz
 from .data.event_windows import parse_quantize_args
 from .data.host_ops import gather_event_windows, prepare_stream, tta_variants
 from .data.loader import eval_pack_buckets, pack_view_batch
+from .engine.checkpoint import load_checkpoint
 from .engine.trainer import (build_text_features, copy_clip,
                              resolve_clip_params, snapshot_logit_scale)
-from .models.classifier import (DEFAULT_PROMPT, ClassifierParams,
-                                build_classifier_config, classifier_forward,
-                                classifier_forward_packed)
+from .models.classifier import (DEFAULT_PROMPT, build_classifier_config,
+                                classifier_forward, classifier_forward_packed,
+                                init_classifier_params, normalize)
 from .models.clip.config import clip_arch_config
 from .ops.preprocess import ClipPreprocess
+from .ops.quant import calibrate_visual_amax, quantize_classifier_params
 from .ops.rasterize import RasterSpec, rasterize_for_clip
 from .utils.config import load_params
 
@@ -48,6 +67,7 @@ from .utils.config import load_params
 class Predictor:
     """Event-stream classifier on one device (see module docstring).
 
+    weight: a trained checkpoint for FS/FT configs (required for them).
     clip_ckpt: released CLIP weights (an OpenAI `.pt` or a converted
         `.npz`; the config's `clip_ckpt` when omitted): pretrained towers,
         whose logit scale replaces the config's.
@@ -66,15 +86,33 @@ class Predictor:
         params,
         class_names: Sequence[str],
         *,
+        weight: str = "",
         clip_ckpt=None,
         clip_params=None,
         text_feats=None,
         smoke: bool = False,
+        int8: bool = False,
+        int8_calib_streams: Optional[Sequence[Any]] = None,
+        prune_tokens: int = 0,
         batch_size: int = 32,
+        data_parallel: bool = False,
         pack_views: bool = True,
         tta: bool = False,
+        embed: bool = False,
         device="cuda",
     ):
+        if data_parallel:
+            raise NotImplementedError(
+                "data_parallel=True (batches sharded over several cards) is "
+                "not ported yet (ROADMAP item 7, multi-GPU)")
+        # trainable models served without a checkpoint would classify with
+        # random adapter/LoRA/prompt weights (the eval CLI's rule too)
+        if params.model != "ZSCLIP" and not weight:
+            raise ValueError(
+                f"{params.model} has trainable weights; pass weight=<ckpt> "
+                "(serving it untrained would return random-adapter garbage). "
+                "Only ZSCLIP may be served without a checkpoint."
+            )
         self.device = torch.device(device)
         self.class_names = list(class_names)
         self.batch_size = int(batch_size)
@@ -93,8 +131,11 @@ class Predictor:
         dtype = torch.bfloat16 if bool(params.get("bf16", True)) \
             else torch.float32
         self._cfg = build_classifier_config(params, clip_cfg, dtype=dtype)
+        if prune_tokens > 0:
+            self._cfg = dataclasses.replace(self._cfg,
+                                            keep_tokens=int(prune_tokens))
+        gen = torch.Generator(device=self.device).manual_seed(0)
         if clip_params is None:
-            gen = torch.Generator(device=self.device).manual_seed(0)
             clip, pretrained = resolve_clip_params(
                 params, clip_cfg, gen, clip_ckpt, smoke=smoke,
                 device=self.device)
@@ -102,24 +143,47 @@ class Predictor:
             clip, pretrained = copy_clip(clip_params, clip_cfg,
                                          self.device), False
         self._cfg = snapshot_logit_scale(self._cfg, clip, pretrained)
+        # kept for set_classes (a label swap re-prompts the text tower)
+        self._prompt = params.clip_dict.get("prompt", DEFAULT_PROMPT)
+        self._pretrained = pretrained
         if text_feats is None:
             text_feats = build_text_features(
-                clip, clip_cfg, self.class_names,
-                params.clip_dict.get("prompt", DEFAULT_PROMPT), pretrained)
-        self._params = ClassifierParams(clip, torch.as_tensor(
-            np.array(text_feats, dtype=np.float32)
-            if isinstance(text_feats, np.ndarray) else text_feats,
-            dtype=torch.float32))
+                clip, clip_cfg, self.class_names, self._prompt, pretrained)
+        elif isinstance(text_feats, np.ndarray):
+            text_feats = np.array(text_feats, dtype=np.float32)  # writable
+        model_params = init_classifier_params(
+            self._cfg, gen, clip=clip, text_feats=text_feats,
+            device=self.device)
         self._pp = ClipPreprocess(in_height=ds.resolution[0],
                                   in_width=ds.resolution[1],
                                   image_size=clip_cfg.vision.image_size)
+        if weight:
+            load_checkpoint(weight, target=model_params)
+        if int8:
+            act_amax = None
+            if int8_calib_streams is not None and len(int8_calib_streams):
+                # static activation scales fitted on the FLOAT tower over
+                # the given streams, windowed and rasterized as traffic is
+                wins, _ = self.gather_windows(list(int8_calib_streams))
+                w = torch.from_numpy(wins).to(self.device)
+                with torch.no_grad():
+                    imgs = rasterize_for_clip(
+                        self._spec, self._pp,
+                        w.reshape((-1,) + tuple(w.shape[-2:])))
+                act_amax = calibrate_visual_amax(
+                    model_params.clip.visual, imgs, dtype=dtype)
+            model_params = quantize_classifier_params(model_params,
+                                                      act_amax=act_amax)
+        self._params = model_params
+        self._embed = bool(embed)
         self._buckets = (eval_pack_buckets(self.batch_size, self.views, 1)
                          if pack_views else None)
 
     # -- host half -----------------------------------------------------------
 
-    def _prep(self, events: np.ndarray) -> tuple:
-        """Validate + canonicalize one stream -> (centered events, rng)."""
+    def _canonical(self, events: np.ndarray) -> tuple:
+        """Validate one stream -> (an own float32 copy with ±1 polarity,
+        the rng seeded from its content)."""
         # own copy: the polarity remap below is in place and must never
         # mutate the caller's array (or the content hash)
         events = np.array(events, dtype=np.float32, copy=True)
@@ -140,6 +204,11 @@ class Predictor:
         rng = np.random.default_rng(
             zlib.crc32(np.ascontiguousarray(events).tobytes())
         )
+        return events, rng
+
+    def _prep(self, events: np.ndarray) -> tuple:
+        """Validate + canonicalize + center one stream -> (events, rng)."""
+        events, rng = self._canonical(events)
         return prepare_stream(events, self.resolution), rng
 
     def _windows(self, events: np.ndarray) -> tuple:
@@ -209,7 +278,7 @@ class Predictor:
         return self.finalize(probs, top_k)
 
     def _run_chunked(self, wins: np.ndarray, valids: np.ndarray,
-                     dispatch) -> np.ndarray:
+                     dispatch, pack: bool = True) -> np.ndarray:
         """Split into batch-size chunks (padding the tail), place + run
         each, concatenate the per-row outputs (one host fetch at the end)."""
         bs = self.batch_size
@@ -222,15 +291,15 @@ class Predictor:
                     [w, np.zeros((pad,) + w.shape[1:], w.dtype)])
                 v = np.concatenate(
                     [v, np.zeros((pad,) + v.shape[1:], bool)])
-            out.append(dispatch(self._place_chunk(w, v))[: bs - pad])
+            out.append(dispatch(self._place_chunk(w, v, pack))[: bs - pad])
         return torch.cat(out).cpu().numpy()[: len(wins)]
 
-    def _place_chunk(self, wins: np.ndarray, valids: np.ndarray
-                     ) -> Dict[str, torch.Tensor]:
+    def _place_chunk(self, wins: np.ndarray, valids: np.ndarray,
+                     pack: bool = True) -> Dict[str, torch.Tensor]:
         """One [batch_size, V, ...] host chunk -> device batch (view-packed
-        when a bucket fits)."""
+        when a bucket fits; pack=False keeps it padded, as embed runs)."""
         batch = {"windows": wins, "valid_mask": valids}
-        if self._buckets:
+        if pack and self._buckets:
             batch = pack_view_batch(batch, self._buckets)
         return {k: torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
                 for k, x in batch.items()}
@@ -251,10 +320,22 @@ class Predictor:
     def _dispatch_chunk(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         return self._forward(batch)["probs"]
 
+    @torch.inference_mode()
+    def _embed_chunk(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Padded chunk -> [B, C] embeddings: the per-view features at the
+        text-matmul point, normalized (ZS features arrive raw), zeroed where
+        the view is padding, averaged over the valid views, re-normalized."""
+        valid = batch["valid_mask"]
+        out = self._forward(batch)
+        f = normalize(out["view_feats"]) * valid[..., None]
+        n = valid.sum(-1, keepdim=True).clamp(min=1)
+        return normalize(f.sum(1) / n)
+
     def warm_up(self) -> None:
         """Run every encoder shape a request can select once (one per
-        packing bucket, or the padded one), so kernel builds, library
-        initialization and allocator growth happen before traffic."""
+        packing bucket, or the padded one; with embed=True also the padded
+        embed program), so allocator growth and library initialization
+        happen before traffic."""
         rng = np.random.default_rng(0)
         bs, budget, n = self.batch_size, self.views, self.window
         h, w = self.resolution
@@ -273,6 +354,9 @@ class Predictor:
         targets = [min(k, total) for k in (self._buckets or [total])]
         for want in targets:
             self._dispatch_chunk(self._place_chunk(*chunk(want))).cpu()
+        if self._embed:
+            self._embed_chunk(self._place_chunk(*chunk(total),
+                                                pack=False)).cpu()
 
     def finalize(self, probs: np.ndarray, top_k: int = 1) -> Dict[str, Any]:
         """Per-variant-row probabilities -> the prediction dict. With TTA,
@@ -290,8 +374,316 @@ class Predictor:
             "topk": topk,
         }
 
+    def embed(self, event_streams: List[np.ndarray]) -> np.ndarray:
+        """Raw event streams -> [B, C] L2-normalized CLIP features: the mean
+        of the per-view features; with tta=True also the mean over the 4
+        variants, re-normalized. Requires embed=True at construction."""
+        if not self._embed:
+            raise RuntimeError(
+                "Predictor was built without embed=True — the embeddings "
+                "program is opt-in"
+            )
+        if not len(event_streams):
+            dim = int(self._params.text_feats.shape[-1])
+            return np.zeros((0, dim), np.float32)
+        wins, valids = self.gather_windows(event_streams)
+        return self.embed_windows(wins, valids)
+
+    def embed_windows(self, wins: np.ndarray, valids: np.ndarray
+                      ) -> np.ndarray:
+        """Device phase of embed() on pre-gathered windows, always on the
+        padded program (no view packing), as the JAX package's."""
+        if not self._embed:
+            raise RuntimeError("Predictor was built without embed=True")
+        feats = self._run_chunked(wins, valids, self._embed_chunk,
+                                  pack=False).astype(np.float32)
+        if self.tta:  # [B*4, C] variant rows -> mean per stream, re-norm
+            feats = feats.reshape(-1, 4, feats.shape[-1]).mean(axis=1)
+            feats /= np.maximum(
+                np.linalg.norm(feats, axis=-1, keepdims=True), 1e-12)
+        return feats
+
+    def set_classes(self, class_names: Sequence[str]) -> None:
+        """Swap the label set at run time: the class head is a product with
+        prompted text features, so new labels need one text-tower pass.
+        Refused for prompt-tuned checkpoints, whose text features are
+        trained parameters. Not synchronized with concurrent predict()
+        calls: callers serialize."""
+        if self._cfg.prompt_tuning:
+            raise ValueError(
+                "this checkpoint prompt-tunes its text features (trained "
+                "parameters); swapping class names would discard the "
+                "tuning — rebuild a Predictor with a matching checkpoint"
+            )
+        names = [str(n) for n in class_names]
+        if not names:
+            raise ValueError("class_names must be non-empty")
+        feats = build_text_features(self._params.clip, self._cfg.clip, names,
+                                    self._prompt, self._pretrained)
+        # a copy: features made under inference_mode never become a
+        # parameter themselves
+        self._params.text_feats = nn.Parameter(
+            feats.to(self.device, torch.float32).clone(),
+            requires_grad=False)
+        self.class_names = names
+
     @classmethod
     def from_config(cls, config_path: str, class_names: Sequence[str],
                     **kwargs) -> "Predictor":
         """Build from an experiment config file (the CLIs' --params)."""
         return cls(load_params(config_path), class_names, **kwargs)
+
+
+class StreamSession:
+    """Online sliding-window classification over a live event stream.
+
+    `append` events as they arrive (any chunking), ask for a rolling
+    `predict` at any time. The session keeps the most recent `horizon`
+    events (default view budget x window, the events the eval path can see
+    per sample) in a ring buffer, and prediction routes the buffer through
+    the unchanged Predictor path, so a session's answer over its buffer
+    equals `Predictor.predict([buffer])`. append/predict/reset are
+    thread-safe; one session is one logical stream (one per sensor).
+    """
+
+    def __init__(self, predictor: Predictor, horizon: Optional[int] = None):
+        self._pred = predictor
+        self._horizon = int(horizon if horizon is not None
+                            else predictor.views * predictor.window)
+        if self._horizon < predictor.window:
+            raise ValueError(
+                f"horizon {self._horizon} is smaller than one window "
+                f"({predictor.window} events) — no prediction could ever "
+                "see a full view"
+            )
+        self._chunks: "collections.deque[np.ndarray]" = collections.deque()
+        self._n = 0
+        self._lock = threading.Lock()
+
+    @property
+    def n_events(self) -> int:
+        return self._n
+
+    @property
+    def horizon(self) -> int:
+        return self._horizon
+
+    def append(self, events: np.ndarray) -> int:
+        """Buffer a chunk of [n, 4] x/y/t/p events (chronological across
+        appends); returns the buffered event count after trimming to the
+        horizon. Empty chunks are fine (a quiet sensor interval)."""
+        events = np.asarray(events, dtype=np.float32)
+        if events.size == 0:
+            # a quiet interval arrives as [] / [[]] from JSON decoders
+            events = events.reshape(0, 4)
+        if events.ndim != 2 or events.shape[1] != 4:
+            raise ValueError(
+                f"expected [n, 4] x/y/t/p events, got {events.shape}"
+            )
+        with self._lock:
+            if events.shape[0]:
+                # own copy: the caller may reuse its buffer
+                self._chunks.append(np.array(events, copy=True))
+                self._n += len(events)
+                while self._n > self._horizon:
+                    extra = self._n - self._horizon
+                    head = self._chunks[0]
+                    if len(head) <= extra:
+                        self._chunks.popleft()
+                        self._n -= len(head)
+                    else:
+                        self._chunks[0] = head[extra:]
+                        self._n -= extra
+            return self._n
+
+    def events(self) -> np.ndarray:
+        """Snapshot of the buffered (most recent <= horizon) events."""
+        with self._lock:
+            if not self._n:
+                return np.empty((0, 4), np.float32)
+            return np.concatenate(self._chunks)
+
+    def predict(self, top_k: int = 1) -> Dict[str, Any]:
+        """Rolling prediction over the buffered events: the single-stream
+        slice of Predictor.predict's dict plus 'n_events'."""
+        snap = self.events()
+        if not len(snap):
+            raise ValueError(
+                "empty session — append events before predict() (an idle "
+                "sensor window has no defined prediction)"
+            )
+        out = self._pred.predict([snap], top_k=top_k)
+        return {
+            "label": int(out["label"][0]),
+            "name": out["names"][0],
+            "probs": out["probs"][0],
+            "topk": out["topk"][0],
+            "n_events": int(len(snap)),
+        }
+
+    def reset(self) -> None:
+        """Drop the buffer (e.g. on scene change); the session stays usable."""
+        with self._lock:
+            self._chunks.clear()
+            self._n = 0
+
+
+def load_event_file(path: str) -> np.ndarray:
+    """One raw sensor dump -> [n, 4] float32 events.
+
+    .npy = a plain array (N-Caltech/N-Cars layout); .npz = the structured
+    N-ImageNet layout (data.datasets.load_event_npz) or a plain `np.savez`
+    dump holding a single [n, 4] array under any key."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            keys = list(z.files)
+            if "event_data" not in keys:
+                if (len(keys) == 1 and z[keys[0]].ndim == 2
+                        and z[keys[0]].shape[1] == 4):
+                    return z[keys[0]].astype(np.float32)
+                raise ValueError(
+                    f"unrecognized npz layout (keys {keys}): expected the "
+                    "N-ImageNet 'event_data' structured array or a single "
+                    "[n, 4] array"
+                )
+        return load_event_npz(path)  # already float32
+    return np.load(path).astype(np.float32)
+
+
+def resolve_class_names(params, classes_file: str = "",
+                        data_root: str = "") -> List[str]:
+    """Class names for the prompt head, without a dataset tree when a file
+    is given: one name per line in `classes_file`, else the class list of
+    the config's dataset rooted at `data_root` (the eval CLI's folder
+    listing and rename tables). Port of eventclip_tpu/server.py's."""
+    if classes_file:
+        with open(classes_file) as f:
+            names = [ln.strip() for ln in f if ln.strip()]
+        if not names:
+            raise ValueError(f"no class names in {classes_file}")
+        return names
+    if data_root:
+        params.data_root = data_root
+        return list(build_dataset(params, val_only=True).classes)
+    raise ValueError("pass --classes <file> or --data_root <dataset dir> "
+                     "to define the label space")
+
+
+def main(argv=None) -> None:
+    """Offline batch inference: classify a folder/glob of raw event dumps
+    without a dataset tree, checkpoint sweep, or HTTP server.
+
+        python -m eventclip_tpu_torch.serve --params <cfg> \\
+            --classes names.txt --inputs 'dumps/**/*.npy' \\
+            --out predictions.jsonl [--weight ckpt] [--int8] [--cpu] ...
+
+    Writes one JSON line per input: {"path", "label", "name", "topk",
+    "topk_names"} (+"probs" with --probs), in input order; with
+    --embed_out, one npz (paths [N], embeddings [N, C]) instead. Runs on
+    the card unless --cpu is given.
+    """
+    import argparse
+    import glob as globlib
+    import json
+    import sys
+
+    ap = argparse.ArgumentParser(
+        description="Offline batch inference over a glob of event dumps.")
+    ap.add_argument("--params", default="")
+    ap.add_argument("--from_export", default="",
+                    help="frozen export bundle (not ported: ROADMAP item 6)")
+    ap.add_argument("--inputs", required=True,
+                    help="glob of .npy/.npz event dumps (quote it)")
+    ap.add_argument("--out", default="-",
+                    help="output JSONL path (default: stdout)")
+    ap.add_argument("--weight", default="")
+    ap.add_argument("--classes", default="")
+    ap.add_argument("--data_root", default="")
+    ap.add_argument("--clip_ckpt", default="")
+    ap.add_argument("--batch_size", type=int, default=32)
+    ap.add_argument("--top_k", type=int, default=5)
+    ap.add_argument("--probs", action="store_true",
+                    help="include the full probability row per input")
+    ap.add_argument("--int8", action="store_true")
+    ap.add_argument("--prune_tokens", type=int, default=0)
+    ap.add_argument("--data_parallel", action="store_true",
+                    help="shard batches over several cards (not ported: "
+                    "ROADMAP item 7)")
+    ap.add_argument("--tta", action="store_true",
+                    help="4-variant event TTA (4x compute, averaged probs)")
+    ap.add_argument("--embed_out", default="",
+                    help="switch to embedding extraction: write one npz "
+                         "(paths [N], embeddings [N, C] f32 L2-normalized) "
+                         "instead of prediction JSONL")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (debug/smoke runs)")
+    args = ap.parse_args(argv)
+
+    if args.from_export:
+        raise SystemExit("--from_export: frozen export bundles are not "
+                         "ported yet (ROADMAP item 6, server and export)")
+    if args.data_parallel:
+        raise SystemExit("--data_parallel is not ported yet (ROADMAP item 7, "
+                         "multi-GPU)")
+    if not args.params:
+        ap.error("--params is required")
+    paths = sorted(globlib.glob(args.inputs, recursive=True))
+    if not paths:
+        raise SystemExit(f"no files match {args.inputs!r}")
+    params = load_params(args.params)
+    names = resolve_class_names(params, args.classes, args.data_root)
+    pred = Predictor(params, names, weight=args.weight,
+                     clip_ckpt=args.clip_ckpt or None, smoke=args.smoke,
+                     int8=args.int8, prune_tokens=args.prune_tokens,
+                     batch_size=args.batch_size, tta=args.tta,
+                     embed=bool(args.embed_out),
+                     device="cpu" if args.cpu else "cuda")
+
+    def load(p):
+        # a bad file mid-glob must name itself
+        try:
+            return load_event_file(p)
+        except Exception as err:
+            raise SystemExit(f"error: {p}: {err}") from None
+
+    if args.embed_out:
+        feats = []
+        for i in range(0, len(paths), pred.batch_size):
+            chunk = paths[i:i + pred.batch_size]
+            feats.append(pred.embed([load(p) for p in chunk]))
+            print(f"{min(i + pred.batch_size, len(paths))}/{len(paths)}",
+                  file=sys.stderr, flush=True)
+        np.savez(args.embed_out, paths=np.array(paths),
+                 embeddings=np.concatenate(feats))
+        print(f"wrote {len(paths)} embeddings -> {args.embed_out}",
+              file=sys.stderr, flush=True)
+        return
+
+    sink = sys.stdout if args.out == "-" else open(args.out, "w")
+    try:
+        # chunk at the batch size so memory stays flat on huge globs
+        for i in range(0, len(paths), pred.batch_size):
+            chunk = paths[i:i + pred.batch_size]
+            out = pred.predict([load(p) for p in chunk], top_k=args.top_k)
+            for j, p in enumerate(chunk):
+                rec = {
+                    "path": p,
+                    "label": int(out["label"][j]),
+                    "name": out["names"][j],
+                    "topk": out["topk"][j].tolist(),
+                    "topk_names": [names[t] for t in out["topk"][j]],
+                }
+                if args.probs:
+                    rec["probs"] = out["probs"][j].tolist()
+                sink.write(json.dumps(rec) + "\n")
+            sink.flush()
+            print(f"{min(i + pred.batch_size, len(paths))}/{len(paths)}",
+                  file=sys.stderr, flush=True)
+    finally:
+        if sink is not sys.stdout:
+            sink.close()
+
+
+if __name__ == "__main__":
+    main()

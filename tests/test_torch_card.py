@@ -16,7 +16,10 @@ rounding order from others that the max-abs limit lets through (checked
 here on the CPU). The backward kernel is also held to give the same bits
 on two runs (no atomics). bf16 runs on the tensor-core kernels: their
 cases cover every head dim, ragged 64-row tiles and 16-key steps, the
-causal mask and both layouts.
+causal mask and both layouts, and the pruned serving shape (S = 129).
+The W8A8 int8 product (`torch._int_mm`, a library call, not a kernel of
+this repository) is held bit-equal to the CPU route at ViT-L/14's widths,
+among them `patch_embed`'s K = 588, which the card takes only padded.
 """
 
 import pytest
@@ -451,3 +454,51 @@ def test_misaligned_bf16_rows_raise_on_card(cuda):
     with pytest.raises(ValueError, match="16-byte"):
         multi_head_attention(q, k, k)
     assert dict(kernels.LAUNCHES) == {}
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (2 * 256, 588, 1024),  # ViT-L/14 patch_embed: K = 3 * 14 * 14
+    (2 * 257, 1024, 3072),  # a block's wqkv
+    (2 * 257, 4096, 1024),  # a block's w2
+    (5, 588, 20),  # M <= 16 and N off the multiple of 8
+])
+def test_int8_product_on_card_equals_cpu(cuda, monkeypatch, M, K, N):
+    """W8A8 `qdense` through `torch._int_mm` on the card (cuBLASLt int8:
+    M > 16, K and N multiples of 8, so `_int_mm` pads): the int32 sums
+    equal the exact integer product, and the whole product equals the CPU
+    route bit for bit on the same bf16 activations (the quantize and the
+    rescale are the same IEEE arithmetic; the CPU's int8 product is
+    replaced by the exact integer one, so only the card is under test)."""
+    from eventclip_tpu_torch.ops import quant
+
+    gen = torch.Generator().manual_seed(K + N)
+    xq = torch.randint(-127, 128, (M, K), generator=gen, dtype=torch.int8)
+    w = torch.randint(-127, 128, (N, K), generator=gen, dtype=torch.int8)
+    y = quant._int_mm(xq.to(cuda), w.to(cuda).t())
+    assert y.dtype == torch.int32
+    exact = xq.int() @ w.int().t()
+    assert torch.equal(y.cpu(), exact), (y.cpu() != exact).sum()
+
+    x = torch.randn((M, K), generator=gen).bfloat16()
+    wf = 0.02 * torch.randn((N, K), generator=gen)
+    b = torch.randn((N,), generator=gen)
+    qw, qw_card = quant.quantize_weight(wf), quant.quantize_weight(wf.to(cuda))
+    with monkeypatch.context() as m:
+        m.setattr(quant, "_int_mm", lambda a, bt: a.int() @ bt.int())
+        want = quant.qdense(x, qw, b)
+    got = quant.qdense(x.to(cuda), qw_card, b.to(cuda))
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    assert torch.equal(qw_card.q.cpu(), qw.q)  # weights quantized alike
+    assert torch.equal(qw_card.s.cpu(), qw.s)
+    diff = (got.cpu().float() - want.float()).abs()
+    assert torch.equal(got.cpu(), want), (int((diff > 0).sum()),
+                                          float(diff.max()))
+
+
+def test_pruned_attention_shape_matches_plain_on_card(cuda):
+    """K2 at the pruned serving shape (128 of 256 patches + the class
+    token: S = 129), bf16, held to chip_smoke's limits."""
+    gen = torch.Generator(device=cuda).manual_seed(129)
+    qkv = torch.randn((32, 129, 3072), generator=gen, device=cuda).bfloat16()
+    _assert_matches([fused_qkv_attention(qkv, 16)],
+                    [qkv_attention_plain(qkv, 16)], torch.bfloat16)

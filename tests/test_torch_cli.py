@@ -12,6 +12,8 @@ On a 3-class synthetic N-Caltech tree, with a tiny OpenAI-layout `.pt`
   writes a best.npz that the JAX load_checkpoint reads; that checkpoint
   and its reference-layout `.pth` export evaluate to the JAX CLI's
   accuracies, the `.pth` through a --train_shots sweep;
+- `--int8`, `--int8_calib` and `--prune_tokens` give the root CLI's
+  printed accuracies;
 - the argument overrides equal the root CLIs', and the flags that are
   not ported raise SystemExit naming their ROADMAP item.
 """
@@ -193,10 +195,33 @@ def test_test_overrides_equal_root(extra, monkeypatch):
     assert got[0].to_dict() == want[0].to_dict()
 
 
+@pytest.mark.parametrize("flags", [
+    ["--int8"], ["--int8", "--int8_calib", "1"], ["--prune_tokens", "8"],
+    ["--int8", "--prune_tokens", "8"],
+], ids=["int8", "int8-calib", "pruned", "int8-pruned"])
+def test_int8_and_pruning_flags_equal_root_evaluate(files, capsys,
+                                                    monkeypatch, flags):
+    """The fast-path flags through both CLIs (f32): the same printed
+    sample count and accuracies; with --int8 the float template stays as
+    it was (a sweep quantizes each checkpoint anew)."""
+    tree, pt, _ = files
+    argv = ["--params", ZS, "--clip_ckpt", pt, "--data_root", tree,
+            "--fp32"] + flags
+    res = cli_test.main(argv + ["--cpu"])
+    got = _eval_lines(capsys.readouterr().out)
+    args = ref_args(REF_TEST, argv, monkeypatch)
+    params, _ = REF_TEST.load_and_override(args)
+    want = REF_TEST.evaluate(params, args)
+    assert got == _eval_lines(capsys.readouterr().out)
+    assert got[0] == "Evaluated 12 samples"
+    assert (res["probs_acc"], res["logits_acc"]) == want
+    visual = res["ctx"]["template"].clip.visual
+    assert isinstance(visual.patch_embed, torch.nn.Parameter)
+    if "--prune_tokens" in flags:
+        assert res["ctx"]["cls_cfg"].keep_tokens == 8
+
+
 @pytest.mark.parametrize("cli,flags,item", [
-    (cli_test, ["--int8"], "item 3"),
-    (cli_test, ["--int8_calib", "4"], "item 3"),
-    (cli_test, ["--prune_tokens", "64"], "item 3"),
     (cli_test, ["--n_model", "2"], "item 7"),
     (cli_train, ["--zero1"], "item 7"),
     (cli_train, ["--profile", "3"], "item 7"),

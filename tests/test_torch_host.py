@@ -175,12 +175,15 @@ def test_view_packing_equals_reference(n_valid):
 
 
 def test_serving_path_imports_no_jax():
-    """A fresh interpreter that builds and runs a tiny CPU Predictor has
+    """A fresh interpreter that builds and runs a tiny CPU Predictor, then
+    one with the int8 tower (ops.quant), token pruning and embeddings, its
+    host half through the native library (eventclip_tpu_torch.native), has
     neither jax nor any eventclip_tpu module loaded."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
-        from eventclip_tpu_torch.serve import Predictor
+        from eventclip_tpu_torch import native
+        from eventclip_tpu_torch.serve import Predictor, StreamSession
         from eventclip_tpu_torch.utils.config import load_params
         p = load_params("configs/debug/zsclip_tiny_params.py")
         pred = Predictor(p, ["a", "b"], smoke=True, batch_size=2,
@@ -190,6 +193,15 @@ def test_serving_path_imports_no_jax():
                        np.sort(rng.uniform(0, 0.3, 1500)),
                        rng.choice([-1.0, 1.0], 1500)], 1)
         assert pred.predict([ev])["probs"].shape == (1, 2)
+        fast = Predictor(p, ["a", "b"], smoke=True, batch_size=2,
+                         device="cpu", int8=True, int8_calib_streams=[ev],
+                         prune_tokens=8, embed=True)
+        native.reset_calls()
+        assert fast.embed([ev]).shape == (1, 32)
+        sess = StreamSession(fast)
+        sess.append(ev)
+        assert sess.predict()["probs"].shape == (2,)
+        assert native.available() and native.CALLS["transform"] == 2
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "eventclip_tpu" or m.startswith("eventclip_tpu."))
