@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one card: serving and its options, FT and FS
-training, and the train / test CLIs and the serve CLI from a dataset tree
-and checkpoint files on disk.
+training, the train / test CLIs and the serve CLI from a dataset tree and
+checkpoint files on disk, the ResNet towers, and pseudo-labelling with
+self-training.
 
     python3 chip_smoke.py
 
@@ -18,7 +19,7 @@ non-zero):
    and windows with every event on one pixel; the fused-qkv attention
    forward K2 and its backward K3 on the ViT-L/14 (bf16, no mask; serving
    and training batches, and the FS step's [64, 257, 3072]), text tower
-   (f32, causal mask) and tiny-tower
+   (f32, causal mask; ViT-L/14 and RN50) and tiny-tower
    (dh 32 / 16) shapes; f32 K2 / K3 at [8, 257, 3072], at phase 7's
    [64, 257, 3072] and at ViT-L/14@336's S = 577; bf16 K2 / K3 with the
    causal mask at S = 77 and
@@ -110,10 +111,33 @@ non-zero):
    -m eventclip_tpu_torch.serve` in a subprocess: 101 JSONL lines with
    (f)'s labels, then `serve.main` with --embed_out: 101 unit rows.
 
+11. ResNet towers and pseudo-labelling, on phase 9's files: (a) random
+   RN50 towers written as OpenAI's fp16 `.pt` (batch-norm statistics
+   drawn, folded at load) serve phase 3's 32 x 225k request through
+   Predictor (zsclip_ncaltech_params.py with arch RN50: ms a request,
+   device busy; K1 1 a request, no K2 in the visual tower, K2 12 for the
+   text tower a label set), `cli.test --arch RN50` evaluates phase 9's
+   testing split, and one batch of 8 view features is held card (bf16,
+   then f32 with TF32 switched on around it) against the CPU's f32; phase
+   2 holds K2 at RN50's text shape [101, 77, 1536], 8 heads, f32 causal.
+   (b) phase 9's tree gains 2 unlabeled streams a class and cli.gen_data
+   labels its training split with three ViT-L/14 teachers: ZS with
+   --tta --tta_consistent --tta_min_prob --topk 2; the FS teacher from
+   phase 9's best.npz with --weight --gt_shots 2; ZS with --int8
+   --int8_calib 1 --prune_tokens 128 (each: samples/s, views/s, loader
+   wait, device busy, K1 / K2 a batch, the selection totals; each tree
+   checked: every class folder, links to real source files, top-k, the
+   GT files merged under their inverted folders). (c) cli.train trains
+   the FS student one epoch on the FS teacher's tree (ms a step; K1 1 /
+   K2 24 / K3 0 a step) and cli.test evaluates it. (d) cli.gen_data on
+   the debug ZS config, then with an RN-T@32 override, f32, on a small
+   tree, once on the card and once with --cpu: equal reports and trees.
+
 Then one JSON line with every kernel's numbers (by_path adds the eval
-CLI's `cli` rows and the pruned request's `serve_pruned` K2 row;
-`eval_cli`, `train_cli` and `trained_eval` hold phase 9, `serve_options`
-phase 10), the card's name and power limit, and as the last line
+CLI's `cli` rows, the pruned request's `serve_pruned` K2 row and RN50's
+text-tower `rn50` K2 row; `eval_cli`, `train_cli` and `trained_eval` hold
+phase 9, `serve_options` phase 10, `pseudo_labels` phase 11), the card's
+name and power limit, and as the last line
 {"ok": true, "device": {...}}. Imports nothing
 of JAX. Fails when no CUDA device is present or the port is missing.
 """
@@ -978,24 +1002,20 @@ def update_card_vs_cpu(dev, batch_size=4):
 # -- phase 9: data to accuracy -------------------------------------------------
 
 
-def openai_state_dict(clip, dtype=None):
+def openai_state_dict(clip, dtype=None, bn_seed=0):
     """The port's CLIP towers -> a state dict in OpenAI's key layout (the
     released checkpoints' names), optionally cast to `dtype` (the releases
     are fp16). The inverse of models/clip/convert.py's key map; the port
-    itself never writes this layout."""
+    itself never writes this layout. A ResNet tower's folded batch norms
+    get running statistics drawn from `bn_seed` (mean N(0, 0.1²), var
+    U(0.5, 1.5)) and the weight / bias that fold back to the tower's
+    scale / bias."""
     import torch
 
+    from eventclip_tpu_torch.models.clip.resnet import ResNetVisionTower
+
     v, t = clip.visual, clip.text
-    ps = v.cfg.patch_size
     sd = {
-        "visual.conv1.weight": v.patch_embed.reshape(-1, 3, ps, ps),
-        "visual.class_embedding": v.class_embedding,
-        "visual.positional_embedding": v.positional_embedding,
-        "visual.ln_pre.weight": v.ln_pre.weight,
-        "visual.ln_pre.bias": v.ln_pre.bias,
-        "visual.ln_post.weight": v.ln_post.weight,
-        "visual.ln_post.bias": v.ln_post.bias,
-        "visual.proj": v.proj,
         "token_embedding.weight": t.token_embedding,
         "positional_embedding": t.positional_embedding,
         "ln_final.weight": t.ln_final.weight,
@@ -1003,8 +1023,23 @@ def openai_state_dict(clip, dtype=None):
         "text_projection": t.projection,
         "logit_scale": clip.logit_scale,
     }
-    for prefix, tower in (("visual.transformer.resblocks", v),
-                          ("transformer.resblocks", t)):
+    towers = [("transformer.resblocks", t)]
+    if isinstance(v, ResNetVisionTower):
+        sd.update(resnet_openai_state_dict(v, bn_seed))
+    else:
+        ps = v.cfg.patch_size
+        sd.update({
+            "visual.conv1.weight": v.patch_embed.reshape(-1, 3, ps, ps),
+            "visual.class_embedding": v.class_embedding,
+            "visual.positional_embedding": v.positional_embedding,
+            "visual.ln_pre.weight": v.ln_pre.weight,
+            "visual.ln_pre.bias": v.ln_pre.bias,
+            "visual.ln_post.weight": v.ln_post.weight,
+            "visual.ln_post.bias": v.ln_post.bias,
+            "visual.proj": v.proj,
+        })
+        towers.append(("visual.transformer.resblocks", v))
+    for prefix, tower in towers:
         for i, blk in enumerate(tower.blocks.layers):
             pre = f"{prefix}.{i}"
             sd.update({
@@ -1022,8 +1057,54 @@ def openai_state_dict(clip, dtype=None):
                 f"{pre}.mlp.c_proj.bias": blk.mlp.b2,
             })
     with torch.no_grad():
-        return {k: x.detach().to("cpu", dtype or x.dtype).clone()
+        return {k: x.detach().to(
+                    "cpu", (dtype or x.dtype) if x.is_floating_point()
+                    else x.dtype).clone()
                 for k, x in sd.items()}
+
+
+def resnet_openai_state_dict(v, bn_seed=0):
+    """A port ResNet tower -> OpenAI's `visual.*` keys (unfolded batch
+    norms with drawn running statistics, `num_batches_tracked` as torch
+    writes it)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(bn_seed)
+    sd = {}
+
+    def bn(prefix, affine, eps=1e-5):
+        scale = affine.weight.detach().float().cpu()
+        shift = affine.bias.detach().float().cpu()
+        mean = torch.randn(scale.shape, generator=gen) * 0.1
+        var = torch.rand(scale.shape, generator=gen) + 0.5
+        sd.update({f"{prefix}.weight": scale * torch.sqrt(var + eps),
+                   f"{prefix}.bias": shift + mean * scale,
+                   f"{prefix}.running_mean": mean,
+                   f"{prefix}.running_var": var,
+                   f"{prefix}.num_batches_tracked": torch.tensor(0)})
+
+    def convs(pre, m):
+        for i in (1, 2, 3):
+            sd[f"{pre}.conv{i}.weight"] = getattr(m, f"conv{i}")
+            bn(f"{pre}.bn{i}", getattr(m, f"bn{i}"))
+
+    convs("visual", v.stem)
+    for s in range(1, 5):
+        stage = getattr(v, f"layer{s}")
+        blocks = [stage.block0] + (list(stage.rest.layers)
+                                   if stage.rest is not None else [])
+        for i, blk in enumerate(blocks):
+            pre = f"visual.layer{s}.{i}"
+            convs(pre, blk)
+            if blk.downsample is not None:
+                sd[f"{pre}.downsample.0.weight"] = blk.downsample.conv
+                bn(f"{pre}.downsample.1", blk.downsample.bn)
+    pool = v.attnpool
+    sd["visual.attnpool.positional_embedding"] = pool.positional_embedding
+    for name in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        sd[f"visual.attnpool.{name}.weight"] = getattr(pool, name).w
+        sd[f"visual.attnpool.{name}.bias"] = getattr(pool, name).b
+    return sd
 
 
 def synth_merges(texts, n):
@@ -1652,6 +1733,477 @@ def serving_options(dev, gen, pred, clip, text_feats, names, streams,
     return out, row, pruned_launches
 
 
+# -- phase 11: ResNet towers, pseudo-labelling and self-training -------------
+
+
+# RN50 view features, card against the CPU's f32, norm-relative a view:
+# f32 (TF32 off) and bf16, each about 4x the worst view read on an H100
+# (5.6e-7 and 6.2e-3, see PERF.md); TF32 convolutions would read ~1e-3
+RN50_FEATURE_REL = {"float32": 2.5e-6, "bfloat16": 2.5e-2}
+
+
+def device_busy(fn):
+    """(fn(), wall ms, device busy ms or None) of one call, the busy time
+    from CUDA-only profiler tracing (kernel time; host ops untraced, so
+    the wall time stays close to an untraced run's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = 0.0
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        busy += (us if us is not None else evt.self_cuda_time_total) / 1e3
+    return out, wall_ms, (busy or None)
+
+
+def write_tiny_tree(root, seed):
+    """A 3-class N-Caltech-shaped tree for the debug configs: 6 training
+    and 4 testing streams a class, 2.5k-3.5k events each."""
+    rng = np.random.default_rng(seed)
+    for label, c in enumerate(("airplanes", "ant", "brain")):
+        for split, k in (("training", 6), ("testing", 4)):
+            for i in range(k):
+                path = os.path.join(root, split, c, f"{c}_{i}.npy")
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                np.save(path, synth_events(rng, 2500 + int(rng.integers(
+                    0, 1000)), label, 180, 240, 0.3))
+    return root
+
+
+def tree_map(root):
+    """{relative path: real path of a link, or 'dir'} under root."""
+    out = {}
+    for dp, dirs, fs in os.walk(root):
+        for name in dirs + fs:
+            p = os.path.join(dp, name)
+            out[os.path.relpath(p, root)] = (os.path.realpath(p)
+                                             if os.path.islink(p) else "dir")
+    return out
+
+
+def run_gen_data(argv):
+    """cli.gen_data.main in this process: (result, stdout, the selection
+    report from 'Class stats:' to the tree line)."""
+    import contextlib
+    import io
+
+    from eventclip_tpu_torch.cli import gen_data
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = gen_data.main(argv)
+    out = buf.getvalue()
+    end = out.find("Pseudo-label dataset tree")
+    return res, out, out[out.index("Class stats:"):end if end >= 0 else None]
+
+
+def check_pseudo_tree(save, src, classes, topk=0, gt=None):
+    """A pseudo tree's invariants: a folder for every class (CoOp renames
+    inverted, first match), links only to real files of the source tree,
+    at most `topk` links a class, every GT file of `gt` ({rel: class
+    name}) linked under its class's folder. Returns links a folder."""
+    from eventclip_tpu_torch.data.datasets import CALTECH_NEW_CNAMES
+
+    inv = {}
+    for k, v in CALTECH_NEW_CNAMES.items():
+        inv.setdefault(v, k)
+    train = os.path.join(save, "training")
+    folders = set(os.listdir(train))
+    want = {inv.get(c, c) for c in classes}
+    if folders != want:
+        raise AssertionError(f"{save}: class folders {sorted(folders ^ want)}"
+                             " differ")
+    real_src = os.path.realpath(src)
+    per = {}
+    for f in folders:
+        for name in os.listdir(os.path.join(train, f)):
+            p = os.path.join(train, f, name)
+            real = os.path.realpath(p)
+            if not (os.path.islink(p) and os.path.isfile(real)
+                    and real.startswith(real_src + os.sep)):
+                raise AssertionError(f"{p} -> {real}: not a link to a file "
+                                     f"of {src}")
+        per[f] = len(os.listdir(os.path.join(train, f)))
+    if topk > 0 and max(per.values()) > topk:
+        raise AssertionError(f"{save}: {max(per.values())} links in a class "
+                             f"> top-{topk}")
+    for rel, name in (gt or {}).items():
+        fn = rel.split("/")[-1]
+        if not os.path.islink(os.path.join(train, inv.get(name, name), fn)):
+            raise AssertionError(f"GT {rel} not merged under "
+                                 f"{inv.get(name, name)}/")
+    return per
+
+
+def resnet_phase(dev, streams, files, tmp, tag="11 pseudo"):
+    """Phase 11(a): a random RN50 CLIP written as OpenAI's fp16 `.pt` (BN
+    statistics drawn), served through Predictor (phase 3's 32 x 225k
+    request), evaluated through cli.test --arch RN50, its view features
+    held card against CPU. Returns the record and the RN50 path's K1 / K2
+    launches."""
+    import torch
+
+    from eventclip_tpu_torch import kernels
+    from eventclip_tpu_torch.cli import test as cli_test
+    from eventclip_tpu_torch.engine.trainer import copy_clip
+    from eventclip_tpu_torch.models.clip.config import clip_arch_config
+    from eventclip_tpu_torch.models.clip.model import init_clip_params
+    from eventclip_tpu_torch.models.clip.resnet import (Bottleneck,
+                                                        encode_image_resnet)
+    from eventclip_tpu_torch.ops.rasterize import rasterize_for_clip
+    from eventclip_tpu_torch.serve import Predictor
+    from eventclip_tpu_torch.utils.config import load_params
+
+    out = {}
+    cfg = clip_arch_config("RN50")
+    t0 = time.perf_counter()
+    clip = init_clip_params(cfg, torch.Generator(device=dev).manual_seed(11),
+                            device=dev)
+    with torch.no_grad():  # CLIP zero-inits bn3; a quarter keeps it live
+        for m in clip.visual.modules():
+            if isinstance(m, Bottleneck):
+                m.bn3.weight.fill_(0.25)
+    pt = os.path.join(tmp, "RN50.pt")
+    torch.save(openai_state_dict(clip, torch.float16, bn_seed=11), pt)
+    del clip
+    log(f"[{tag}] (a) RN50 random towers saved in fp16 in OpenAI's layout "
+        f"({os.path.getsize(pt) / 2 ** 20:.0f} MiB, BN statistics drawn) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    zs = os.path.join(HERE, "configs", "zsclip", "zsclip_ncaltech_params.py")
+    params = load_params(zs)
+    params.clip_dict["arch"] = "RN50"
+    names = files["classes"]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pred = Predictor(params, names, clip_ckpt=pt, batch_size=32, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    text_launches = dict(kernels.LAUNCHES)
+    pred.warm_up()
+    kernels.reset_launches()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        res = pred.predict(streams)
+        times.append(time.perf_counter() - t0)
+        check_probs(res, len(streams), len(names))
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    ms = statistics.median(times) * 1e3
+    prof = profile_call(f"{tag} profile", "RN50 request 32 x 225k",
+                        lambda: pred.predict(streams))
+    if prof is not None:
+        prof.pop("rows")
+    log(f"[{tag}] (a) RN50 Predictor built from the .pt in {build_s:.2f} s "
+        f"(text tower launches {text_launches}); request 32 x 225k "
+        f"{ms:.1f} ms median of 3 ({len(streams) / (ms / 1e3):.2f} "
+        f"streams/s); launches over the 3 requests {launches}")
+    if text_launches != {"qkv_attention": cfg.text.layers} or launches != {
+            "histogram": 3}:
+        raise AssertionError(f"RN50 launches: text {text_launches} (want K2 "
+                             f"{cfg.text.layers}), requests {launches} (want "
+                             "K1 1 a request, no K2)")
+    out["serve"] = dict(ms=ms, build_s=build_s, text_launches=text_launches,
+                        launches=launches, profile=prof)
+
+    # view features of one batch of 8 views, card (bf16, then f32 with
+    # TF32 switched on around it) against the CPU's f32
+    wins, valids = pred.gather_windows(streams[:1])
+    with torch.inference_mode():
+        imgs = rasterize_for_clip(pred._spec, pred._pp, torch.from_numpy(
+            wins).to(dev))[0][torch.from_numpy(valids[0])][:8]
+        visual = pred._params.clip.visual
+        cpu = copy_clip(pred._params.clip, cfg, "cpu").visual
+        want = encode_image_resnet(cpu, imgs.cpu()).double()
+        tf32 = (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got = {"float32": encode_image_resnet(visual, imgs),
+                   "bfloat16": encode_image_resnet(visual, imgs,
+                                                   dtype=torch.bfloat16)}
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = tf32
+    rel = {}
+    for k, g in got.items():
+        d = g.double().cpu()
+        per = (d - want).norm(dim=1) / want.norm(dim=1)
+        cos = (d * want).sum(1) / (d.norm(dim=1) * want.norm(dim=1))
+        rel[k] = dict(worst_view=float(per.max()), min_cos=float(cos.min()),
+                      limit=RN50_FEATURE_REL[k])
+    log(f"[{tag}] (a) RN50 view features of 8 views {tuple(imgs.shape)}, "
+        f"card vs CPU f32, norm-relative worst view / min cosine: {rel}")
+    for k, r in rel.items():
+        if not r["worst_view"] <= r["limit"]:
+            raise AssertionError(f"RN50 {k} features card vs CPU {r}")
+    out["features_card_vs_cpu"] = rel
+    del pred, visual, cpu, imgs
+    torch.cuda.empty_cache()
+
+    # the arch sweep's first ResNet through the eval CLI, on phase 9's tree
+    kernels.reset_launches()
+    res = cli_test.main(["--params", zs, "--arch", "RN50", "--clip_ckpt", pt,
+                         "--data_root", files["tree"]])
+    torch.cuda.synchronize()
+    ev = res["ctx"]["evals"][-1]
+    cli_launches = dict(kernels.LAUNCHES)
+    want = {"histogram": ev["batches"], "qkv_attention": cfg.text.layers}
+    log(f"[{tag}] (a) cli.test --arch RN50: {int(ev['n'])} samples in "
+        f"{ev['wall_s']:.2f} s ({ev['n'] / ev['wall_s']:.1f} samples/s, "
+        f"host loader wait {ev['wait_s']:.2f} s); launches {cli_launches} "
+        f"(K2 {cfg.text.layers} for the text tower, K1 1 per eval batch); "
+        f"accuracy probs {res['probs_acc']:.4f} (random towers)")
+    if cli_launches != want:
+        raise AssertionError(f"cli.test RN50 launches {cli_launches} != "
+                             f"{want}")
+    out["eval_cli"] = dict(n=ev["n"], wall_s=ev["wall_s"],
+                           samples_per_s=ev["n"] / ev["wall_s"],
+                           host_wait_s=ev["wait_s"], launches=cli_launches)
+    del res
+    torch.cuda.empty_cache()
+    return out, {"histogram": launches["histogram"],
+                 "qkv_attention": text_launches["qkv_attention"]}
+
+
+def teacher_run(tag, label, argv, L, Lt, calib=0):
+    """One cli.gen_data run on the card, counted and traced: samples/s,
+    views/s, loader wait, device busy, K1 / K2 a batch (text tower and
+    calibration batches apart)."""
+    import torch
+
+    from eventclip_tpu_torch import kernels
+
+    kernels.reset_launches()
+    (res, stdout, report), wall_ms, busy = device_busy(
+        lambda: run_gen_data(argv))
+    launches = dict(kernels.LAUNCHES)
+    st = res["stats"]
+    b = st["batches"]
+    want = {"histogram": b + calib, "qkv_attention": Lt + L * (b + calib)}
+    total = [ln for ln in report.splitlines() if "\tSelect " in ln]
+    rec = dict(samples=st["samples"], views=st["views"], batches=b,
+               loop_s=st["wall_s"], wait_s=st["wait_s"],
+               samples_per_s=st["samples"] / st["wall_s"],
+               views_per_s=st["views"] / st["wall_s"], cli_wall_ms=wall_ms,
+               busy_ms=busy, launches=launches, totals=total,
+               accuracy=res["accuracy"])
+    log(f"[{tag}] (b) teacher {label}: {st['samples']} samples, "
+        f"{st['views']} real views in {b} batches, {st['wall_s']:.2f} s "
+        f"({rec['samples_per_s']:.1f} samples/s, {rec['views_per_s']:.0f} "
+        f"views/s; loader wait {st['wait_s']:.2f} s); CLI {wall_ms / 1e3:.2f}"
+        f" s, device busy " + ("not measured" if busy is None else
+                               f"{busy / 1e3:.2f} s ({100 * busy / wall_ms:.1f}"
+                               "%)") + f"; launches {launches} (text K2 {Lt},"
+        f" then K1 1 / K2 {L} a batch{', calibration 1 batch' if calib else ''}"
+        f"); selection {total}")
+    if launches != want:
+        raise AssertionError(f"teacher {label} launches {launches} != {want}")
+    torch.cuda.empty_cache()
+    return res, rec, stdout
+
+
+def pseudo_label_phase(dev, files, tmp, tag="11 pseudo"):
+    """Phase 11(b)-(c): phase 9's tree gains 2 unlabeled streams a class;
+    three ViT-L/14 teachers label its training split (ZS with TTA
+    filters and top-2; the FS teacher from phase 9's checkpoint with the
+    2-shot GT merge; int8 calibrated + 128 tokens); the FS student trains
+    one epoch on the FS teacher's tree and is evaluated."""
+    import shutil
+
+    import torch
+
+    from eventclip_tpu_torch import kernels
+    from eventclip_tpu_torch.cli import test as cli_test
+    from eventclip_tpu_torch.cli import train as cli_train
+    from eventclip_tpu_torch.data.datasets import (CALTECH_NEW_CNAMES,
+                                                   load_split_asset)
+    from eventclip_tpu_torch.models.clip.config import clip_arch_config
+    from eventclip_tpu_torch.utils.config import load_params
+
+    out = {}
+    tree, pt, fs, classes = (files["tree"], files["pt"], files["fs"],
+                             files["classes"])
+    zs = os.path.join(HERE, "configs", "zsclip", "zsclip_ncaltech_params.py")
+    cfg = clip_arch_config(load_params(zs).clip_dict["arch"])
+    L, Lt = cfg.vision.layers, cfg.text.layers
+    t0 = time.perf_counter()
+    for label, c in enumerate(classes):
+        for i in range(2):
+            rng = np.random.default_rng((11, label, i))
+            np.save(os.path.join(tree, "training", c,
+                                 f"{c}_unlabeled_{i}.npy"),
+                    synth_events(rng, int(rng.integers(100000, 225001)),
+                                 label, 180, 240, 0.3))
+    log(f"[{tag}] (b) {2 * len(classes)} unlabeled streams written in "
+        f"{time.perf_counter() - t0:.1f} s; the training split now holds "
+        f"{sum(len(f) for _, _, f in os.walk(os.path.join(tree, 'training')))}"
+        " streams")
+    base = ["--clip_ckpt", pt, "--data_root", tree]
+
+    # 1. ZS, 4-way TTA, consistency and min-prob filters, top-2 a class
+    save1 = os.path.join(tmp, "pseudo-zs")
+    res, rec, _ = teacher_run(tag, "ZS + TTA", [
+        "--params", zs, *base, "--save_path", save1, "--tta",
+        "--tta_consistent", "--tta_min_prob", "--topk", "2"], L, Lt)
+    rec["links_a_class"] = check_pseudo_tree(save1, tree, list(res["sel"]),
+                                             2)
+    out["zs_tta"] = rec
+
+    # 2. the FS teacher: phase 9's checkpoint, its 2-shot GT merged
+    weight = os.path.join(tmp, "fs-2shot", "best.npz")
+    os.makedirs(os.path.dirname(weight))
+    shutil.copy(files["npz"], weight)
+    save2 = os.path.join(tmp, "pseudo-2shot-fs")
+    res, rec, stdout = teacher_run(tag, "FS --weight --gt_shots 2", [
+        "--params", fs, *base, "--save_path", save2, "--weight", weight,
+        "--gt_shots", "2"], L, Lt)
+    # the dataset's class names: its folders, CoOp-renamed, in order
+    names = [CALTECH_NEW_CNAMES.get(c, c) for c in
+             sorted(os.listdir(os.path.join(tree, "training")))]
+    gt = {rel: names[v]
+          for rel, v in load_split_asset("NCaltech101", 2, True).items()}
+    rec["links_a_class"] = check_pseudo_tree(save2, tree, names, gt=gt)
+    if "not found" in stdout:
+        raise AssertionError("a GT split file did not resolve")
+    out["fs_gt"] = rec
+
+    # 3. int8 with static scales from 1 batch, 128 of 256 patches kept
+    res, rec, _ = teacher_run(tag, "ZS --int8 --int8_calib 1 "
+                              "--prune_tokens 128", [
+        "--params", zs, *base, "--int8", "--int8_calib", "1",
+        "--prune_tokens", "128"], L, Lt, calib=1)
+    out["int8_pruned"] = rec
+
+    # (c) the FS student: one epoch on the FS teacher's tree (GT + pseudo
+    # labels), then the test CLI on its checkpoint. Not on the ZS
+    # teacher's: random towers send every stream to one class, so its
+    # top-2 keeps two files, less than one batch of 32
+    ckpt = os.path.join(tmp, "student")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer = cli_train.main(["--params", fs, "--max_epochs", "1",
+                              "--clip_ckpt", pt, "--data_root", save2,
+                              "--ckpt_base", ckpt])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    steps = len(trainer.step_times)
+    evals = min(2, len(trainer.val_loader)) + len(trainer.val_loader)
+    want = {"histogram": steps + evals,
+            "qkv_attention": Lt + L * (steps + evals)}
+    step_ms = [s * 1e3 for _, s in trainer.step_times]
+    med = statistics.median(step_ms)
+    log(f"[{tag}] (c) student on the FS teacher's tree: "
+        f"{len(trainer.train_set)} samples, {steps} steps, median "
+        f"{med:.1f} ms a step ({trainer.global_batch / (med / 1e3):.1f} "
+        f"samples/s); CLI wall {wall:.1f} s; launches {launches} (text K2 "
+        f"{Lt}, then K1 1 / K2 {L} / K3 0 a step and eval batch)")
+    if launches != want or steps < 1:
+        raise AssertionError(f"student launches {launches} != {want} "
+                             f"({steps} steps)")
+    best = os.path.join(ckpt, "joint_fsclip_ncaltech_params", "models",
+                        "best.npz")
+    n_train = len(trainer.train_set)
+    del trainer
+    torch.cuda.empty_cache()
+    ev = cli_test.main(["--params", fs, "--weight", best, "--clip_ckpt", pt,
+                        "--data_root", save2])
+    e = ev["ctx"]["evals"][-1]
+    log(f"[{tag}] (c) student's best.npz through cli.test on the testing "
+        f"split: {int(e['n'])} samples, accuracy probs "
+        f"{ev['probs_acc']:.4f} (random towers)")
+    out["student"] = dict(samples=n_train, steps=steps, step_ms=step_ms, median_step_ms=med,
+                          wall_s=wall, launches=launches,
+                          launches_per_step={"histogram": 1,
+                                             "qkv_attention": L,
+                                             "qkv_attention_bwd": 0},
+                          test_n=e["n"], test_probs_acc=ev["probs_acc"])
+    del ev
+    torch.cuda.empty_cache()
+    return out
+
+
+def gen_data_card_vs_cpu(tmp, tag="11 pseudo"):
+    """Phase 11(d): cli.gen_data on the debug ZS config (ViT-T/8@32), then
+    with an RN-T@32 override, f32, on a small tree, once on the card and
+    once with --cpu, from one `.pt` each (random towers drawn on the CPU)
+    and the seeded random text features (EVENTCLIP_ALLOW_RANDOM_TEXT; the
+    RN-T@32 text tower has 128 ids): the reports and the trees equal."""
+    import torch
+
+    from eventclip_tpu_torch.models.clip.config import clip_arch_config
+    from eventclip_tpu_torch.models.clip.model import init_clip_params
+
+    tree = write_tiny_tree(os.path.join(tmp, "tiny"), seed=11)
+    src = os.path.join(HERE, "configs", "debug", "zsclip_tiny_params.py")
+    with open(src) as f:
+        text = f.read()
+    rn_cfg = os.path.join(tmp, "zsclip_rn_tiny_params.py")
+    with open(rn_cfg, "w") as f:
+        f.write(text.replace("arch='ViT-T/8@32'", "arch='RN-T@32'"))
+    saved = {k: os.environ.pop(k, None) for k in ("EVENTCLIP_BPE_PATH",)}
+    os.environ["EVENTCLIP_ALLOW_RANDOM_TEXT"] = "1"
+    out = {}
+    try:
+        for arch, config in (("ViT-T/8@32", src), ("RN-T@32", rn_cfg)):
+            clip = init_clip_params(clip_arch_config(arch),
+                                    torch.Generator().manual_seed(12))
+            pt = os.path.join(tmp, arch.replace("/", "_") + ".pt")
+            torch.save(openai_state_dict(clip), pt)
+            got = {}
+            for where in ("card", "cpu"):
+                save = os.path.join(tmp, f"pseudo-{arch[:2]}-{where}")
+                argv = ["--params", config, "--clip_ckpt", pt, "--data_root",
+                        tree, "--fp32", "--save_path", save, "--tta",
+                        "--tta_consistent", "--tta_min_prob",
+                        "--conf_thresh", "0.5"]
+                t0 = time.perf_counter()
+                res, _, report = run_gen_data(
+                    argv + (["--cpu"] if where == "cpu" else []))
+                got[where] = (report, tree_map(save),
+                              time.perf_counter() - t0)
+            equal = got["card"][:2] == got["cpu"][:2]
+            sel = [ln.strip() for ln in got["card"][0].splitlines()
+                   if "\tSelect " in ln]
+            log(f"[{tag}] (d) gen_data {arch} f32 card vs CPU: reports and "
+                f"trees equal: {equal} ({len(got['card'][1])} entries; "
+                f"{sel}; {got['card'][2]:.1f} / {got['cpu'][2]:.1f} s)")
+            if not equal:
+                raise AssertionError(f"gen_data {arch}: card and CPU differ")
+            out[arch] = dict(equal=equal, entries=len(got["card"][1]),
+                             selection=sel)
+    finally:
+        os.environ.pop("EVENTCLIP_ALLOW_RANDOM_TEXT")
+        for k, v in saved.items():
+            if v is not None:
+                os.environ[k] = v
+    return out
+
+
+def pseudo_labels(dev, streams, files, tmp):
+    """Phase 11: (a) RN50, (b) the three teachers, (c) the student, (d)
+    gen_data card vs CPU. Returns the record and the RN50 path's
+    launches."""
+    tag = "11 pseudo"
+    t_phase = time.perf_counter()
+    rn50, rn50_launches = resnet_phase(dev, streams, files, tmp)
+    out = {"rn50": rn50}
+    out.update(pseudo_label_phase(dev, files, tmp))
+    out["card_vs_cpu"] = gen_data_card_vs_cpu(tmp)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{tag}] phase 11 in {out['phase_s']:.1f} s")
+    return out, rn50_launches
+
+
 def main() -> int:
     import torch
 
@@ -1699,6 +2251,9 @@ def main() -> int:
         gen, "ViT-L/14", 320, 257, 16, 64, torch.bfloat16, False, dev)
     text = check_attention(gen, "text ViT-L/14", 101, 77, 12, 64,
                            torch.float32, True, dev)
+    # RN50's text tower (phase 11): width 512, 8 heads
+    rec["rn50"] = {"qkv_attention": check_attention(
+        gen, "text RN50", 101, 77, 8, 64, torch.float32, True, dev)}
     check_attention(gen, "ViT-T/8@32", 80, 17, 2, 32, torch.float32, False,
                     dev)
     check_attention(gen, "ViT-T/8@32 bf16", 80, 17, 2, 32, torch.bfloat16,
@@ -1879,13 +2434,17 @@ def main() -> int:
         if phase["profile"] is not None:
             phase["profile"].pop("rows", None)
 
-    # -- 9, 10 -----------------------------------------------------------
-    # phase 10 serves from phase 9's files: one temporary directory
+    # -- 9, 10, 11 -------------------------------------------------------
+    # phases 10 and 11 run on phase 9's files: one temporary directory
     with tempfile.TemporaryDirectory() as tmp:
         data, rec["cli"], files = data_to_accuracy(dev, gen, tmp)
         options, pruned_row, pruned_launches = serving_options(
             dev, gen, pred, clip, text_feats, names, requests[0][1],
             native_calls, files, data["trained_eval"])
+        del pred, cpu_pred, clip
+        torch.cuda.empty_cache()
+        pseudo, rn50_launches = pseudo_labels(dev, requests[0][1], files,
+                                              tmp)
     os.environ.pop("EVENTCLIP_BPE_PATH")
     rec["serve_pruned"] = {"qkv_attention": pruned_row}
 
@@ -1905,7 +2464,7 @@ def main() -> int:
     counts = {"serve": launches, "train": train_launches,
               "train_f32": train32_launches, "train_fs": train_fs_launches,
               "cli": data["eval_cli"]["launches"],
-              "serve_pruned": pruned_launches}
+              "serve_pruned": pruned_launches, "rn50": rn50_launches}
     by_path = {p: {k: dict(launches=counts[p].get(k, 0), **r)
                    for k, r in recs.items()}
                for p, recs in rec.items() if p in counts}
@@ -1919,7 +2478,7 @@ def main() -> int:
         "rounding_orders": orders,
         "requests": per_request, "train": train, "update_card_vs_cpu": update,
         "train_f32": train32, "train_fs": train_fs, "randaugment": augment,
-        "serve_options": options, **data}
+        "serve_options": options, "pseudo_labels": pseudo, **data}
     log(json.dumps(line))
     log(card)
     print(json.dumps({"ok": True, "device": {

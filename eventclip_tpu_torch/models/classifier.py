@@ -31,9 +31,10 @@ from torch.profiler import record_function
 
 from .adapter import (Adapter, AdapterConfig, apply_adapter,
                       init_adapter_params)
-from .clip.config import CLIPConfig
+from .clip.config import CLIPConfig, ResNetVisionConfig
 from .clip.model import (CLIP, LoRA, encode_image, encode_text,
                          init_clip_params, init_lora_params)
+from .clip.resnet import encode_image_resnet
 from .clip.tokenizer import SimpleTokenizer, tokenize
 
 # the reference's prompt template (configs override it with
@@ -57,7 +58,7 @@ class ClassifierConfig:
     remat: bool = False  # recompute transformer blocks in the backward (FT)
     # eval-time ViT token pruning: keep the K highest-variance patches
     # (sparse event frames are mostly uniform background); None = full
-    # sequence. Ignored during training.
+    # sequence. Ignored during training and for ResNet towers.
     keep_tokens: Optional[int] = None
 
     def __post_init__(self):
@@ -256,11 +257,18 @@ def aggregate_probs(logits: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 def _encode_views(params: ClassifierParams, cfg: ClassifierConfig,
                   flat_imgs: torch.Tensor, train: bool) -> torch.Tensor:
-    """[V, 3, S, S] -> [V, C] raw (un-normalized) f32 encoder features.
-    Only FT records a graph through the tower; ZS and FS encode under
+    """[V, 3, S, S] -> [V, C] raw (un-normalized) f32 encoder features,
+    through the ViT or, for a ResNet config, the ResNet tower. Only FT
+    records a graph through the tower; ZS and FS encode under
     no_grad (the frozen tower, the JAX package's stop_gradient)."""
     trains_tower = cfg.model == "FTCLIP"
     with torch.set_grad_enabled(trains_tower and torch.is_grad_enabled()):
+        if isinstance(cfg.clip.vision, ResNetVisionConfig):
+            # keep_tokens is a ViT option: a ResNet ignores it
+            assert params.lora is None, \
+                "LoRA targets the ViT attention (lora.py:385)"
+            return encode_image_resnet(params.clip.visual, flat_imgs,
+                                       dtype=cfg.dtype)
         return encode_image(
             params.clip.visual, flat_imgs, dtype=cfg.dtype, lora=params.lora,
             remat=cfg.remat and trains_tower and train,

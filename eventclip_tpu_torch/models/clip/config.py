@@ -2,9 +2,7 @@
 
 Copy of eventclip_tpu/models/clip/config.py (shape hyper-parameters of
 OpenAI's released CLIP checkpoints), with its own copy of the ResNet config
-dataclass so the table needs no JAX. The ResNet towers themselves come in a
-later slice; their entries are here so arch lookups agree with the JAX
-package.
+dataclass so the table needs no JAX (the towers: models/clip/resnet.py).
 """
 
 from __future__ import annotations
@@ -38,6 +36,18 @@ class ResNetVisionConfig:
     width: int  # stem width (stage widths are width * 2^i, expansion 4)
     heads: int  # attention-pool heads
     output_dim: int
+
+    @property
+    def stage_widths(self) -> Tuple[int, ...]:
+        return tuple(self.width * (2 ** i) for i in range(4))
+
+    @property
+    def embed_dim(self) -> int:
+        return self.width * 32  # final channels = width * 8 * expansion(4)
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // 32
 
 
 @dataclasses.dataclass(frozen=True)

@@ -16,11 +16,17 @@ sides.
 checkpoints all decide on and store under the JAX paths, so each package
 reads the other's trainable checkpoints.
 
+ResNet towers (models/clip/resnet.py) use the same map: their folded
+batch norms name `scale` `weight` too, convolutions are bare leaves, and
+the blocks after a stage's first, stacked under the JAX package's `rest`,
+unstack into `rest.layers.<i>` as transformer blocks do under `blocks`.
+
 Released OpenAI checkpoints (a torch state dict, or the .pt archives)
 convert to the JAX package's tree as numpy first (`convert_clip_state_dict`,
-`load_clip_checkpoint`: a copy of eventclip_tpu/models/clip/convert.py's
-ViT branch, every leaf cast to float32), and `clip_from_jax` builds the
-port's towers from that tree. ResNet towers are ROADMAP item 4.
+`load_clip_checkpoint`: a copy of eventclip_tpu/models/clip/convert.py,
+ViT and ResNet branches, every leaf cast to float32, batch norms folded by
+the same numpy operations), and `clip_from_jax` builds the port's towers
+from that tree.
 """
 
 from __future__ import annotations
@@ -30,7 +36,7 @@ from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from .config import CLIPConfig, TextConfig, VisionConfig
+from .config import CLIPConfig, ResNetVisionConfig, TextConfig, VisionConfig
 from .model import CLIP
 
 
@@ -44,7 +50,7 @@ def jax_path(name: str) -> Tuple[str, Optional[int]]:
         i = parts.index("layers")
         layer = int(parts[i + 1])
         del parts[i:i + 2]
-    if parts[-1] == "weight":  # only layer norms have one
+    if parts[-1] == "weight":  # only layer norms and folded BNs have one
         parts[-1] = "scale"
     return "/".join(parts), layer
 
@@ -75,10 +81,11 @@ def port_leaves(path: str, value) -> Iterable[Tuple[str, np.ndarray]]:
     parts = path.split("/")
     if parts[-1] == "scale":
         parts[-1] = "weight"
-    if "blocks" not in parts:
+    stacked = [p for p in ("blocks", "rest") if p in parts]
+    if not stacked:
         yield ".".join(parts), value
         return
-    i = parts.index("blocks") + 1
+    i = parts.index(stacked[0]) + 1
     for layer in range(value.shape[0]):
         leaf = value[layer]
         if _fused_qkv(path):  # [3, D(, D)] -> [3D(, D)]
@@ -147,11 +154,8 @@ def clip_from_jax(tree: Dict[str, Any], cfg: CLIPConfig,
 
 
 # ---------------------------------------------------------------------------
-# released OpenAI checkpoints (ViT) -> the JAX package's tree, as numpy
+# released OpenAI checkpoints -> the JAX package's tree, as numpy
 # ---------------------------------------------------------------------------
-
-RESNET_REFUSAL = ("ResNet CLIP towers (RN50...RN50x64) are not ported yet "
-                  "(ROADMAP item 4); use a ViT checkpoint")
 
 
 def _np(t) -> np.ndarray:
@@ -160,36 +164,56 @@ def _np(t) -> np.ndarray:
     return np.asarray(t, dtype=np.float32)
 
 
-def _refuse_resnet(sd: Mapping[str, Any]) -> None:
-    if "visual.attnpool.c_proj.weight" in sd:
-        raise NotImplementedError(RESNET_REFUSAL)
+def _n_layers(sd: Mapping[str, Any], prefix: str, at: int) -> int:
+    return 1 + max(int(k.split(".")[at]) for k in sd if k.startswith(prefix))
+
+
+def _text_config(sd: Mapping[str, Any], output_dim: int) -> TextConfig:
+    t_width = _np(sd["ln_final.weight"]).shape[0]
+    vocab, _ = _np(sd["token_embedding.weight"]).shape
+    return TextConfig(
+        vocab_size=vocab, context_length=_np(sd["positional_embedding"])
+        .shape[0], width=t_width,
+        layers=_n_layers(sd, "transformer.resblocks.", 2),
+        heads=max(t_width // 64, 1), output_dim=output_dim)
 
 
 def infer_config_from_state_dict(sd: Mapping[str, Any]) -> CLIPConfig:
-    """Recover a ViT checkpoint's architecture from its shapes."""
-    _refuse_resnet(sd)
+    """Recover a checkpoint's architecture from its shapes."""
+    if "visual.attnpool.c_proj.weight" in sd:
+        return _infer_resnet_config(sd)
     conv1 = _np(sd["visual.conv1.weight"])
     width, _, patch, _ = conv1.shape
     seq_len = _np(sd["visual.positional_embedding"]).shape[0]
     grid = int(round((seq_len - 1) ** 0.5))
     image_size = grid * patch
-    v_layers = 1 + max(int(k.split(".")[3]) for k in sd
-                       if k.startswith("visual.transformer.resblocks."))
     output_dim = _np(sd["visual.proj"]).shape[1]
-    t_width = _np(sd["ln_final.weight"]).shape[0]
-    t_layers = 1 + max(int(k.split(".")[2]) for k in sd
-                       if k.startswith("transformer.resblocks."))
-    vocab, _ = _np(sd["token_embedding.weight"]).shape
-    context = _np(sd["positional_embedding"]).shape[0]
     return CLIPConfig(
         name=f"ViT-{width}/{patch}@{image_size}",
-        vision=VisionConfig(image_size=image_size, patch_size=patch,
-                            width=width, layers=v_layers,
-                            heads=max(width // 64, 1),
-                            output_dim=output_dim),
-        text=TextConfig(vocab_size=vocab, context_length=context,
-                        width=t_width, layers=t_layers,
-                        heads=max(t_width // 64, 1), output_dim=output_dim),
+        vision=VisionConfig(
+            image_size=image_size, patch_size=patch, width=width,
+            layers=_n_layers(sd, "visual.transformer.resblocks.", 3),
+            heads=max(width // 64, 1), output_dim=output_dim),
+        text=_text_config(sd, output_dim),
+    )
+
+
+def _infer_resnet_config(sd: Mapping[str, Any]) -> CLIPConfig:
+    """A ModifiedResNet checkpoint's architecture. The pool's heads are
+    width * 32 // 64 and the name `RN-w<width>`, as the JAX package infers
+    them (the arch table's own heads may differ: RN50x64 has 64)."""
+    width = _np(sd["visual.conv3.weight"]).shape[0]  # stem output width
+    layers = tuple(_n_layers(sd, f"visual.layer{s}.", 2)
+                   for s in range(1, 5))
+    output_dim = _np(sd["visual.attnpool.c_proj.weight"]).shape[0]
+    n_tokens = _np(sd["visual.attnpool.positional_embedding"]).shape[0]
+    grid = int(round((n_tokens - 1) ** 0.5))
+    return CLIPConfig(
+        name=f"RN-w{width}",
+        vision=ResNetVisionConfig(
+            image_size=grid * 32, layers=layers, width=width,
+            heads=width * 32 // 64, output_dim=output_dim),
+        text=_text_config(sd, output_dim),
     )
 
 
@@ -241,6 +265,63 @@ def convert_vit_visual(sd: Mapping[str, Any],
     }
 
 
+def _fold_bn(sd: Mapping[str, Any], prefix: str,
+             eps: float = 1e-5) -> Dict[str, np.ndarray]:
+    """Frozen batch-norm statistics -> an affine scale / bias, by the JAX
+    package's f32 numpy operations (so the leaves are bit-equal)."""
+    gamma = _np(sd[f"{prefix}.weight"])
+    beta = _np(sd[f"{prefix}.bias"])
+    mean = _np(sd[f"{prefix}.running_mean"])
+    var = _np(sd[f"{prefix}.running_var"])
+    scale = gamma / np.sqrt(var + eps)
+    return {"scale": scale, "bias": beta - mean * scale}
+
+
+def _convert_resnet_visual(sd: Mapping[str, Any],
+                           cfg: ResNetVisionConfig) -> Dict[str, Any]:
+    """ModifiedResNet keys (`visual.*`) -> the JAX visual tree: folded
+    batch norms, each stage's blocks after the first stacked as `rest`."""
+    def conv_bn(pre, names):
+        out = {}
+        for i in names:
+            out[f"conv{i}"] = _np(sd[f"{pre}.conv{i}.weight"])
+            out[f"bn{i}"] = _fold_bn(sd, f"{pre}.bn{i}")
+        return out
+
+    def block(pre):
+        p = conv_bn(pre, (1, 2, 3))
+        # CLIP's downsample = Sequential(avgpool '-1', conv '0', bn '1')
+        if f"{pre}.downsample.0.weight" in sd:
+            p["downsample"] = {
+                "conv": _np(sd[f"{pre}.downsample.0.weight"]),
+                "bn": _fold_bn(sd, f"{pre}.downsample.1")}
+        return p
+
+    def stack(trees):
+        return {k: stack([t[k] for t in trees]) if isinstance(v, dict)
+                else np.stack([t[k] for t in trees])
+                for k, v in trees[0].items()}
+
+    visual: Dict[str, Any] = {"stem": conv_bn("visual", (1, 2, 3))}
+    for s, n in enumerate(cfg.layers, start=1):
+        pre = f"visual.layer{s}"
+        rest = (stack([block(f"{pre}.{i}") for i in range(1, n)])
+                if n > 1 else None)
+        visual[f"layer{s}"] = {"block0": block(f"{pre}.0"), "rest": rest}
+
+    def lin(name):
+        return {"w": _np(sd[f"visual.attnpool.{name}.weight"]),
+                "b": _np(sd[f"visual.attnpool.{name}.bias"])}
+
+    visual["attnpool"] = {
+        "positional_embedding": _np(
+            sd["visual.attnpool.positional_embedding"]),
+        **{name: lin(name) for name in ("q_proj", "k_proj", "v_proj",
+                                        "c_proj")},
+    }
+    return visual
+
+
 def convert_clip_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
     """OpenAI state dict -> {'visual', 'text', 'logit_scale'} (the JAX
     package's tree, float32 numpy leaves)."""
@@ -253,8 +334,11 @@ def convert_clip_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
         "projection": _np(sd["text_projection"]),
         "blocks": _stack_blocks(sd, "transformer.resblocks", cfg.text.layers),
     }
+    visual = (_convert_resnet_visual(sd, cfg.vision)
+              if isinstance(cfg.vision, ResNetVisionConfig)
+              else convert_vit_visual(sd, cfg.vision.layers))
     return {
-        "visual": convert_vit_visual(sd, cfg.vision.layers),
+        "visual": visual,
         "text": text,
         "logit_scale": _np(sd["logit_scale"]).reshape(()),
     }

@@ -1,9 +1,10 @@
 """CLIP encoders as PyTorch modules.
 
 Port of eventclip_tpu/models/clip/model.py (the OpenAI CLIP ViT image tower
-and causal text tower). Parameters keep the JAX package's names and
-layouts — weights in torch [out, in] order, the fused in-projection as one
-[3D, D] matrix — but each tower holds a `ModuleList` of blocks instead of
+and causal text tower; `CLIP` builds models/clip/resnet.py's tower for a
+ResNet config). Parameters keep the JAX package's names and layouts —
+weights in torch [out, in] order, the fused in-projection as one [3D, D]
+matrix — but each tower holds a `ModuleList` of blocks instead of
 `[L, ...]`-stacked arrays (models/clip/convert.py bridges the two).
 
 Numerics follow the JAX package: parameters are stored in float32 and
@@ -37,7 +38,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import fused_qkv_attention
 from ...ops.quant import AmaxRecorder, QWeight, qdense
-from .config import CLIPConfig, TextConfig, VisionConfig
+from .config import CLIPConfig, ResNetVisionConfig, TextConfig, VisionConfig
+from .resnet import ResNetVisionTower, init_resnet_visual_
 
 
 # ---------------------------------------------------------------------------
@@ -271,11 +273,11 @@ class TextTower(nn.Module):
 class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig, device=None):
         super().__init__()
-        if not isinstance(cfg.vision, VisionConfig):
-            raise NotImplementedError(
-                f"{cfg.name}: the ResNet towers are not ported yet")
         self.cfg = cfg
-        self.visual = VisionTower(cfg.vision, device=device)
+        tower = (ResNetVisionTower if isinstance(cfg.vision,
+                                                 ResNetVisionConfig)
+                 else VisionTower)
+        self.visual = tower(cfg.vision, device=device)
         self.text = TextTower(cfg.text, device=device)
         self.logit_scale = _param((), device=device)
 
@@ -365,16 +367,20 @@ def _init_blocks(blocks: Transformer, width: int, gen: torch.Generator):
 def init_clip_params(cfg: CLIPConfig, generator: torch.Generator,
                      device=None) -> CLIP:
     """Random CLIP towers (OpenAI init scheme, as the JAX package's
-    `init_clip_params`) drawn from `generator`, built on `device`
-    (default: the generator's device). Biases zero, norms identity."""
+    `init_clip_params`; a ResNet image tower as its `init_resnet_visual`)
+    drawn from `generator`, built on `device` (default: the generator's
+    device). Biases zero, norms identity."""
     device = generator.device if device is None else torch.device(device)
     model = CLIP(cfg, device=device)
     v, t = model.visual, model.text
-    scale = cfg.vision.width ** -0.5
-    for p in (v.patch_embed, v.class_embedding, v.positional_embedding,
-              v.proj):
-        _normal_(p, scale, generator)
-    _init_blocks(v.blocks, cfg.vision.width, generator)
+    if isinstance(v, ResNetVisionTower):
+        init_resnet_visual_(v, generator)
+    else:
+        scale = cfg.vision.width ** -0.5
+        for p in (v.patch_embed, v.class_embedding, v.positional_embedding,
+                  v.proj):
+            _normal_(p, scale, generator)
+        _init_blocks(v.blocks, cfg.vision.width, generator)
     _normal_(t.token_embedding, 0.02, generator)
     _normal_(t.positional_embedding, 0.01, generator)
     _normal_(t.projection, cfg.text.width ** -0.5, generator)
@@ -419,6 +425,10 @@ def init_lora_params(cfg: VisionConfig, spec, generator: torch.Generator,
     parsed = parse_lora_spec(spec)
     if parsed is None:
         return None
+    if not isinstance(cfg, VisionConfig):
+        # the JAX package fails here too (a TypeError on the stage tuple)
+        raise TypeError("LoRA targets the ViT attention (lora.py:385); a "
+                        "ResNet tower has none")
     device = generator.device if device is None else torch.device(device)
     r = parsed["rank"]
     lora = LoRA({t: LoRAFactors(cfg.layers, r, cfg.width, device=device)

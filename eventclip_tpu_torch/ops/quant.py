@@ -76,6 +76,14 @@ class AmaxRecorder(nn.Module):
         return self.w
 
 
+def _require_vit(visual: nn.Module) -> None:
+    if not (hasattr(visual, "blocks") and hasattr(visual, "patch_embed")):
+        raise ValueError(
+            "int8 quantization supports the ViT towers only "
+            "(ResNet archs run bf16)"
+        )
+
+
 def quantize_weight(w: torch.Tensor) -> QWeight:
     """Symmetric per-output-channel int8: w is [..., out, in] (torch layout).
     `torch.round` is half-to-even, like `jnp.round`."""
@@ -187,6 +195,7 @@ def calibrate_visual_amax(visual: nn.Module, images: torch.Tensor, *,
     stand in for. It runs as a copy with an AmaxRecorder at each site."""
     from ..models.clip.model import encode_image
 
+    _require_vit(visual)
     assert not isinstance(visual.patch_embed, QWeight), (
         "calibrate on the FLOAT tower (before quantize_visual)"
     )
@@ -211,11 +220,7 @@ def quantize_classifier_params(model_params: nn.Module,
     ones quantized). ViT towers only. act_amax: optional calibration maxima
     for static activation scales (see quantize_visual)."""
     visual = model_params.clip.visual
-    if not (hasattr(visual, "blocks") and hasattr(visual, "patch_embed")):
-        raise ValueError(
-            "int8 quantization supports the ViT towers only "
-            "(ResNet archs run bf16)"
-        )
+    _require_vit(visual)
     out = _shared_copy(model_params)
     out.clip.visual = quantize_visual(visual, act_amax=act_amax)
     return out

@@ -13,7 +13,7 @@ On a 3-class synthetic N-Caltech tree, with a tiny OpenAI-layout `.pt`
   and its reference-layout `.pth` export evaluate to the JAX CLI's
   accuracies, the `.pth` through a --train_shots sweep;
 - `--int8`, `--int8_calib` and `--prune_tokens` give the root CLI's
-  printed accuracies;
+  printed accuracies, and so does `--arch RN-T@32` (a ResNet tower);
 - the argument overrides equal the root CLIs', and the flags that are
   not ported raise SystemExit naming their ROADMAP item.
 """
@@ -24,6 +24,7 @@ import os
 import shutil
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -219,6 +220,47 @@ def test_int8_and_pruning_flags_equal_root_evaluate(files, capsys,
     assert isinstance(visual.patch_embed, torch.nn.Parameter)
     if "--prune_tokens" in flags:
         assert res["ctx"]["cls_cfg"].keep_tokens == 8
+
+
+def test_resnet_arch_eval_equals_root(files, capsys, monkeypatch,
+                                      tmp_path):
+    """`--arch RN-T@32` (the reference's arch sweep takes five ResNets):
+    the same printed sample count and accuracies as the root test.py,
+    towers from one `.npz`, and one set of text features handed to both
+    (RN-T@32's 128-id text tower cannot embed BPE ids)."""
+    import eventclip_tpu.engine.trainer as ref_trainer
+    import eventclip_tpu.models.clip.model as ref_model
+    from eventclip_tpu_torch.models.clip import convert, model
+    from eventclip_tpu_torch.models.clip.config import clip_arch_config
+
+    tree, _, _ = files
+    clip = model.init_clip_params(clip_arch_config("RN-T@32"),
+                                  torch.Generator().manual_seed(8))
+    npz = str(tmp_path / "rn.npz")
+    np.savez(npz, **convert.to_jax_flat(clip.named_parameters()))
+    feats = np.random.default_rng(3).normal(size=(3, 32)).astype(np.float32)
+    feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
+    monkeypatch.setattr(ref_trainer, "build_text_features",
+                        lambda *a: jnp.asarray(feats))
+    monkeypatch.setattr(cli_test, "build_text_features",
+                        lambda *a: torch.from_numpy(feats))
+    init = ref_model.init_clip_params
+    # the JAX .npz route reads only a random tree's structure and shapes
+    monkeypatch.setattr(ref_model, "init_clip_params", lambda rng, cfg: (
+        jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype),
+                               jax.eval_shape(lambda r: init(r, cfg),
+                                              rng))))
+    argv = ["--params", ZS, "--arch", "RN-T@32", "--clip_ckpt", npz,
+            "--data_root", tree, "--fp32"]
+    res = cli_test.main(argv + ["--cpu"])
+    got = _eval_lines(capsys.readouterr().out)
+    args = ref_args(REF_TEST, argv, monkeypatch)
+    params, _ = REF_TEST.load_and_override(args)
+    want = REF_TEST.evaluate(params, args)
+    assert got == _eval_lines(capsys.readouterr().out)
+    assert got[0] == "Evaluated 12 samples"
+    assert (res["probs_acc"], res["logits_acc"]) == want
+    assert res["ctx"]["cls_cfg"].clip.name == "RN-T@32"
 
 
 @pytest.mark.parametrize("cli,flags,item", [

@@ -1,12 +1,15 @@
 """The port's checkpoint converters equal the JAX package's.
 
 - OpenAI CLIP state dicts (f32 and the releases' fp16, in memory and as a
-  `.pt` written with torch.save) convert to array-equal numpy trees and
+  `.pt` written with torch.save), ViT and ResNet (batch norms folded, each
+  stage's later blocks stacked), convert to array-equal numpy trees and
   infer the same architecture; the towers the port loads from them give
   the JAX encoders' features within the f32 tolerances of
   tests/test_torch_clip.py (rtol 2e-4, atol 2e-5).
-- `resolve_clip_params` loads a `.pt` and a converted `.npz` to the JAX
-  package's towers and refuses what the JAX package refuses.
+- `resolve_clip_params` loads a `.pt` and a converted `.npz` (ViT and
+  ResNet) to the JAX package's towers and refuses what the JAX package
+  refuses; FS checkpoints of a ResNet classifier load both ways, and an
+  FT checkpoint with a ResNet tower is refused in both packages.
 - Reference method checkpoints (adapter + text_feats, an FT visual tower,
   LoRA on qkv and on qkvo) convert to equal trees in both directions, and
   a `.pth` loads into the port's ClassifierParams through load_checkpoint.
@@ -32,13 +35,15 @@ from eventclip_tpu.models.clip.config import clip_arch_config as ref_arch
 from eventclip_tpu.models.partition import trainable_mask, trainable_subtree
 from eventclip_tpu.utils.config import load_params as ref_load_params
 from eventclip_tpu_torch.engine import trainer
-from eventclip_tpu_torch.engine.checkpoint import load_checkpoint
+from eventclip_tpu_torch.engine.checkpoint import (load_checkpoint,
+                                                   save_trainable)
 from eventclip_tpu_torch.models import classifier
 from eventclip_tpu_torch.models.clip import convert, convert_method, model
 from eventclip_tpu_torch.models.clip.config import clip_arch_config
 from eventclip_tpu_torch.utils.config import load_params
 
 from .test_convert_method import ref_adapter_module
+from .test_resnet import ModifiedResNetOracle, oracle_state_dict
 from .torch_oracle import random_clip_state_dict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -116,13 +121,139 @@ def test_loaded_towers_match_jax_features(state_dict):
                                atol=2e-5)
 
 
-def test_resnet_state_dict_is_refused_with_its_item():
-    sd = random_clip_state_dict(np.random.default_rng(0))
-    sd["visual.attnpool.c_proj.weight"] = torch.zeros(48, 64)
-    for fn in (convert.infer_config_from_state_dict,
-               convert.convert_clip_state_dict):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-            fn(sd)
+@pytest.fixture(scope="module", params=["float32", "float16"])
+def resnet_state_dict(request):
+    """tests/test_resnet.py's (1, 2, 1, 1) width-16 oracle in OpenAI's
+    layout, with drawn batch-norm statistics, in f32 and in fp16."""
+    torch.manual_seed(0)
+    m = ModifiedResNetOracle((1, 2, 1, 1), 16, 64, 8, 32).eval()
+    with torch.no_grad():
+        for mod in m.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.running_mean.normal_(0.0, 0.2)
+                mod.running_var.uniform_(0.5, 1.5)
+                mod.weight.uniform_(0.5, 1.5)
+    sd = oracle_state_dict(m)
+    return {k: v.to(getattr(torch, request.param))
+            if v.is_floating_point() else v for k, v in sd.items()}
+
+
+def test_resnet_state_dict_converts_like_jax(resnet_state_dict, tmp_path):
+    """The ResNet branch: the same config, and every leaf bit-equal to
+    the JAX converter's (batch norms folded by the same f32 numpy
+    operations; each stage's later blocks stacked under `rest`), in
+    memory and through a `.pt` on disk."""
+    sd = resnet_state_dict
+    got = convert.convert_clip_state_dict(sd)
+    assert_trees_equal(got, ref_convert.convert_clip_state_dict(sd))
+    cfg = convert.infer_config_from_state_dict(sd)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        ref_convert.infer_config_from_state_dict(sd))
+    assert cfg.vision.layers == (1, 2, 1, 1) and cfg.vision.heads == 8
+    assert got["visual"]["layer2"]["rest"]["conv1"].shape == (1, 32, 128,
+                                                              1, 1)
+    path = str(tmp_path / "rn.pt")
+    torch.save(sd, path)
+    tree, cfg = convert.load_clip_checkpoint(path)
+    ref_tree, ref_cfg = ref_convert.load_clip_checkpoint(path)
+    assert_trees_equal(tree, ref_tree)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
+
+
+@pytest.fixture(scope="module")
+def resnet_files(tmp_path_factory):
+    """An RN-T@32 CLIP in OpenAI's layout (chip_smoke's export of random
+    port towers, drawn BN statistics), as a fp16 `.pt` and, converted by
+    the JAX package, as an `.npz`."""
+    d = tmp_path_factory.mktemp("rn")
+    clip = model.init_clip_params(clip_arch_config("RN-T@32"),
+                                  torch.Generator().manual_seed(6))
+    sd = chip_smoke.openai_state_dict(clip, torch.float16)
+    pt = str(d / "rn.pt")
+    torch.save(sd, pt)
+    npz = str(d / "rn.npz")
+    np.savez(npz, **flat(ref_convert.convert_clip_state_dict(sd)))
+    return pt, npz
+
+
+@pytest.mark.parametrize("kind", ["pt", "npz"])
+def test_resnet_resolve_clip_params_loads_like_jax(resnet_files, kind,
+                                                   monkeypatch):
+    """resolve_clip_params takes a ResNet `.pt` and a ResNet `.npz` to the
+    JAX package's towers, the arch table's config (RN-T@32) given. (The
+    JAX `.npz` route reads only the structure and shapes of a random
+    tree, whose every leaf the file replaces; its init is traced for
+    them, not run eagerly, which takes seconds for a ResNet.)"""
+    init = ref_model.init_clip_params
+    monkeypatch.setattr(ref_model, "init_clip_params", lambda rng, cfg: (
+        jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype),
+                               jax.eval_shape(lambda r: init(r, cfg),
+                                              rng))))
+    path = resnet_files[0 if kind == "pt" else 1]
+    p = load_params(os.path.join(ROOT, "configs/debug/zsclip_tiny_params.py"))
+    clip, pretrained = trainer.resolve_clip_params(
+        p, clip_arch_config("RN-T@32"), torch.Generator().manual_seed(0),
+        path, device="cpu")
+    ref, ref_pretrained = ref_trainer.resolve_clip_params(
+        p, ref_arch("RN-T@32"), jax.random.PRNGKey(0), path)
+    assert pretrained and ref_pretrained
+    got = convert.to_jax_flat(clip.named_parameters())
+    want = flat(ref)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    copied = trainer.copy_clip(clip, clip.cfg, "cpu")
+    assert trainer.snapshot_logit_scale(
+        classifier.ClassifierConfig(model="ZSCLIP", clip=clip.cfg), copied,
+        True).logit_scale == pytest.approx(1 / 0.07, rel=1e-3)
+
+
+def test_resnet_fs_checkpoints_load_both_ways(tmp_path):
+    """FS checkpoints of an RN-T@32 classifier (adapter + prompts, the
+    frozen ResNet tower left out) as `.npz` and `.pth`: the JAX package's
+    file loads into the port, the port's into the JAX package."""
+    cfg_path = os.path.join(ROOT, "configs/debug/fsclip_tiny_params.py")
+    pc = load_params(cfg_path)
+    pc.clip_dict["arch"] = "RN-T@32"
+    ref_cfg = ref_classifier.build_classifier_config(pc, ref_arch("RN-T@32"))
+    clip = model.init_clip_params(clip_arch_config("RN-T@32"),
+                                  torch.Generator().manual_seed(1))
+    clip_tree = convert_method.unflatten(convert.to_jax_flat(
+        clip.named_parameters()))
+    ref_params = ref_classifier.init_classifier_params(
+        jax.random.PRNGKey(5), ref_cfg, clip_params=clip_tree, n_classes=3)
+    ref_npz = str(tmp_path / "ref.npz")
+    ref_ckpt.save_trainable(ref_npz, ref_cfg, ref_params)
+    sub = convert_method.unflatten(flat(trainable_subtree(
+        ref_params, trainable_mask(ref_cfg, ref_params))))
+    pth = str(tmp_path / "best.pth")
+    convert_method.save_method_checkpoint(pth, sub)
+
+    cfg = classifier.build_classifier_config(pc, clip_arch_config("RN-T@32"))
+    want = flat(sub)
+    for path in (ref_npz, pth):
+        params = classifier.init_classifier_params(
+            cfg, torch.Generator().manual_seed(0), clip=clip, n_classes=3)
+        load_checkpoint(path, target=params)
+        got = convert.to_jax_flat(params.named_parameters())
+        assert {k.split("/")[0] for k in want} == {"adapter", "text_feats"}
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+    ours = str(tmp_path / "ours.npz")
+    save_trainable(ours, cfg, params)
+    loaded, _ = ref_ckpt.load_checkpoint(ours)
+    assert sorted(loaded) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_array_equal(loaded[k], v, err_msg=k)
+
+
+def test_resnet_ft_checkpoint_is_refused_like_jax():
+    sd = {f"model.{k}": v for k, v in oracle_state_dict(
+        ModifiedResNetOracle((1, 1, 1, 1), 8, 32, 4, 32)).items()
+        if k.startswith("visual.")}
+    for module in (convert_method, ref_method):
+        with pytest.raises(ValueError, match="FT checkpoints with ResNet"):
+            module.convert_method_state_dict(sd)
 
 
 @pytest.mark.parametrize("dtype", [None, torch.float16])

@@ -219,8 +219,9 @@ def test_training_path_imports_no_jax():
     """A fresh interpreter that imports every module of the port and
     chip_smoke.py, then takes one FT update of a tiny tower with remat and
     one FS update on event windows with RandAugment, builds a model with
-    models.factory, tokenizes prompts, reads a split asset and converts
-    towers through the OpenAI key layout, has neither jax, nor regex, nor
+    models.factory, tokenizes prompts, reads a split asset, converts
+    towers (ViT and ResNet) through the OpenAI key layout, runs a ResNet
+    tower and the pseudo-labelling filter, has neither jax, nor regex, nor
     any eventclip_tpu module loaded."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
@@ -287,6 +288,26 @@ def test_training_path_imports_no_jax():
         assert datasets.build_dataset and cli_test.find_weight
         sd = chip_smoke.openai_state_dict(model.params.clip)
         assert convert.infer_config_from_state_dict(sd).vision.layers == 2
+        # the ninth slice: a ResNet tower through its `.pt` layout, and
+        # the pseudo-labelling CLI's filter
+        import numpy as np
+        from eventclip_tpu_torch.cli import gen_data
+        from eventclip_tpu_torch.models.clip.model import init_clip_params
+        from eventclip_tpu_torch.models.clip.resnet import (
+            encode_image_resnet)
+        rn = init_clip_params(clip_arch_config("RN-T@32"),
+                              torch.Generator().manual_seed(0))
+        rn = convert.clip_from_jax(convert.convert_clip_state_dict(
+            chip_smoke.openai_state_dict(rn)), rn.cfg, device="cpu")
+        x = encode_image_resnet(rn.visual, torch.randn(2, 3, 32, 32))
+        assert x.shape == (2, 32)
+        sel = gen_data.Selection(["a", "b"])
+        gen_data.filter_batch(
+            sel, np.array([[.9, .1]], np.float32), np.array([0]),
+            np.array([True]), ["r/a/0.npy"], set(), tta=False,
+            tta_consistent=False, tta_min_prob=False, conf_thresh=.5,
+            topk=-1)
+        assert sel.path2cls == {"r/a/0.npy": "a"}
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "regex") or m.startswith("jax.")
                      or m == "eventclip_tpu" or m.startswith("eventclip_tpu."))

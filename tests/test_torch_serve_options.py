@@ -448,3 +448,66 @@ def test_unported_serve_flags_are_refused(flag, item):
 def test_data_parallel_predictor_is_refused(towers):
     with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
         _port(towers, data_parallel=True)
+
+
+# -- ResNet towers --------------------------------------------------------------
+
+
+def test_resnet_predictor_matches_jax(tmp_path, monkeypatch):
+    """A ZS Predictor on RN-T@32 towers (one `.npz` for both packages),
+    with `prune_tokens` set (a ResNet ignores it) and the text features a
+    shared function of the label set (RN-T@32's 128-id text tower cannot
+    embed BPE ids): predict, embed (f32 tolerances above) and a label swap
+    equal the JAX Predictor's; int8 is refused with the JAX package's
+    ValueError."""
+    import zlib
+
+    import torch
+
+    import eventclip_tpu.engine.trainer as ref_trainer
+    import eventclip_tpu.models.clip.model as ref_model
+    from eventclip_tpu_torch.models.clip import convert, model
+    from eventclip_tpu_torch.models.clip.config import clip_arch_config
+
+    clip = model.init_clip_params(clip_arch_config("RN-T@32"),
+                                  torch.Generator().manual_seed(7))
+    npz = str(tmp_path / "rn.npz")
+    np.savez(npz, **convert.to_jax_flat(clip.named_parameters()))
+
+    def feats_of(names):
+        rng = np.random.default_rng(zlib.crc32(" ".join(names).encode()))
+        f = rng.normal(size=(len(names), 32)).astype(np.float32)
+        return f / np.linalg.norm(f, axis=-1, keepdims=True)
+
+    monkeypatch.setattr(ref_trainer, "build_text_features",
+                        lambda c, cfg, names, *a: jnp.asarray(
+                            feats_of(names)))
+    monkeypatch.setattr(serve, "build_text_features",
+                        lambda c, cfg, names, *a: torch.from_numpy(
+                            feats_of(names)))
+    init = ref_model.init_clip_params
+    # the JAX .npz route reads only a random tree's structure and shapes
+    monkeypatch.setattr(ref_model, "init_clip_params", lambda rng, cfg: (
+        jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype),
+                               jax.eval_shape(lambda r: init(r, cfg),
+                                              rng))))
+    p, ref_p = _params(ZS, True), _params(ZS, False)
+    p.clip_dict["arch"] = ref_p.clip_dict["arch"] = "RN-T@32"
+    kw = dict(clip_ckpt=npz, batch_size=4, embed=True, prune_tokens=8)
+    ref = ref_serve.Predictor(ref_p, NAMES, **kw)
+    port = serve.Predictor(p, NAMES, device="cpu", **kw)
+    streams = _streams(8)
+    got = port.predict(streams)
+    _same(got, ref.predict(streams))
+    assert 0.05 < got["probs"].max(-1).min() < 0.999  # not one-hot
+    _same_embed(port, ref, streams)
+    for names in (["cup", "chair", "lamp"], NAMES):
+        port.set_classes(names)
+        ref.set_classes(names)
+        _same(port.predict(streams), ref.predict(streams))
+    for make in (lambda: serve.Predictor(p, NAMES, device="cpu", int8=True,
+                                         clip_ckpt=npz),
+                 lambda: ref_serve.Predictor(ref_p, NAMES, int8=True,
+                                             clip_ckpt=npz)):
+        with pytest.raises(ValueError, match="ViT towers only"):
+            make()
