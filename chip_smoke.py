@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port on one card: serving and its options, FT and FS
 training, the train / test CLIs and the serve CLI from a dataset tree and
-checkpoint files on disk, the ResNet towers, and pseudo-labelling with
-self-training.
+checkpoint files on disk, the ResNet towers, pseudo-labelling with
+self-training, the HTTP server and its client, and frozen export bundles.
 
     python3 chip_smoke.py
 
@@ -132,12 +132,33 @@ non-zero):
    K2 24 / K3 0 a step) and cli.test evaluates it. (d) cli.gen_data on
    the debug ZS config, then with an RN-T@32 override, f32, on a small
    tree, once on the card and once with --cpu: equal reports and trees.
+12. server and export, at ViT-L/14 bf16 on phase 3's predictor and
+   request and phase 9's files (it runs after phase 10, before 11, while
+   both are at hand): K1 and K2 at the serving shape through their
+   custom ops beside their launchers (bit-equal; ms and host us a call).
+   (a) the port's HTTP server on an ephemeral port: the 32 x 225k request
+   as x-npz through the port's client (median ms of 3 beside the direct
+   Predictor.predict; equal labels, names, top-5, probabilities; K1 1 /
+   K2 24), 32 concurrent single-stream requests from another process
+   with micro-batching on (300 ms cap, 100 ms idle gap) and off
+   (streams/s, fused batches, batch_log phases, launches a fused batch),
+   a session of 4 appends with predict (ms each; the last equals
+   predict on the buffer), /statz. (b) export_predictor (padded, 4
+   packed, text with phase 9's merge table, embed; the graphs keep the
+   `eventclip::` ops): export and load s, MB of weights and of programs,
+   request ms beside the live one, max prob delta vs live (<= 1e-4),
+   launches (K1 1 / K2 24), the embeddings vs the live predictor's
+   (<= 1e-4), K1 and K2 device ms a launch inside two of the bundle's
+   requests (torch.profiler), the offline set_classes (reversed names) vs the
+   live swap (<= 1e-4). (c) `python -m eventclip_tpu_torch.export
+   --check` in a subprocess (padded programs).
 
 Then one JSON line with every kernel's numbers (by_path adds the eval
-CLI's `cli` rows, the pruned request's `serve_pruned` K2 row and RN50's
-text-tower `rn50` K2 row; `eval_cli`, `train_cli` and `trained_eval` hold
-phase 9, `serve_options` phase 10, `pseudo_labels` phase 11), the card's
-name and power limit, and as the last line
+CLI's `cli` rows, the pruned request's `serve_pruned` K2 row, RN50's
+text-tower `rn50` K2 row and the bundle's `export` rows, timed by the
+profiler inside its request; `eval_cli`, `train_cli` and `trained_eval` hold phase 9,
+`serve_options` phase 10, `pseudo_labels` phase 11, `server_export`
+phase 12), the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Imports nothing
 of JAX. Fails when no CUDA device is present or the port is missing.
 """
@@ -2204,6 +2225,347 @@ def pseudo_labels(dev, streams, files, tmp):
     return out, rn50_launches
 
 
+# -- phase 12: the HTTP server, its client and frozen export bundles --------
+
+
+def serve_in_thread(server):
+    """Run an HTTP server's accept loop on a daemon thread; returns its
+    base URL."""
+    import threading
+
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return f"http://127.0.0.1:{server.server_address[1]}"
+
+
+# one single-stream request per stream of an [n, events, 4] .npy, all at
+# once, through the port's client in a process of its own (so the clients
+# do not share the server's interpreter lock); prints the wall seconds and
+# each answer's name
+BURST = """
+import json, sys, threading, time
+import numpy as np
+from eventclip_tpu_torch.client import ServingClient
+url, path = sys.argv[1], sys.argv[2]
+streams = np.load(path)
+names = [None] * len(streams)
+def fire(i):
+    c = ServingClient(url, timeout=600)
+    names[i] = c.predict([streams[i]], top_k=5)["names"][0]
+threads = [threading.Thread(target=fire, args=(i,))
+           for i in range(len(streams))]
+t0 = time.perf_counter()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+print(json.dumps({"wall_s": time.perf_counter() - t0, "names": names}))
+"""
+
+
+def burst(url, path):
+    """BURST against `url` on the streams saved at `path`: (wall seconds,
+    the names in stream order)."""
+    res = subprocess.run([sys.executable, "-c", BURST, url, path], cwd=HERE,
+                         capture_output=True, text=True, timeout=600,
+                         check=True)
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    if None in out["names"]:
+        raise AssertionError("a burst request got no response")
+    return out["wall_s"], out["names"]
+
+
+def server_phase(pred, streams, tmp, tag="12 server"):
+    """Phase 12(a): phase 3's predictor behind the port's HTTP server: one
+    32 x 225k x-npz request beside the direct call, 32 concurrent
+    single-stream requests (from another process) with micro-batching on
+    and off, a streaming session, /statz."""
+    import torch
+
+    from eventclip_tpu_torch import kernels
+    from eventclip_tpu_torch.client import ServingClient
+    from eventclip_tpu_torch.server import make_server
+
+    out = {}
+    plain = make_server(pred, "127.0.0.1", 0)
+    # the idle gap outlasts the gaps between a burst's arrivals, which
+    # register only once their 3.6 MB bodies are read and decoded
+    fused = make_server(pred, "127.0.0.1", 0, microbatch_ms=300.0,
+                        microbatch_idle_ms=100.0)
+    try:
+        url = serve_in_thread(plain)
+        client = ServingClient(url, timeout=600)
+        direct_ms, _, _ = timed_requests(pred, streams)
+        direct = pred.predict(streams, top_k=5)
+        times = []
+        for _ in range(3):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            got = client.predict(streams, top_k=5, return_probs=True)
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        http_launches = dict(kernels.LAUNCHES)
+        http_ms = statistics.median(times) * 1e3
+        same = (np.array_equal(got["label"], direct["label"])
+                and got["names"] == direct["names"]
+                and np.array_equal(got["topk"], direct["topk"])
+                and np.array_equal(got["probs"], direct["probs"]))
+        mb = sum(s.nbytes for s in streams) / 1e6
+        log(f"[{tag}] (a) {len(streams)} x {len(streams[0])} events as "
+            f"x-npz ({mb:.1f} MB): {http_ms:.1f} ms median of 3 over HTTP "
+            f"vs {direct_ms:.1f} ms direct Predictor.predict; launches "
+            f"{http_launches}; labels, names, top-5 and probs equal the "
+            f"direct call's: {same}")
+        if not same:
+            raise AssertionError("the HTTP answer differs from the direct "
+                                 "Predictor.predict")
+        one = {"histogram": 1,
+               "qkv_attention": pred._cfg.clip.vision.layers}
+        if http_launches != one:
+            raise AssertionError(f"HTTP request launches {http_launches}")
+        out["request"] = dict(http_ms=http_ms, direct_ms=direct_ms,
+                              body_mb=mb, launches=http_launches)
+
+        # 32 concurrent single-stream requests, fused then serialized
+        furl = serve_in_thread(fused)
+        path = os.path.join(tmp, "burst.npy")
+        np.save(path, np.stack(streams))
+        for label, u in (("microbatch on", furl), ("microbatch off", url)):
+            n_log = len(fused.batcher.batch_log)
+            kernels.reset_launches()
+            wall, res = burst(u, path)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            # a single-stream forward may round differently from the
+            # 32-stream one (another batch shape): agreement is printed
+            agree = sum(r == direct["names"][i] for i, r in enumerate(res))
+            rec = dict(wall_s=wall, streams_per_s=len(streams) / wall,
+                       launches=launches, labels_as_direct=agree)
+            if u == furl:
+                batches = list(fused.batcher.batch_log)[n_log:]
+                rec["batches"] = batches
+                per = {k: v / len(batches) for k, v in launches.items()}
+                phases = {k: round(statistics.mean(b[k] for b in batches), 1)
+                          for k in ("window_ms", "close_ms", "lock_ms",
+                                    "device_ms", "slice_ms")}
+                log(f"[{tag}] (a) {len(streams)} concurrent single-stream "
+                    f"requests, {label}: {wall:.2f} s, "
+                    f"{rec['streams_per_s']:.2f} streams/s; "
+                    f"labels as the 32-stream call's {agree}/{len(res)}; "
+                    f"{len(batches)} fused batches of "
+                    f"{[b['streams'] for b in batches]} streams, mean "
+                    f"phases {phases} ms; launches per fused batch {per}")
+            else:
+                log(f"[{tag}] (a) {len(streams)} concurrent single-stream "
+                    f"requests, {label}: {wall:.2f} s, "
+                    f"{rec['streams_per_s']:.2f} streams/s; labels as the "
+                    f"32-stream call's {agree}/{len(res)}; launches "
+                    f"{launches} ({launches.get('histogram', 0)} forwards)")
+            out[label.replace(" ", "_")] = rec
+
+        # one streaming session: 4 appends, each with a rolling prediction
+        chunk_ms = []
+        with client.open_session() as sess:
+            for chunk in np.array_split(streams[0], 4):
+                t0 = time.perf_counter()
+                r = sess.append(chunk, predict=True, top_k=5)
+                chunk_ms.append((time.perf_counter() - t0) * 1e3)
+            want = pred.predict([streams[0][-sess.horizon:]], top_k=5)
+        if not (r["name"] == want["names"][0] and np.array_equal(
+                np.asarray(r["probs"], np.float32), want["probs"][0])):
+            raise AssertionError("session prediction differs from predict "
+                                 "on its buffer")
+        log(f"[{tag}] (a) session: 4 appends of {len(streams[0]) // 4} "
+            f"events with predict, {[round(m, 1) for m in chunk_ms]} ms; "
+            f"{r['n_events']} events buffered (horizon {r['horizon']}); "
+            "the last prediction equals predict on the buffer")
+        out["session_ms"] = chunk_ms
+        out["statz"] = client.stats()
+        log(f"[{tag}] (a) /statz {json.dumps(out['statz'])}")
+    finally:
+        fused.shutdown()
+        plain.shutdown()
+        fused.server_close()
+        plain.server_close()
+    os.remove(os.path.join(tmp, "burst.npy"))
+    return out
+
+
+def dispatch_cost(dev, tag="12 dispatch"):
+    """K1 and K2 at the serving shape through their custom ops (the path
+    every caller takes) beside their launchers called directly, and the
+    host cost of one call of each at a tiny shape."""
+    import torch
+
+    from eventclip_tpu_torch.ops import attention as A
+    from eventclip_tpu_torch.ops import rasterize as R
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    qkv = torch.randn((320, 257, 3072), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    wins = synth_windows(gen, 320, 20000, 180, 240, dev)
+    plan = R.device_histogram_plan(dev, 180, 240)
+    if not (torch.equal(A.fused_qkv_attention(qkv, 16),
+                        A.launch_qkv_attention(qkv, 16, None))
+            and torch.equal(R.histograms(wins, 180, 240),
+                            R.launch_histograms(wins, 180, 240, plan))):
+        raise AssertionError("a custom op differs from its launcher")
+    out = {"qkv_attention": (cuda_ms(lambda: A.fused_qkv_attention(qkv, 16)),
+                             cuda_ms(lambda: A.launch_qkv_attention(
+                                 qkv, 16, None))),
+           "histogram": (cuda_ms(lambda: R.histograms(wins, 180, 240)),
+                         cuda_ms(lambda: R.launch_histograms(
+                             wins, 180, 240, plan)))}
+    small = torch.randn((2, 17, 192), device=dev)
+    host = {}
+    for name, fn in (("op", lambda: A.fused_qkv_attention(small, 2)),
+                     ("launcher",
+                      lambda: A.launch_qkv_attention(small, 2, None))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(1000):
+            fn()
+        host[name] = (time.perf_counter() - t0) * 1e3  # us a call
+        torch.cuda.synchronize()
+    log(f"[{tag}] K2 [320, 257, 3072] bf16 through the op "
+        f"{out['qkv_attention'][0]:.4f} ms, its launcher "
+        f"{out['qkv_attention'][1]:.4f} ms; K1 [320, 20000, 3] "
+        f"{out['histogram'][0]:.4f} / {out['histogram'][1]:.4f} ms; bit "
+        f"equal; host time a call {host['op']:.1f} us through the op, "
+        f"{host['launcher']:.1f} us to the launcher")
+    del qkv, wins
+    return dict(ms=out, host_us=host)
+
+
+def export_phase(dev, pred, streams, tmp, tag="12 export"):
+    """Phase 12(b): phase 3's predictor frozen into a bundle (embeddings
+    on, phase 9's merge table shipped for offline label swaps): export and
+    load seconds, weights vs programs, request ms, launches and prob delta
+    vs the live predictor, the embeddings vs the live ones, K1 and K2
+    device ms a launch inside the bundle's requests (torch.profiler), and
+    the offline set_classes vs the live swap."""
+    import torch
+
+    from eventclip_tpu_torch.export import ExportedPredictor, export_predictor
+
+    live_ms, _, live = timed_requests(pred, streams)
+    # the bundle carries the embed program; phase 3 built its predictor
+    # without it, and the flag only gates the (same) padded step's use
+    pred._embed = True
+    path = os.path.join(tmp, "model.eclip")
+    t0 = time.perf_counter()
+    meta = export_predictor(pred, path)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ex = ExportedPredictor(path, device=dev)
+    load_s = time.perf_counter() - t0
+    file_mb = os.path.getsize(path) / 1e6
+    os.remove(path)  # 1.7 GB
+    ms, launches, got = timed_requests(ex, streams)
+    delta = float(np.abs(got["probs"] - live["probs"]).max())
+    prog_mb = sum(meta["program_bytes"].values()) / 1e6
+    out = dict(export_s=export_s, load_s=load_s, file_mb=file_mb,
+               weights_mb=meta["weight_bytes"] / 1e6, programs_mb=prog_mb,
+               programs={k: v / 1e6 for k, v in
+                         meta["program_bytes"].items()},
+               ms=ms, live_ms=live_ms, prob_delta=delta, launches=launches)
+    log(f"[{tag}] (b) bundle: exported in {export_s:.1f} s "
+        f"({len(meta['program_bytes'])} programs): {file_mb:.1f} MB on "
+        f"disk, of which weights {out['weights_mb']:.1f} MB (stored) and "
+        f"programs {prog_mb:.2f} MB before deflate; loaded in {load_s:.1f} "
+        f"s; request {ms:.1f} ms vs live {live_ms:.1f} ms; max prob delta "
+        f"vs live {delta:.2e}; launches {launches}")
+    want = {"histogram": 1, "qkv_attention": pred._cfg.clip.vision.layers}
+    if launches != want:
+        raise AssertionError(f"bundle launches {launches}, want {want}")
+    if delta > 1e-4:
+        raise AssertionError(f"bundle prob delta {delta} > 1e-4")
+    # random towers give near one-hot probabilities; a wrong graph (a
+    # dropped block, a wrong mask) moves the features themselves
+    few = streams[:8]
+    d = float(np.abs(ex.embed(few) - pred.embed(few)).max())
+    log(f"[{tag}] (b) embed: bundle vs live, max delta {d:.2e} over "
+        f"{len(few)} streams")
+    if d > 1e-4:
+        raise AssertionError(f"bundle embed delta {d} > 1e-4")
+    out["embed_delta"] = d
+    # K1 and K2 inside the bundle's requests: device ms a launch, over
+    # the launches the trace holds (the trace of one full-size request has
+    # been seen to hold no K1 row)
+    prof = profile_call(tag, "2 exported requests",
+                        lambda: [ex.predict(streams) for _ in range(2)])
+    out["kernel_ms"], seen = {}, {}
+    for name, sym in (("histogram", "hist_kernel"),
+                      ("qkv_attention", "attention_tc_kernel")):
+        rows = [r for r in (prof or {}).get("rows", []) if sym in r[2]]
+        seen[name] = n = sum(r[1] for r in rows)
+        out["kernel_ms"][name] = (sum(r[0] for r in rows) / n if n
+                                  else None)
+    if prof is not None:
+        out["profile"] = dict(wall_ms=prof["wall_ms"],
+                              busy_ms=prof["busy_ms"])
+    log(f"[{tag}] (b) in the bundle's requests, device ms a launch: "
+        + ", ".join(f"{k} " + ("not measured" if v is None else
+                               f"{v:.4f} ({seen[k]} launches traced)")
+                    for k, v in out["kernel_ms"].items()))
+    # offline label swap vs the live one (reversed names, phase 9's table)
+    rev = list(reversed(pred.class_names))
+    ex.set_classes(rev)
+    pred.set_classes(rev)
+    d = float(np.abs(ex.predict(few)["probs"]
+                     - pred.predict(few)["probs"]).max())
+    log(f"[{tag}] (b) offline set_classes (reversed names) vs the live "
+        f"swap: max prob delta {d:.2e}")
+    if d > 1e-4:
+        raise AssertionError(f"offline set_classes delta {d} > 1e-4")
+    out["set_classes_delta"] = d
+    pred._embed = False
+    del ex
+    torch.cuda.empty_cache()
+    return out
+
+
+def export_cli_check(files, tmp, tag="12 export"):
+    """Phase 12(c): the export CLI's own --check in a subprocess on the
+    card (phase 9's tree, checkpoint and merge table, ZS on N-Caltech at
+    ViT-L/14), padded programs only (EVENTCLIP_NO_PACK_EVAL: (b) froze the
+    packed ones)."""
+    zs = os.path.join(HERE, "configs", "zsclip", "zsclip_ncaltech_params.py")
+    out = os.path.join(tmp, "cli.eclip")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "eventclip_tpu_torch.export", "--params", zs,
+         "--data_root", files["tree"], "--clip_ckpt", files["pt"],
+         "--out", out, "--check"],
+        cwd=HERE, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, EVENTCLIP_NO_PACK_EVAL="1"))
+    wall = time.perf_counter() - t0
+    if os.path.exists(out):
+        os.remove(out)
+    lines = [ln for ln in res.stdout.splitlines()
+             if ln.startswith(("wrote", "check"))]
+    for ln in lines:
+        log(f"[{tag}] (c) {ln}")
+    if res.returncode != 0 or "check OK" not in res.stdout:
+        raise AssertionError(f"export --check failed ({res.returncode}):\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    log(f"[{tag}] (c) export CLI --check in a subprocess: {wall:.1f} s")
+    return dict(wall_s=wall, lines=lines)
+
+
+def server_and_export(dev, pred, streams, files, tmp):
+    """Phase 12: the custom ops' dispatch cost, (a) server, (b) export
+    bundles, (c) the export CLI."""
+    t_phase = time.perf_counter()
+    out = {"dispatch": dispatch_cost(dev)}
+    out["server"] = server_phase(pred, streams, tmp)
+    out["export"] = export_phase(dev, pred, streams, tmp)
+    out["export_cli"] = export_cli_check(files, tmp)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[12 server/export] phase 12 in {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2441,12 +2803,23 @@ def main() -> int:
         options, pruned_row, pruned_launches = serving_options(
             dev, gen, pred, clip, text_feats, names, requests[0][1],
             native_calls, files, data["trained_eval"])
+        # phase 12 runs here, on phase 3's predictor and phase 9's files;
+        # it swaps pred's labels, which nothing after it reads
+        served = server_and_export(dev, pred, requests[0][1], files, tmp)
         del pred, cpu_pred, clip
         torch.cuda.empty_cache()
         pseudo, rn50_launches = pseudo_labels(dev, requests[0][1], files,
                                               tmp)
     os.environ.pop("EVENTCLIP_BPE_PATH")
     rec["serve_pruned"] = {"qkv_attention": pruned_row}
+    # the bundle's request: K1 and K2 at phase 3's serving shapes, their
+    # device ms a launch from its profile; the bound is the shape's
+    rec["export"] = {
+        k: dict(shape=rec["serve"][k]["shape"],
+                ms=served["export"]["kernel_ms"][k],
+                bound_ms=rec["serve"][k]["bound_ms"],
+                bound_by=rec["serve"][k]["bound_by"])
+        for k in ("histogram", "qkv_attention")}
 
     sources = {
         "histogram": ("eventclip_tpu_torch/csrc/histogram.cu",
@@ -2464,7 +2837,8 @@ def main() -> int:
     counts = {"serve": launches, "train": train_launches,
               "train_f32": train32_launches, "train_fs": train_fs_launches,
               "cli": data["eval_cli"]["launches"],
-              "serve_pruned": pruned_launches, "rn50": rn50_launches}
+              "serve_pruned": pruned_launches, "rn50": rn50_launches,
+              "export": served["export"]["launches"]}
     by_path = {p: {k: dict(launches=counts[p].get(k, 0), **r)
                    for k, r in recs.items()}
                for p, recs in rec.items() if p in counts}
@@ -2478,7 +2852,8 @@ def main() -> int:
         "rounding_orders": orders,
         "requests": per_request, "train": train, "update_card_vs_cpu": update,
         "train_f32": train32, "train_fs": train_fs, "randaugment": augment,
-        "serve_options": options, "pseudo_labels": pseudo, **data}
+        "serve_options": options, "pseudo_labels": pseudo,
+        "server_export": served, **data}
     log(json.dumps(line))
     log(card)
     print(json.dumps({"ok": True, "device": {

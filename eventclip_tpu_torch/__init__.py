@@ -19,7 +19,10 @@ the rest of serving: the native host ops (`native`, a fused C++ pass built
 by g++ at first use, with the numpy path as the fallback), trained-weight
 serving, the W8A8 int8 tower (`ops.quant`), token pruning, embeddings,
 label swaps, `serve.StreamSession` and the offline serve CLI
-(`python -m eventclip_tpu_torch.serve`).
+(`python -m eventclip_tpu_torch.serve`); the ResNet towers and
+pseudo-labelling (`cli.gen_data`); and the HTTP endpoint (`server`, with
+its `client`) and frozen export bundles (`export`), with every kernel a
+`torch.library` custom op (`ops.custom_ops`).
 
 Entry points run on the card (`device="cuda"`) unless the caller passes
 `device="cpu"`; on CPU tensors every kernel wrapper takes its plain PyTorch

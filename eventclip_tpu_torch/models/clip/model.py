@@ -47,6 +47,22 @@ from .resnet import ResNetVisionTower, init_resnet_visual_
 # ---------------------------------------------------------------------------
 
 
+def _dense_f32_acc(x2, w, b):
+    """bf16 [N, in] @ w.T with the f32 bias added to the GEMM's f32
+    accumulator (`out_dtype`), rounded once to x2's dtype (CUDA only).
+    While a graph is traced (export.py) the bias is added after the
+    product, the same f32 sum: the fake tensors of `torch.export` run
+    torch 2.11's decomposition of `addmm`'s `out_dtype` overload, which
+    takes the dtype for `beta`."""
+    if b is None:
+        y = torch.mm(x2, w.t(), out_dtype=torch.float32)
+    elif torch.compiler.is_compiling():
+        y = torch.mm(x2, w.t(), out_dtype=torch.float32) + b.float()
+    else:
+        y = torch.addmm(b.float(), x2, w.t(), out_dtype=torch.float32)
+    return y.to(x2.dtype)
+
+
 class _DenseF32Acc(torch.autograd.Function):
     """bf16 x [N, in] @ w.T [in, out] (+ f32 b) on the card: the f32
     accumulator written by the GEMM (`out_dtype`), the bias added there,
@@ -57,9 +73,7 @@ class _DenseF32Acc(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, w, b):
         ctx.save_for_backward(x2, w)
-        y = (torch.mm(x2, w.t(), out_dtype=torch.float32) if b is None else
-             torch.addmm(b.float(), x2, w.t(), out_dtype=torch.float32))
-        return y.to(x2.dtype)
+        return _dense_f32_acc(x2, w, b)
 
     @staticmethod
     def backward(ctx, g):
@@ -96,7 +110,10 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
         return F.linear(x, w, b)
     x2 = x.reshape(-1, x.shape[-1])
     if x.is_cuda:
-        y = _DenseF32Acc.apply(x2, w, b)
+        # without a gradient to record (serving, and torch.export under
+        # no_grad) the forward runs as plain ops, which a trace sees
+        y = (_DenseF32Acc.apply(x2, w, b) if torch.is_grad_enabled()
+             else _dense_f32_acc(x2, w, b))
     else:
         y = torch.mm(x2.float(), w.float().t())
         if b is not None:

@@ -8,10 +8,13 @@ Port of eventclip_tpu/ops/attention.py:
 - `multi_head_attention(q, k, v, mask)`: [B, H, S, dh] each (TPU kernel K4
   `_attention_forward`, gradient K3 via `_attention_bwd`).
 
-Both are `torch.autograd.Function`s. On CUDA tensors the forward launches
-csrc/attention.cu and the backward csrc/attention_bwd.cu, each given the
-layout as element strides, so both layouts run the same kernels (or
-raise): bf16 on the tensor-core kernels, f32 on the CUDA-core ones. The
+Both go through `torch.library` custom ops (ops/custom_ops.py:
+`eventclip::qkv_attention`, `eventclip::attention`, whose registered
+gradients are `eventclip::qkv_attention_bwd` / `eventclip::attention_bwd`).
+On CUDA tensors the forward launches csrc/attention.cu and the backward
+csrc/attention_bwd.cu, each given the layout as element strides, so both
+layouts run the same kernels (or raise): bf16 on the tensor-core kernels,
+f32 on the CUDA-core ones. The
 forward kernels copy 16-byte pieces and so need every row start 16-byte
 aligned (checked here for both dtypes; the f32 backward takes any). On CPU
 tensors they take `attention_plain` /
@@ -148,11 +151,6 @@ def _check_mask(mask: Optional[torch.Tensor], S: int, device):
             f"{device}, got {mask.dtype} {tuple(mask.shape)} on {mask.device}")
 
 
-def _cuda_only(t: torch.Tensor):
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}")
-
-
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
@@ -230,11 +228,10 @@ def _check_qkv(qkv: torch.Tensor, heads: int, mask: Optional[torch.Tensor]):
     _check_mask(mask, qkv.shape[1], qkv.device)
 
 
-def _qkv_forward(qkv, heads, mask):
-    """K2: the kernel on a CUDA tensor, the plain version on a CPU one."""
-    if qkv.device.type == "cpu":
-        return qkv_attention_plain(qkv, heads, mask)
-    _cuda_only(qkv)
+def launch_qkv_attention(qkv: torch.Tensor, heads: int,
+                         mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """K2 on a checked CUDA [B, S, 3D] tensor -> [B, S, D] (the CUDA
+    implementation of `eventclip::qkv_attention`)."""
     B, S, D3 = qkv.shape
     D = D3 // 3
     out = torch.empty((B, S, D), dtype=qkv.dtype, device=qkv.device)
@@ -245,21 +242,12 @@ def _qkv_forward(qkv, heads, mask):
     return out
 
 
-def qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor, heads: int,
-                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K3 in the fused layout: [B, S, 3D] qkv + [B, S, D] output gradient
-    -> [B, S, 3D] qkv gradient. CUDA tensors run the kernel (or raise); CPU
-    tensors run `qkv_attention_bwd_plain`."""
-    _check_qkv(qkv, heads, mask)
+def launch_qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor, heads: int,
+                             mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """K3 on checked CUDA tensors in the fused layout -> [B, S, 3D] (the
+    CUDA implementation of `eventclip::qkv_attention_bwd`)."""
     B, S, D3 = qkv.shape
     D = D3 // 3
-    if g.shape != (B, S, D) or g.dtype != qkv.dtype or g.device != qkv.device:
-        raise ValueError(f"g must be {qkv.dtype} [{B}, {S}, {D}] on "
-                         f"{qkv.device}, got {g.dtype} {tuple(g.shape)}")
-    g = g.contiguous()
-    if qkv.device.type == "cpu":
-        return qkv_attention_bwd_plain(qkv, g, heads, mask)
-    _cuda_only(qkv)
     dqkv = torch.empty_like(qkv)
     dh = D // heads
     _launch_bwd(_column_blocks(qkv) + _column_blocks(dqkv), mask, g, B, S,
@@ -268,34 +256,32 @@ def qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor, heads: int,
     return dqkv
 
 
-class _QKVAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, qkv, mask, heads):
-        ctx.heads = heads
-        ctx.save_for_backward(qkv, mask)
-        return _qkv_forward(qkv, heads, mask)
-
-    @staticmethod
-    def backward(ctx, g):
-        qkv, mask = ctx.saved_tensors
-        dqkv = qkv_attention_bwd(qkv, g.to(qkv.dtype), ctx.heads, mask)
-        dmask = None
-        if ctx.needs_input_grad[1]:
-            B, S, D3 = qkv.shape
-            gh = g.reshape(B, S, ctx.heads, -1).transpose(1, 2)
-            dmask = mask_cotangent(*_split_heads(qkv, ctx.heads), mask, gh)
-        return dqkv, dmask, None
+def qkv_attention_bwd(qkv: torch.Tensor, g: torch.Tensor, heads: int,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3 in the fused layout: [B, S, 3D] qkv + [B, S, D] output gradient
+    -> [B, S, 3D] qkv gradient, through `eventclip::qkv_attention_bwd`:
+    CUDA tensors run the kernel (or raise); CPU tensors run
+    `qkv_attention_bwd_plain`."""
+    _check_qkv(qkv, heads, mask)
+    B, S, D3 = qkv.shape
+    D = D3 // 3
+    if g.shape != (B, S, D) or g.dtype != qkv.dtype or g.device != qkv.device:
+        raise ValueError(f"g must be {qkv.dtype} [{B}, {S}, {D}] on "
+                         f"{qkv.device}, got {g.dtype} {tuple(g.shape)}")
+    return torch.ops.eventclip.qkv_attention_bwd(qkv, g.contiguous(), heads,
+                                                 mask)
 
 
 def fused_qkv_attention(qkv: torch.Tensor, heads: int,
                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[B, S, 3D] fused qkv (+ optional f32 [S, S] mask) -> [B, S, D],
-    differentiable: the gradient runs K3.
+    """[B, S, 3D] fused qkv (+ optional f32 [S, S] mask) -> [B, S, D]
+    through `eventclip::qkv_attention`, differentiable: its registered
+    gradient runs K3.
 
     CUDA tensors run the kernels (or raise); CPU tensors run the plain
     versions."""
     _check_qkv(qkv, heads, mask)
-    return _QKVAttention.apply(qkv, mask, heads)
+    return torch.ops.eventclip.qkv_attention(qkv, heads, mask)
 
 
 # -- [B, H, S, dh] layout (K4 forward, K3 backward) ---------------------------
@@ -315,11 +301,10 @@ def _check_bhsd(q, k, v, mask):
     _check_mask(mask, q.shape[2], q.device)
 
 
-def _bhsd_forward(q, k, v, mask):
-    """K4: the kernel on CUDA tensors, the plain version on CPU ones."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, mask)
-    _cuda_only(q)
+def launch_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """K4 on checked CUDA [B, H, S, dh] tensors (the CUDA implementation
+    of `eventclip::attention`)."""
     out = torch.empty_like(q)
     B, H, S, dh = q.shape
     _launch_fwd((q.data_ptr(), k.data_ptr(), v.data_ptr()), mask, out, B, S,
@@ -328,17 +313,9 @@ def _bhsd_forward(q, k, v, mask):
     return out
 
 
-def attention_bwd(q, k, v, g, mask=None):
-    """K3 in the [B, H, S, dh] layout -> (dq, dk, dv). CUDA tensors run the
-    kernel (or raise); CPU tensors run `attention_bwd_plain`."""
-    _check_bhsd(q, k, v, mask)
-    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
-        raise ValueError(f"g must be {q.dtype} {tuple(q.shape)} on "
-                         f"{q.device}, got {g.dtype} {tuple(g.shape)}")
-    g = g.contiguous()
-    if q.device.type == "cpu":
-        return attention_bwd_plain(q, k, v, g, mask)
-    _cuda_only(q)
+def launch_attention_bwd(q, k, v, g, mask):
+    """K3 on checked CUDA tensors in the [B, H, S, dh] layout -> (dq, dk,
+    dv) (the CUDA implementation of `eventclip::attention_bwd`)."""
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     B, H, S, dh = q.shape
     _launch_bwd((q.data_ptr(), k.data_ptr(), v.data_ptr(), dq.data_ptr(),
@@ -348,28 +325,24 @@ def attention_bwd(q, k, v, g, mask=None):
     return dq, dk, dv
 
 
-class _Attention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, mask):
-        ctx.save_for_backward(q, k, v, mask)
-        return _bhsd_forward(q, k, v, mask)
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, mask = ctx.saved_tensors
-        g = g.to(q.dtype)
-        dq, dk, dv = attention_bwd(q, k, v, g, mask)
-        dmask = (mask_cotangent(q, k, v, mask, g)
-                 if ctx.needs_input_grad[3] else None)
-        return dq, dk, dv, dmask
+def attention_bwd(q, k, v, g, mask=None):
+    """K3 in the [B, H, S, dh] layout -> (dq, dk, dv), through
+    `eventclip::attention_bwd`: CUDA tensors run the kernel (or raise); CPU
+    tensors run `attention_bwd_plain`."""
+    _check_bhsd(q, k, v, mask)
+    if g.shape != q.shape or g.dtype != q.dtype or g.device != q.device:
+        raise ValueError(f"g must be {q.dtype} {tuple(q.shape)} on "
+                         f"{q.device}, got {g.dtype} {tuple(g.shape)}")
+    return torch.ops.eventclip.attention_bwd(q, k, v, g.contiguous(), mask)
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[B, H, S, dh] q/k/v (+ optional f32 [S, S] additive mask) ->
-    [B, H, S, dh], differentiable: the gradient runs K3.
+    [B, H, S, dh] through `eventclip::attention`, differentiable: its
+    registered gradient runs K3.
 
     CUDA tensors run the kernels (or raise); CPU tensors run the plain
     versions."""
     _check_bhsd(q, k, v, mask)
-    return _Attention.apply(q, k, v, mask)
+    return torch.ops.eventclip.attention(q, k, v, mask)

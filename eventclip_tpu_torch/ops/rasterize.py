@@ -3,8 +3,9 @@
 Port of eventclip_tpu/ops/rasterize.py (behavioral contract:
 eventclip_tpu_torch.ops.numpy_ref, the oracle for the reference semantics of
 datasets/vis.py:6-117). The per-window polarity histogram runs through the
-hand-written kernel csrc/histogram.cu on a CUDA tensor (`histograms`), or
-its plain PyTorch version on a CPU tensor. Everything downstream (hot-pixel
+hand-written kernel csrc/histogram.cu on a CUDA tensor (`histograms`, the
+custom op `eventclip::event_histogram`), or its plain PyTorch version on a
+CPU tensor. Everything downstream (hot-pixel
 removal, normalization, colorization, white compositing, uint8 rounding and
 the CLIP resize, and on the training path RandAugment) is plain
 elementwise/reduction/gather/matmul PyTorch, as it was XLA-fused (not
@@ -147,17 +148,14 @@ def _check_windows(windows: torch.Tensor) -> None:
 
 def histograms(windows: torch.Tensor, height: int,
                width: int) -> torch.Tensor:
-    """[M, N, 4|3] event windows -> float32 [M, 2, H, W] count histograms.
+    """[M, N, 4|3] event windows -> float32 [M, 2, H, W] count histograms,
+    through `eventclip::event_histogram` (ops/custom_ops.py).
 
     CUDA tensors run the histogram kernel (or raise) under
-    `device_histogram_plan`; CPU tensors run `histograms_plain`."""
+    `device_histogram_plan`, chosen at run time; CPU tensors run
+    `histograms_plain`."""
     _check_windows(windows)
-    if windows.device.type == "cpu":
-        return histograms_plain(windows, height, width)
-    if windows.device.type != "cuda":
-        raise ValueError(f"unsupported device {windows.device}")
-    return launch_histograms(windows, height, width, device_histogram_plan(
-        windows.device, height, width))
+    return torch.ops.eventclip.event_histogram(windows, height, width)
 
 
 def launch_histograms(windows: torch.Tensor, height: int, width: int,

@@ -30,9 +30,10 @@ Example:
 Released CLIP weights load from `clip_ckpt` (an OpenAI `.pt` or a
 converted `.npz`); without `text_feats`, the config's prompt goes through
 the BPE tokenizer and the text tower. Offline batch inference over files:
-`python -m eventclip_tpu_torch.serve --help`. Data parallelism over
-several cards is ROADMAP item 7 and frozen export bundles item 6: both are
-refused, never ignored.
+`python -m eventclip_tpu_torch.serve --help` (`--from_export` serves a
+frozen bundle of export.py); the HTTP endpoint is server.py. Data
+parallelism over several cards is ROADMAP item 7: it is refused, never
+ignored.
 """
 
 from __future__ import annotations
@@ -307,35 +308,26 @@ class Predictor:
     @torch.inference_mode()
     def _forward(self, batch: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
-        """The device step: rasterize -> preprocess -> classifier, packed
-        when the batch carries `view_src`, padded otherwise."""
-        x = rasterize_for_clip(self._spec, self._pp, batch["windows"])
-        if "view_src" in batch:
-            return classifier_forward_packed(
-                self._params, self._cfg, x, batch["view_src"],
-                batch["valid_mask"])
-        return classifier_forward(self._params, self._cfg, x,
-                                  batch["valid_mask"])
+        """The device step (`device_step`) on this predictor's weights."""
+        return device_step(self._params, self._cfg, self._spec, self._pp,
+                           batch["windows"], batch["valid_mask"],
+                           batch.get("view_src"))
 
     def _dispatch_chunk(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         return self._forward(batch)["probs"]
 
     @torch.inference_mode()
     def _embed_chunk(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Padded chunk -> [B, C] embeddings: the per-view features at the
-        text-matmul point, normalized (ZS features arrive raw), zeroed where
-        the view is padding, averaged over the valid views, re-normalized."""
-        valid = batch["valid_mask"]
-        out = self._forward(batch)
-        f = normalize(out["view_feats"]) * valid[..., None]
-        n = valid.sum(-1, keepdim=True).clamp(min=1)
-        return normalize(f.sum(1) / n)
+        """Padded chunk -> [B, C] embeddings (`embed_features`)."""
+        return embed_features(self._forward(batch), batch["valid_mask"])
 
-    def warm_up(self) -> None:
+    def warm_up(self, log=None) -> None:
         """Run every encoder shape a request can select once (one per
         packing bucket, or the padded one; with embed=True also the padded
         embed program), so allocator growth and library initialization
-        happen before traffic."""
+        happen before traffic. Crafting device chunks, not streams, makes
+        the coverage exact for every batch_size / tta combination. `log`
+        (e.g. `print`) reports each program as it runs."""
         rng = np.random.default_rng(0)
         bs, budget, n = self.batch_size, self.views, self.window
         h, w = self.resolution
@@ -351,10 +343,17 @@ class Predictor:
             return wins, valids.reshape(bs, budget)
 
         total = bs * budget
+        # pack_view_batch picks the smallest bucket >= the valid count, so
+        # n_valid=k lands exactly on bucket k (capped at the batch's slots)
         targets = [min(k, total) for k in (self._buckets or [total])]
-        for want in targets:
+        for i, want in enumerate(targets):
+            if log is not None:
+                log(f"warm-up: program {i + 1}/{len(targets)} "
+                    f"(valid views={want})...")
             self._dispatch_chunk(self._place_chunk(*chunk(want))).cpu()
         if self._embed:
+            if log is not None:
+                log("warm-up: the embed program...")
             self._embed_chunk(self._place_chunk(*chunk(total),
                                                 pack=False)).cpu()
 
@@ -434,6 +433,29 @@ class Predictor:
         return cls(load_params(config_path), class_names, **kwargs)
 
 
+def device_step(params, cfg, spec: RasterSpec, pp: ClipPreprocess,
+                windows: torch.Tensor, valid: torch.Tensor,
+                view_src: Optional[torch.Tensor] = None
+                ) -> Dict[str, torch.Tensor]:
+    """The device step: rasterize -> preprocess -> classifier, packed when
+    `view_src` is given, padded otherwise. A pure function of the weights
+    `params`, so export.py freezes it with the weights as inputs."""
+    x = rasterize_for_clip(spec, pp, windows)
+    if view_src is not None:
+        return classifier_forward_packed(params, cfg, x, view_src, valid)
+    return classifier_forward(params, cfg, x, valid)
+
+
+def embed_features(out: Dict[str, torch.Tensor],
+                   valid: torch.Tensor) -> torch.Tensor:
+    """A padded step's output -> [B, C] embeddings: the per-view features at
+    the text-matmul point, normalized (ZS features arrive raw), zeroed where
+    the view is padding, averaged over the valid views, re-normalized."""
+    f = normalize(out["view_feats"]) * valid[..., None]
+    n = valid.sum(-1, keepdim=True).clamp(min=1)
+    return normalize(f.sum(1) / n)
+
+
 class StreamSession:
     """Online sliding-window classification over a live event stream.
 
@@ -503,16 +525,20 @@ class StreamSession:
                 return np.empty((0, 4), np.float32)
             return np.concatenate(self._chunks)
 
-    def predict(self, top_k: int = 1) -> Dict[str, Any]:
+    def predict(self, top_k: int = 1, predict_fn=None) -> Dict[str, Any]:
         """Rolling prediction over the buffered events: the single-stream
-        slice of Predictor.predict's dict plus 'n_events'."""
+        slice of Predictor.predict's dict plus 'n_events'.
+        `predict_fn(streams, top_k=...)` replaces the device entry: the HTTP
+        server passes its fused or locked path, so its session routes share
+        this response assembly."""
         snap = self.events()
         if not len(snap):
             raise ValueError(
                 "empty session — append events before predict() (an idle "
                 "sensor window has no defined prediction)"
             )
-        out = self._pred.predict([snap], top_k=top_k)
+        fn = predict_fn if predict_fn is not None else self._pred.predict
+        out = fn([snap], top_k=top_k)
         return {
             "label": int(out["label"][0]),
             "name": out["names"][0],
@@ -591,7 +617,10 @@ def main(argv=None) -> None:
         description="Offline batch inference over a glob of event dumps.")
     ap.add_argument("--params", default="")
     ap.add_argument("--from_export", default="",
-                    help="frozen export bundle (not ported: ROADMAP item 6)")
+                    help="classify with a frozen bundle (python -m "
+                    "eventclip_tpu_torch.export) instead of building the "
+                    "model; model flags are baked into the bundle and "
+                    "rejected")
     ap.add_argument("--inputs", required=True,
                     help="glob of .npy/.npz event dumps (quote it)")
     ap.add_argument("--out", default="-",
@@ -620,25 +649,42 @@ def main(argv=None) -> None:
                     help="run on the CPU (debug/smoke runs)")
     args = ap.parse_args(argv)
 
-    if args.from_export:
-        raise SystemExit("--from_export: frozen export bundles are not "
-                         "ported yet (ROADMAP item 6, server and export)")
     if args.data_parallel:
         raise SystemExit("--data_parallel is not ported yet (ROADMAP item 7, "
                          "multi-GPU)")
-    if not args.params:
-        ap.error("--params is required")
+    if bool(args.params) == bool(args.from_export):
+        ap.error("pass exactly one of --params or --from_export")
+    if args.from_export:
+        # every model decision is frozen inside the bundle; a flag that
+        # silently did nothing would be a misconfiguration
+        baked = {"--weight": args.weight, "--classes": args.classes,
+                 "--data_root": args.data_root,
+                 "--clip_ckpt": args.clip_ckpt, "--int8": args.int8,
+                 "--prune_tokens": args.prune_tokens, "--tta": args.tta,
+                 "--embed_out": args.embed_out, "--smoke": args.smoke}
+        offending = [k for k, v in baked.items() if v]
+        if args.batch_size != ap.get_default("batch_size"):
+            offending.append("--batch_size")
+        if offending:
+            ap.error(f"{' '.join(offending)}: baked into the bundle at "
+                     "export time — re-export to change them")
     paths = sorted(globlib.glob(args.inputs, recursive=True))
     if not paths:
         raise SystemExit(f"no files match {args.inputs!r}")
-    params = load_params(args.params)
-    names = resolve_class_names(params, args.classes, args.data_root)
-    pred = Predictor(params, names, weight=args.weight,
-                     clip_ckpt=args.clip_ckpt or None, smoke=args.smoke,
-                     int8=args.int8, prune_tokens=args.prune_tokens,
-                     batch_size=args.batch_size, tta=args.tta,
-                     embed=bool(args.embed_out),
-                     device="cpu" if args.cpu else "cuda")
+    device = "cpu" if args.cpu else "cuda"
+    if args.from_export:
+        from .export import ExportedPredictor
+
+        pred = ExportedPredictor(args.from_export, device=device)
+        names = pred.class_names
+    else:
+        params = load_params(args.params)
+        names = resolve_class_names(params, args.classes, args.data_root)
+        pred = Predictor(params, names, weight=args.weight,
+                         clip_ckpt=args.clip_ckpt or None, smoke=args.smoke,
+                         int8=args.int8, prune_tokens=args.prune_tokens,
+                         batch_size=args.batch_size, tta=args.tta,
+                         embed=bool(args.embed_out), device=device)
 
     def load(p):
         # a bad file mid-glob must name itself

@@ -502,3 +502,162 @@ def test_pruned_attention_shape_matches_plain_on_card(cuda):
     qkv = torch.randn((32, 129, 3072), generator=gen, device=cuda).bfloat16()
     _assert_matches([fused_qkv_attention(qkv, 16)],
                     [qkv_attention_plain(qkv, 16)], torch.bfloat16)
+
+
+# -- the custom ops (ops/custom_ops.py) on the card --------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_opcheck_each_op_on_card(cuda, dtype, masked):
+    """torch.library.opcheck of every op's CUDA implementation: schema,
+    autograd registration (K3 as the registered formula), fake
+    implementation, AOT dispatch."""
+    from torch.library import opcheck
+
+    ops = torch.ops.eventclip
+    gen = torch.Generator(device=cuda).manual_seed(int(masked))
+    S = 77
+    m = causal_mask(S, device=cuda) if masked else None
+    qkv = torch.randn((4, S, 3 * 128), generator=gen, device=cuda).to(
+        dtype).requires_grad_()
+    q, k, v = (torch.randn((4, 2, S, 64), generator=gen, device=cuda)
+               .to(dtype).requires_grad_() for _ in range(3))
+    g = torch.randn((4, S, 128), generator=gen, device=cuda).to(dtype)
+    for op, args in (
+            (ops.qkv_attention.default, (qkv, 2, m)),
+            (ops.attention.default, (q, k, v, m)),
+            (ops.qkv_attention_bwd.default, (qkv.detach(), g, 2, m)),
+            (ops.attention_bwd.default, (q.detach(), k.detach(), v.detach(),
+                                         torch.randn_like(q), m)),
+            (ops.event_histogram.default,
+             (_windows(gen, 8, 5000, 180, 240, cuda), 180, 240))):
+        res = opcheck(op, args)
+        assert set(res.values()) == {"SUCCESS"}, (op, res)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_custom_ops_equal_their_launchers_on_card(cuda, dtype):
+    """Each op's CUDA implementation is its ctypes launch, bit for bit,
+    counting one launch each."""
+    from eventclip_tpu_torch.ops import attention as A
+    from eventclip_tpu_torch.ops.rasterize import (device_histogram_plan,
+                                                   launch_histograms)
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    qkv = torch.randn((8, 257, 3 * 1024), generator=gen, device=cuda).to(
+        dtype)
+    g = torch.randn((8, 257, 1024), generator=gen, device=cuda).to(dtype)
+    q, k, v = (torch.randn((8, 16, 257, 64), generator=gen, device=cuda)
+               .to(dtype) for _ in range(3))
+    wins = _windows(gen, 32, 20000, 180, 240, cuda)
+    plan = device_histogram_plan(cuda, 180, 240)
+    kernels.reset_launches()
+    pairs = [
+        (fused_qkv_attention(qkv, 16), A.launch_qkv_attention(qkv, 16, None)),
+        (qkv_attention_bwd(qkv, g, 16),
+         A.launch_qkv_attention_bwd(qkv, g, 16, None)),
+        (multi_head_attention(q, k, v), A.launch_attention(q, k, v, None)),
+        (torch.cat(attention_bwd(q, k, v, q)),
+         torch.cat(A.launch_attention_bwd(q, k, v, q, None))),
+        (histograms(wins, 180, 240), launch_histograms(wins, 180, 240, plan)),
+    ]
+    torch.cuda.synchronize()
+    for got, want in pairs:
+        assert torch.equal(got, want)
+    assert kernels.LAUNCHES == {"qkv_attention": 2, "qkv_attention_bwd": 4,
+                                "attention": 2, "histogram": 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_grad_through_k3_registered_formula_on_card(cuda, dtype, masked):
+    """torch.autograd.grad through eventclip::qkv_attention runs K3 (its
+    registered autograd formula): the ctypes launch bit for bit, within
+    the limits of the plain backward; a learned mask's cotangent comes
+    from the plain formula."""
+    from eventclip_tpu_torch.ops import attention as A
+
+    gen = torch.Generator(device=cuda).manual_seed(3 + masked)
+    S = 77
+    qkv = torch.randn((4, S, 3 * 128), generator=gen, device=cuda).to(
+        dtype).requires_grad_()
+    g = torch.randn((4, S, 128), generator=gen, device=cuda).to(dtype)
+    mask = None
+    if masked:
+        mask = (0.1 * torch.randn((S, S), generator=gen, device=cuda)
+                + causal_mask(S, device=cuda)).requires_grad_()
+    kernels.reset_launches()
+    out = torch.ops.eventclip.qkv_attention(qkv, 2, mask)
+    grads = torch.autograd.grad(out, (qkv, mask) if masked else (qkv,), g)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"qkv_attention": 1, "qkv_attention_bwd": 1}
+    md = None if mask is None else mask.detach()
+    assert torch.equal(grads[0], A.launch_qkv_attention_bwd(
+        qkv.detach(), g, 2, md))
+    _assert_matches([grads[0]], [qkv_attention_bwd_plain(qkv.detach(), g, 2,
+                                                         md)], dtype)
+    if masked:
+        want = A.mask_cotangent(*A._split_heads(qkv.detach(), 2), md,
+                                g.reshape(4, S, 2, -1).transpose(1, 2))
+        torch.testing.assert_close(grads[1], want, rtol=0, atol=0)
+
+
+# -- export bundles on the card (export.py) -----------------------------------
+
+
+@pytest.mark.parametrize("traced_on", ["cuda", "cpu"])
+def test_exported_bundle_launches_the_kernels_on_card(cuda, tmp_path,
+                                                      traced_on):
+    """A bundle serves on the card through K1 and K2, the `eventclip::`
+    nodes of its graphs: one traced on the card (bf16, so its graphs hold
+    the card's f32-accumulating GEMMs) against the live card predictor,
+    probabilities atol 1e-5; one traced on the CPU in f32 and listing both
+    device types (moved to the card at load) against the live CPU
+    predictor, atol 1e-4 (the export CLI's --check limit: the f32 kernels
+    and the plain versions sum in different orders)."""
+    import numpy as np
+
+    from eventclip_tpu_torch.export import ExportedPredictor, export_predictor
+    from eventclip_tpu_torch.serve import Predictor
+    from eventclip_tpu_torch.utils.config import Params
+
+    class TinyZS(Params):  # tests/test_server.py's _TinyZS
+        gpus = 1
+        dataset = "n_caltech"
+        train_batch_size = 4
+        val_batch_size = 8
+        data_root = "/nonexistent"
+        quantize_args = dict(
+            max_imgs=2, N=1000, split_method="event_count",
+            convert_method="event_histogram", grayscale=True,
+            count_non_zero=False, background_mask=True)
+        model = "ZSCLIP"
+        clip_dict = dict(arch="ViT-T/8@32",
+                         prompt="a point cloud image of a {}",
+                         agg_func="mean")
+        bf16 = traced_on == "cuda"
+
+    live = Predictor(TinyZS(), ["a", "b", "c"], smoke=True, batch_size=4,
+                     device=traced_on)
+    path = str(tmp_path / "b.eclip")
+    export_predictor(live, path, platforms=(
+        ["cuda"] if traced_on == "cuda" else ["cpu", "cuda"]))
+    frozen = ExportedPredictor(path, device="cuda")
+    rng = np.random.default_rng(5)
+    streams = [np.stack([rng.integers(0, 240, n), rng.integers(0, 180, n),
+                         np.sort(rng.random(n)), rng.choice([-1.0, 1.0], n)],
+                        axis=1).astype(np.float32)
+               for n in (700, 3000, 12000)]
+    kernels.reset_launches()
+    got = frozen.predict(streams)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    layers = live._cfg.clip.vision.layers
+    assert launches["histogram"] >= 1
+    assert launches["qkv_attention"] >= layers
+    assert launches["qkv_attention"] % layers == 0
+    want = live.predict(streams)
+    np.testing.assert_array_equal(got["label"], want["label"])
+    np.testing.assert_allclose(got["probs"], want["probs"], rtol=0,
+                               atol=1e-5 if traced_on == "cuda" else 1e-4)

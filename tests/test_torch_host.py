@@ -177,8 +177,10 @@ def test_view_packing_equals_reference(n_valid):
 def test_serving_path_imports_no_jax():
     """A fresh interpreter that builds and runs a tiny CPU Predictor, then
     one with the int8 tower (ops.quant), token pruning and embeddings, its
-    host half through the native library (eventclip_tpu_torch.native), has
-    neither jax nor any eventclip_tpu module loaded."""
+    host half through the native library (eventclip_tpu_torch.native),
+    serves it over HTTP (server, client) and freezes a bundle of it
+    (export, the custom ops of ops.custom_ops) that it loads and serves,
+    has neither jax nor any eventclip_tpu module loaded."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -202,6 +204,23 @@ def test_serving_path_imports_no_jax():
         sess.append(ev)
         assert sess.predict()["probs"].shape == (2,)
         assert native.available() and native.CALLS["transform"] == 2
+        import tempfile, threading
+        from eventclip_tpu_torch.client import ServingClient
+        from eventclip_tpu_torch.export import (ExportedPredictor,
+                                                export_predictor)
+        from eventclip_tpu_torch.server import make_server
+        srv = make_server(pred, "127.0.0.1", 0)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        c = ServingClient(f"http://127.0.0.1:{srv.server_address[1]}")
+        assert c.predict([ev])["names"] == pred.predict([ev])["names"]
+        srv.shutdown()
+        one = Predictor(p, ["a", "b"], smoke=True, batch_size=2,
+                        device="cpu", pack_views=False)
+        with tempfile.TemporaryDirectory() as d:
+            export_predictor(one, d + "/b.eclip")
+            frozen = ExportedPredictor(d + "/b.eclip", device="cpu")
+            assert (frozen.predict([ev])["probs"]
+                    == one.predict([ev])["probs"]).all()
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "eventclip_tpu" or m.startswith("eventclip_tpu."))

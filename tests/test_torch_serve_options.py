@@ -437,12 +437,36 @@ def test_serve_cli_embed_out_equals_jax(cli_files, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--from_export", "bundle"], "ROADMAP item 6"),
     (["--params", ZS, "--data_parallel"], "ROADMAP item 7"),
 ])
 def test_unported_serve_flags_are_refused(flag, item):
     with pytest.raises(SystemExit, match=item):
         serve.main(["--inputs", "*.npy", "--cpu"] + flag)
+
+
+def test_serve_cli_from_export_equals_jax(cli_files, tmp_path):
+    """`--from_export` is ported: the port's serve CLI over a bundle of
+    the port's Predictor writes the JSONL the JAX CLI writes from the
+    same config, towers and tree (tests/test_torch_export.py covers the
+    bundles themselves)."""
+    from eventclip_tpu_torch.export import export_predictor
+
+    tree, pt, config = cli_files
+    bundle = str(tmp_path / "model.eclip")
+    pred = serve.Predictor(_params(config, True), serve.resolve_class_names(
+        _params(config, True), data_root=tree), clip_ckpt=pt, batch_size=32,
+        device="cpu", pack_views=False)
+    export_predictor(pred, bundle)
+    inputs = ["--inputs", f"{tree}/testing/**/*.npy", "--top_k", "2"]
+    serve.main(["--from_export", bundle, "--out", str(tmp_path / "p.jsonl"),
+                "--cpu"] + inputs)
+    ref_serve.main(["--params", config, "--data_root", tree, "--clip_ckpt",
+                    pt, "--out", str(tmp_path / "j.jsonl"), "--cpu"]
+                   + inputs)
+    got, want = _jsonl(tmp_path / "p.jsonl"), _jsonl(tmp_path / "j.jsonl")
+    assert [r["path"] for r in got] == [r["path"] for r in want]
+    assert [r["topk_names"] for r in got] == [r["topk_names"]
+                                              for r in want]
 
 
 def test_data_parallel_predictor_is_refused(towers):
