@@ -2,7 +2,8 @@
 """Drive the PyTorch port on one card: serving and its options, FT and FS
 training, the train / test CLIs and the serve CLI from a dataset tree and
 checkpoint files on disk, the ResNet towers, pseudo-labelling with
-self-training, the HTTP server and its client, and frozen export bundles.
+self-training, the HTTP server and its client, frozen export bundles,
+data-parallel training and pseudo-labelling, and the trainer's extras.
 
     python3 chip_smoke.py
 
@@ -152,13 +153,36 @@ non-zero):
    requests (torch.profiler), the offline set_classes (reversed names) vs the
    live swap (<= 1e-4). (c) `python -m eventclip_tpu_torch.export
    --check` in a subprocess (padded programs).
+13. data parallelism and the trainer extras at ViT-L/14 (after phase 11,
+   in its temp dir): K1, K2 and K3 held to their plain versions at the
+   FT shapes of (a). (a) ft_text_fsclip_nin_params.py (bf16, RandAugment,
+   batch cut to 32 x 2): 3 steps with no process group, then the same 3
+   steps under a one-rank NCCL group (counters zeroed just before, read
+   just after: the `ddp` path; K1 1 / K2 48 / K3 24 a step), trained
+   leaves bit-equal, ms a step each. (b) joint_fsclip_ncaltech_params.py
+   (frozen tower, adapter dropout and RandAugment on, global batch 32)
+   on two gloo ranks sharing the card (torch.multiprocessing, spawn):
+   after 3 steps the adapter and prompt leaves equal one process on the
+   global batch within DDP_FS_ATOL (the key bias and a share
+   DDP_FS_SHARE apart), the eval counters summed over the ranks equal
+   its eval, rank 1 wrote no file; ms a step a rank. (c) profile_steps 2
+   on (a)'s trainer: the trace names K1, K2 and K3's CUDA kernels (MiB,
+   write s); run_id on every metrics line; a child process of (b)'s
+   trainer sends itself a SIGTERM mid-epoch, ends by it with a
+   `preempt` line and a resume.pt (the forced save's s), and the run
+   resumed here equals the uninterrupted one bit for bit; the GIFs and
+   captions.json of 5 val items (K1 / K2 counted; without PIL the GIFs
+   are reported unchecked). (d) phase 11's FS teacher through cli.gen_data
+   on two gloo ranks on the card (the JAX triple's env): rank 0's report
+   and tree equal phase 11's one-process run, rank 1 prints none.
 
 Then one JSON line with every kernel's numbers (by_path adds the eval
 CLI's `cli` rows, the pruned request's `serve_pruned` K2 row, RN50's
 text-tower `rn50` K2 row and the bundle's `export` rows, timed by the
-profiler inside its request; `eval_cli`, `train_cli` and `trained_eval` hold phase 9,
-`serve_options` phase 10, `pseudo_labels` phase 11, `server_export`
-phase 12), the card's name and power limit, and as the last line
+profiler inside its request, and phase 13(a)'s `ddp` rows; `eval_cli`,
+`train_cli` and `trained_eval` hold phase 9, `serve_options` phase 10,
+`pseudo_labels` phase 11, `server_export` phase 12, `ddp` phase 13), the
+card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Imports nothing
 of JAX. Fails when no CUDA device is present or the port is missing.
 """
@@ -1338,11 +1362,14 @@ def data_to_accuracy(dev, gen, tmp):
     launches = dict(kernels.LAUNCHES)
     steps = len(trainer.step_times)
     evals = min(2, len(trainer.val_loader)) + len(trainer.val_loader)
-    want = {"histogram": steps + evals,
-            "qkv_attention": Lt + L * (steps + evals)}
+    # the validation GIFs' forwards (K1 + K2 each) and inputs (K1 each)
+    vp, vi = trainer.viz_forwards
+    want = {"histogram": steps + evals + vp + vi,
+            "qkv_attention": Lt + L * (steps + evals + vp)}
     log(f"[{tag}] (b) train CLI launches {launches}: K2 {Lt} for the "
         f"text tower, then K1 1 / K2 {L} / K3 0 per train step and per "
-        f"eval batch ({steps} steps, {evals} eval batches)")
+        f"eval batch ({steps} steps, {evals} eval batches), and the "
+        f"validation GIFs' {vp} forwards + {vi} input frames")
     if launches != want:
         raise AssertionError(f"train CLI launches {launches} != {want}")
     step_ms = [s * 1e3 for _, s in trainer.step_times]
@@ -2096,6 +2123,10 @@ def pseudo_label_phase(dev, files, tmp, tag="11 pseudo"):
     if "not found" in stdout:
         raise AssertionError("a GT split file did not resolve")
     out["fs_gt"] = rec
+    # phase 13(d) labels the same split again over two ranks
+    out["fs_teacher_run"] = dict(argv=[
+        "--params", fs, *base, "--weight", weight, "--gt_shots", "2"],
+        save=save2, stdout=stdout)
 
     # 3. int8 with static scales from 1 batch, 128 of 256 patches kept
     res, rec, _ = teacher_run(tag, "ZS --int8 --int8_calib 1 "
@@ -2119,8 +2150,9 @@ def pseudo_label_phase(dev, files, tmp, tag="11 pseudo"):
     launches = dict(kernels.LAUNCHES)
     steps = len(trainer.step_times)
     evals = min(2, len(trainer.val_loader)) + len(trainer.val_loader)
-    want = {"histogram": steps + evals,
-            "qkv_attention": Lt + L * (steps + evals)}
+    vp, vi = trainer.viz_forwards  # the validation GIFs' forwards
+    want = {"histogram": steps + evals + vp + vi,
+            "qkv_attention": Lt + L * (steps + evals + vp)}
     step_ms = [s * 1e3 for _, s in trainer.step_times]
     med = statistics.median(step_ms)
     log(f"[{tag}] (c) student on the FS teacher's tree: "
@@ -2566,6 +2598,574 @@ def server_and_export(dev, pred, streams, files, tmp):
     return out
 
 
+# -- phase 13: data parallelism, the trainer extras, sharded pseudo-labels ---
+
+
+# 13(b): two gloo ranks against one process, FS at ViT-L/14 on the card,
+# after 3 steps, element by element over the trained f32 leaves (adapter,
+# prompts). The key bias is held apart: softmax is shift-invariant in it,
+# so its gradient is rounding noise and Adam moves it by about lr whatever
+# the noise's sign (at most 2 lr a step apart). Of the other elements all
+# but a share DDP_FS_SHARE lie within DDP_FS_ATOL: each rank runs the
+# frozen bf16 tower at half the batch, where the GEMMs may sum in another
+# order, so an element whose gradient is near zero may flip its Adam step.
+# A rank that skipped the all-reduce, or drew other RandAugment or dropout
+# rows, moves most elements by about lr (1e-4) away.
+DDP_FS_ATOL = 1e-6
+DDP_FS_SHARE = 1e-3
+# 13(b)'s eval: each real sample's aggregated logits and probs (the ranks'
+# rows of a batch in rank order) within DDP_ROWS_RTOL of their largest
+# value of one process's, and the CE loss within DDP_CE_RTOL (the sound
+# run on the card read a gap of 8e-8). Random towers bring every sample's
+# features close together, so the rows must also lie at least ten
+# tolerances apart from one sample to the next: else a view mapped to the
+# wrong sample would pass.
+DDP_ROWS_RTOL = 1e-5
+DDP_CE_RTOL = 1e-5
+DDP_TIMEOUT_S = 300  # a hung rendezvous fails the phase, not the call
+
+
+def trained_leaves(trainer):
+    """{name: CPU copy} of the parameters the optimizer trains."""
+    return {n: p.detach().cpu().clone()
+            for n, p in trainer.model_params.named_parameters()
+            if p.requires_grad}
+
+
+def compare_leaves(got, want, lr_steps):
+    """Phase 13's leaf comparison (see DDP_FS_ATOL): the max |diff| and
+    the share above DDP_FS_ATOL off the key bias, the key bias's max
+    |diff|, and whether every leaf is bit-equal."""
+    import torch
+
+    off, bias, above, n = 0.0, 0.0, 0, 0
+    for name, w in want.items():
+        d = (got[name].double() - w.double()).abs().reshape(-1)
+        key = torch.zeros(d.numel(), dtype=torch.bool)
+        if name.endswith("attn.bqkv"):
+            D = d.numel() // 3
+            key[D:2 * D] = True
+        off = max(off, float(d[~key].max()) if (~key).any() else 0.0)
+        bias = max(bias, float(d[key].max()) if key.any() else 0.0)
+        above += int((d[~key] > DDP_FS_ATOL).sum())
+        n += int((~key).sum())
+    equal = all(torch.equal(got[k], want[k]) for k in want)
+    return dict(max_diff=off, share_above=above / max(n, 1),
+                key_bias_max_diff=bias, key_bias_bound=2 * lr_steps,
+                bit_equal=equal)
+
+
+def ddp_fs_trainer(dev, ckpt_dir, **over):
+    """Phase 13's FS trainer: joint_fsclip_ncaltech_params.py at its own
+    widths (ViT-L/14 frozen, bf16, the text-trans adapter with its dropout,
+    RandAugment), global batch 32, 2 epochs of 3 steps on a synthetic
+    N-Caltech set, val 34 streams x 10 views in batches of 16 (the last,
+    of 2 streams, leaves a second rank none), eval every epoch, saves only
+    at the end (so a preemption forces its own), no GIFs unless `over`
+    sets `visualize`. `over` sets further config keys."""
+    from eventclip_tpu_torch.data.event_windows import EventWindowDataset
+    from eventclip_tpu_torch.engine.trainer import EventCLIPTrainer
+    from eventclip_tpu_torch.utils.config import load_params
+
+    params = load_params(os.path.join(HERE, "configs", "fsclip",
+                                      "joint_adapter",
+                                      "joint_fsclip_ncaltech_params.py"))
+    over = dict(dict(max_epochs=2, eval_interval=1, save_interval=5,
+                     val_batch_size=16, visualize=False, num_workers=4),
+                **over)
+    for k, v in over.items():
+        setattr(params, k, v)
+    q = dict(params.quantize_args)
+    bs = int(params.train_batch_size)
+    train = EventWindowDataset(SyntheticNCaltech(3 * bs, seed=1), q,
+                               augment=bool(params.get("img_aug", False)))
+    val = EventWindowDataset(SyntheticNCaltech(34, seed=2),
+                             dict(q, max_imgs=10))
+    return EventCLIPTrainer(params, train, val, ckpt_dir,
+                            log_file=os.path.join(ckpt_dir, "metrics.jsonl"),
+                            smoke=True, seed=0, device=dev)
+
+
+def ddp_fs_rank(rank, port, out_dir, device):
+    """One of phase 13(b)'s two gloo ranks on the one card (a spawned
+    process): 3 FS steps, the eval, the boundary save; writes its trained
+    leaves, launches, eval (and its per-sample rows) and step times
+    under out_dir."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from eventclip_tpu_torch import kernels
+    from eventclip_tpu_torch.parallel import distributed as D
+    from tests.torch_ddp_worker import evaluate_rows
+
+    D.initialize_distributed(f"localhost:{port}", 2, rank, backend="gloo",
+                             device=device)
+    dev = torch.device(device)
+    trainer = ddp_fs_trainer(dev, os.path.join(out_dir, f"rank{rank}"))
+    kernels.reset_launches()
+    trainer.train_epoch(0)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    ev, logits, probs = evaluate_rows(trainer)
+    np.savez(os.path.join(out_dir, f"eval_rows{rank}.npz"),
+             **{f"logits{i}": x for i, x in enumerate(logits)},
+             **{f"probs{i}": x for i, x in enumerate(probs)})
+    trainer.save(0, ev)
+    torch.save(trained_leaves(trainer),
+               os.path.join(out_dir, f"leaves{rank}.pt"))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(dict(launches=launches, eval=ev,
+                       step_ms=[s * 1e3 for _, s in trainer.step_times],
+                       wait_ms=[w * 1e3 for w, _ in trainer.step_times],
+                       backend=torch.distributed.get_backend(),
+                       device=str(trainer.device),
+                       local_batch=trainer.train_loader.local_batch,
+                       cards=torch.cuda.device_count()), f)
+    D.shutdown_distributed()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ft_ddp_trainer(dev, ckpt_dir, batch):
+    """Phase 13(a)'s FT trainer: ft_text_fsclip_nin_params.py at full width
+    (ViT-L/14, bf16, remat, RandAugment), batch cut to `batch` x 2 views,
+    3 steps."""
+    from eventclip_tpu_torch.data.event_windows import EventWindowDataset
+    from eventclip_tpu_torch.engine.trainer import EventCLIPTrainer
+    from eventclip_tpu_torch.utils.config import load_params
+
+    params = load_params(os.path.join(HERE, "configs", "ftclip",
+                                      "ft_text_fsclip_nin_params.py"))
+    params.train_batch_size, params.val_batch_size = batch, 8
+    params.max_epochs, params.visualize = 1, False
+    q = dict(params.quantize_args)
+    train = EventWindowDataset(SyntheticNImageNet(3 * batch, seed=1), q,
+                               augment=bool(params.get("img_aug", False)))
+    val = EventWindowDataset(SyntheticNImageNet(8, seed=2),
+                             dict(q, max_imgs=10))
+    return EventCLIPTrainer(params, train, val, ckpt_dir,
+                            log_file=os.path.join(ckpt_dir, "metrics.jsonl"),
+                            smoke=True, seed=0, device=dev)
+
+
+def nccl_one_rank(dev, tmp, batch=32, tag="13 ddp"):
+    """Phase 13(a) and the profile of (c): 3 bf16 FT steps at ViT-L/14
+    with no process group, then the same 3 steps under a one-rank NCCL
+    group (counted: the ddp path), leaves compared bit for bit; then 2
+    more steps traced by `profile_steps` and the metrics lines read."""
+    import torch
+
+    from eventclip_tpu_torch import kernels
+    from eventclip_tpu_torch.parallel import distributed as D
+
+    out = {}
+    t0 = time.perf_counter()
+    plain = ft_ddp_trainer(dev, os.path.join(tmp, "plain"), batch)
+    plain.train_epoch(0)
+    torch.cuda.synchronize()
+    plain_ms = [s * 1e3 for _, s in plain.step_times]
+    want = trained_leaves(plain)
+    L = plain.clip_cfg.vision.layers
+    del plain
+    torch.cuda.empty_cache()
+    D.initialize_distributed(f"localhost:{free_port()}", 1, 0,
+                             backend="nccl", device=dev)
+    try:
+        trainer = ft_ddp_trainer(dev, os.path.join(tmp, "nccl"), batch)
+        # the ddp path's run: counts zeroed just before, read just after
+        kernels.reset_launches()
+        trainer.train_epoch(0)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        nccl_ms = [s * 1e3 for _, s in trainer.step_times]
+        cmp = compare_leaves(trained_leaves(trainer), want, 0.0)
+        backend = torch.distributed.get_backend()
+        log(f"[{tag}] (a) bf16 FT ViT-L/14, batch {batch} x 2 views (cut "
+            f"from 128 to keep chip_smoke within its time), one rank over "
+            f"{backend}: steps {[round(x, 1) for x in nccl_ms]} ms "
+            f"(median {statistics.median(nccl_ms):.1f}) against "
+            f"{[round(x, 1) for x in plain_ms]} with no group (median "
+            f"{statistics.median(plain_ms):.1f}); {len(want)} trained "
+            f"leaves {'bit-equal' if cmp['bit_equal'] else 'NOT bit-equal'}"
+            f" (max |diff| {cmp['max_diff']:.3g}); launches {launches} "
+            f"(K1 1, K2 {2 * L}, K3 {L} a step expected)")
+        if not cmp["bit_equal"]:
+            raise AssertionError(f"one-rank NCCL steps differ from the "
+                                 f"plain steps: {cmp}")
+        steps = len(nccl_ms)
+        if launches != {"histogram": steps, "qkv_attention": 2 * L * steps,
+                        "qkv_attention_bwd": L * steps}:
+            raise AssertionError(f"ddp launches {launches}")
+        out.update(batch=batch, plain_step_ms=plain_ms, nccl_step_ms=nccl_ms,
+                   launches=launches, bit_equal=True)
+
+        # (c) profile_steps = 2 (what --profile 2 sets): a trace of 2
+        # steps after 1 warm-up step, on this trainer
+        trainer.profile_steps = 2
+        trainer.train_epoch(0)
+        tr = trainer.profile_trace
+        with open(tr["path"]) as f:
+            text = f.read()
+        names = {k: n for k, n in (("K1", "hist_kernel"),
+                                   ("K2", "attention_tc_kernel"),
+                                   ("K3 dq", "dq_tc_kernel"),
+                                   ("K3 dkdv", "dkdv_tc_kernel"))}
+        missing = [k for k, n in names.items() if n not in text]
+        log(f"[{tag}] (c) profile_steps 2: {os.path.relpath(tr['path'], tmp)}"
+            f", {tr['bytes'] / 2 ** 20:.1f} MiB written in "
+            f"{tr['write_s']:.2f} s; names {sorted(names.values())}: "
+            f"{'all present' if not missing else f'missing {missing}'}")
+        if missing:
+            raise AssertionError(f"the trace lacks {missing}")
+        lines = [json.loads(ln) for ln in open(trainer.log_file)]
+        if not lines or any(ln.get("run_id") != trainer.run_id
+                            for ln in lines):
+            raise AssertionError(f"metrics lines without run_id: {lines}")
+        log(f"[{tag}] (c) run_id {trainer.run_id!r} on all {len(lines)} "
+            "metrics lines")
+        out.update(trace_mib=tr["bytes"] / 2 ** 20,
+                   trace_write_s=tr["write_s"], run_id_lines=len(lines))
+        del trainer
+    finally:
+        D.shutdown_distributed()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def spawn_fs_ranks(dev, tmp):
+    """Phase 13(b)'s two ranks on `dev` (torch.multiprocessing, spawn),
+    within DDP_TIMEOUT_S; returns their records and leaves."""
+    import torch
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(tmp, "ranks")
+    os.makedirs(out_dir)
+    ctx = mp.start_processes(ddp_fs_rank,
+                             args=(free_port(), out_dir, str(dev)),
+                             nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + DDP_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"the 2 ranks did not finish within "
+                                 f"{DDP_TIMEOUT_S} s")
+    recs = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+            for r in (0, 1)]
+    leaves = [torch.load(os.path.join(out_dir, f"leaves{r}.pt"))
+              for r in (0, 1)]
+    return out_dir, recs, leaves
+
+
+def compare_eval_rows(out_dir, rows0):
+    """13(b): the two ranks' per-sample eval rows (eval_rows<r>.npz), a
+    batch's rows concatenated in rank order, against one process's
+    (`evaluate_rows`'s logits and probs lists). Raises past DDP_ROWS_RTOL,
+    or when two samples' logits lie closer than ten tolerances."""
+    got = []
+    for r in (0, 1):
+        with np.load(os.path.join(out_dir, f"eval_rows{r}.npz")) as z:
+            got.append(dict(z))
+    res = {}
+    for name, want in zip(("logits", "probs"), rows0):
+        g = np.concatenate([x[f"{name}{i}"] for i in range(len(want))
+                            for x in got])
+        w = np.concatenate(want)
+        if g.shape != w.shape:
+            raise AssertionError(f"eval {name} rows {g.shape} != {w.shape}")
+        res[f"{name}_err"] = float(np.abs(g - w).max() / np.abs(w).max())
+    w = np.concatenate(rows0[0])
+    res["samples"] = len(w)
+    res["separation"] = float(min(
+        np.abs(w[i] - w[j]).max() for i in range(len(w)) for j in range(i))
+        / np.abs(w).max())
+    if max(res["logits_err"], res["probs_err"]) > DDP_ROWS_RTOL or \
+            res["separation"] < 10 * DDP_ROWS_RTOL:
+        raise AssertionError(f"eval rows differ from one process: {res}")
+    return res
+
+
+def fs_ranks_and_preemption(dev, tmp, tag="13 ddp"):
+    """Phase 13(b) and the preemption and viz parts of (c), on the FS
+    trainer: one process on the global batch (epoch 0, eval, epoch 1),
+    then 2 gloo ranks on the one card, then a child process that a
+    SIGTERM ends mid-epoch, resumed here."""
+    import signal
+
+    import torch
+
+    from eventclip_tpu_torch import kernels
+    from tests.torch_ddp_worker import evaluate_rows
+
+    out = {}
+    t0 = time.perf_counter()
+    ref = ddp_fs_trainer(dev, os.path.join(tmp, "whole"))
+    L = ref.clip_cfg.vision.layers
+    kernels.reset_launches()
+    ref.train_epoch(0)
+    torch.cuda.synchronize()
+    one_ms = [s * 1e3 for _, s in ref.step_times]
+    ev0, *rows0 = evaluate_rows(ref)
+    after3 = trained_leaves(ref)
+    ref.train_epoch(1)
+    after6 = trained_leaves(ref)
+    lr = float(ref.opt_cfg.lr)
+
+    # (c) viz: the GIFs of 5 val items through this trainer's forward
+    viz_dir = os.path.join(tmp, "whole", "viz", "epoch_1")
+    kernels.reset_launches()
+    try:
+        import PIL  # noqa: F401
+        have_pil = True
+    except ImportError:
+        have_pil = False
+    try:
+        ref._sample_events()
+    except ImportError:
+        if have_pil:
+            raise
+    torch.cuda.synchronize()
+    vp, vi = ref.viz_forwards
+    viz_launches = dict(kernels.LAUNCHES)
+    if viz_launches != {"histogram": vp + vi, "qkv_attention": L * vp} \
+            or vp < 1:
+        raise AssertionError(f"viz launches {viz_launches} ({vp}, {vi})")
+    if have_pil:
+        files = sorted(os.listdir(viz_dir))
+        caps = json.load(open(os.path.join(viz_dir, "captions.json")))
+        if len(caps) != vp or sum(f.endswith(".gif") for f in files) \
+                != vp + vi:
+            raise AssertionError(f"viz wrote {files}")
+        log(f"[{tag}] (c) viz: {vp} val items, captions.json and "
+            f"{vp + vi} GIFs; launches {viz_launches}")
+    else:
+        log(f"[{tag}] (c) viz: PIL does not import on this machine, so the "
+            f"GIFs were NOT checked; the first item's forward ran "
+            f"(launches {viz_launches}) and the trainer printed "
+            "'[viz] skipped'")
+    out["viz"] = dict(items=vp, inputs=vi, launches=viz_launches,
+                      gifs_checked=have_pil)
+    del ref
+    torch.cuda.empty_cache()
+
+    # (b) 2 gloo ranks on the one card
+    t1 = time.perf_counter()
+    out_dir, recs, leaves = spawn_fs_ranks(dev, tmp)
+    ranks_s = time.perf_counter() - t1
+    cmp = [compare_leaves(lv, after3, lr * 3) for lv in leaves]
+    rank1_files = [os.path.join(dp, f) for dp, _, fs in
+                   os.walk(os.path.join(out_dir, "rank1")) for f in fs]
+    rank0_files = sorted(os.path.relpath(os.path.join(dp, f),
+                                         os.path.join(out_dir, "rank0"))
+                         for dp, _, fs in os.walk(os.path.join(out_dir,
+                                                               "rank0"))
+                         for f in fs)
+    two_ms = recs[0]["step_ms"]
+    log(f"[{tag}] (b) 2 ranks over {recs[0]['backend']} on "
+        f"{recs[0]['device']} / {recs[1]['device']}: this machine has "
+        f"{recs[0]['cards']} card(s) and the run used no second card "
+        f"(NCCL refuses two ranks on one card); global batch "
+        f"{2 * recs[0]['local_batch']}, {recs[0]['local_batch']} a rank; "
+        f"steps (ms) rank 0 "
+        f"{[round(x, 1) for x in two_ms]}, rank 1 "
+        f"{[round(x, 1) for x in recs[1]['step_ms']]} against one process "
+        f"{[round(x, 1) for x in one_ms]}; ranks' wall {ranks_s:.1f} s")
+    for r, c in enumerate(cmp):
+        log(f"[{tag}] (b) rank {r} leaves vs one process: max |diff| "
+            f"{c['max_diff']:.3g} off the key bias "
+            f"({100 * c['share_above']:.4f}% above {DDP_FS_ATOL}), key bias "
+            f"{c['key_bias_max_diff']:.3g} (bound "
+            f"{c['key_bias_bound']:.3g}); launches {recs[r]['launches']}")
+        if c["share_above"] > DDP_FS_SHARE or \
+                c["key_bias_max_diff"] > c["key_bias_bound"] or \
+                c["max_diff"] > c["key_bias_bound"]:
+            raise AssertionError(f"rank {r}'s leaves differ: {c}")
+        if recs[r]["launches"] != {"histogram": 3, "qkv_attention": 3 * L}:
+            raise AssertionError(f"rank {r} launches {recs[r]['launches']}")
+    for r in (0, 1):
+        ev = recs[r]["eval"]
+        same = ev["n"] == ev0["n"] and all(
+            round(ev[k] * ev["n"]) == round(ev0[k] * ev0["n"])
+            for k in ("probs_acc", "logits_acc"))
+        if not same or not np.isclose(ev["ce_loss"], ev0["ce_loss"],
+                                      rtol=DDP_CE_RTOL, atol=0):
+            raise AssertionError(f"rank {r} eval {ev} != one process {ev0}")
+    rows = compare_eval_rows(out_dir, rows0)
+    log(f"[{tag}] (b) per-sample eval rows, ranks in rank order vs one "
+        f"process ({rows['samples']} samples): max |diff| / max |value| "
+        f"logits {rows['logits_err']:.3g}, probs {rows['probs_err']:.3g} "
+        f"(limit {DDP_ROWS_RTOL}); least distance between two samples' "
+        f"logits {rows['separation']:.3g} of max |value| (at least "
+        f"{10 * DDP_ROWS_RTOL})")
+    if rank1_files:
+        raise AssertionError(f"rank 1 wrote {rank1_files}")
+    log(f"[{tag}] (b) eval summed over the ranks {recs[0]['eval']} = one "
+        f"process {ev0} (CE within {DDP_CE_RTOL}); rank 0 wrote "
+        f"{rank0_files}, rank 1 nothing")
+    out["ranks"] = dict(step_ms=[r["step_ms"] for r in recs],
+                        wait_ms=[r["wait_ms"] for r in recs],
+                        one_process_step_ms=one_ms, backend=recs[0]["backend"],
+                        compare=cmp, eval=recs[0]["eval"], eval_one=ev0,
+                        eval_rows=rows,
+                        launches=[r["launches"] for r in recs],
+                        wall_s=ranks_s)
+
+    # (c) a SIGTERM mid-epoch in a child process, then the resume here
+    child_dir = os.path.join(tmp, "preempted")
+    code = (f"import os, signal, sys, time\nsys.path.insert(0, {HERE!r})\n"
+            + PREEMPT_CHILD)
+    t1 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code, child_dir, str(dev)],
+                         capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t1
+    lines = [json.loads(ln) for ln in
+             open(os.path.join(child_dir, "metrics.jsonl"))]
+    save_s = [float(ln.split()[1]) for ln in res.stdout.splitlines()
+              if ln.startswith("SAVE_S ")]
+    if res.returncode != -signal.SIGTERM or \
+            [ln["split"] for ln in lines] != ["train", "val", "preempt"] or \
+            not os.path.exists(os.path.join(child_dir, "models",
+                                            "resume.pt")):
+        raise AssertionError(f"preempted child: rc {res.returncode}, lines "
+                             f"{lines}\n{res.stdout[-3000:]}"
+                             f"\n{res.stderr[-3000:]}")
+    resumed = ddp_fs_trainer(dev, child_dir)
+    resumed.fit(san_check_val_step=0)
+    rcmp = compare_leaves(trained_leaves(resumed), after6, 0.0)
+    lines = [json.loads(ln) for ln in
+             open(os.path.join(child_dir, "metrics.jsonl"))]
+    log(f"[{tag}] (c) SIGTERM at step 2 of epoch 0 in a child: it ended "
+        f"by the signal (rc {res.returncode}) after {child_s:.1f} s, the "
+        f"forced save took {save_s[0] if save_s else float('nan'):.2f} s; "
+        f"resumed here to {resumed.optimizer.count} updates: leaves "
+        f"{'bit-equal' if rcmp['bit_equal'] else 'NOT bit-equal'} to the "
+        f"uninterrupted run (max |diff| {rcmp['max_diff']:.3g}); metrics "
+        f"{[ln['split'] for ln in lines]}, one run_id: "
+        f"{len({ln['run_id'] for ln in lines}) == 1}")
+    if not rcmp["bit_equal"] or resumed.optimizer.count != 6 or \
+            len({ln["run_id"] for ln in lines}) != 1:
+        raise AssertionError(f"resume after preemption: {rcmp}")
+    out["preempt"] = dict(child_s=child_s, save_s=save_s[0] if save_s
+                          else None, rc=res.returncode, bit_equal=True)
+    del resumed
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+# the child of phase 13(c): the FS trainer's fit, which sends itself a
+# SIGTERM at the second step of epoch 0 and prints the forced save's time
+PREEMPT_CHILD = """
+import torch
+import chip_smoke
+t = chip_smoke.ddp_fs_trainer(torch.device(sys.argv[2]), sys.argv[1])
+step, save, calls = t.train_step, t.save, [0]
+
+def step_then_signal(batch):
+    calls[0] += 1
+    if calls[0] == 2:
+        os.kill(os.getpid(), signal.SIGTERM)
+    return step(batch)
+
+def timed_save(*a):
+    t0 = time.perf_counter()
+    save(*a)
+    torch.cuda.synchronize()
+    print(f"SAVE_S {time.perf_counter() - t0}", flush=True)
+
+t.train_step, t.save = step_then_signal, timed_save
+t.fit(san_check_val_step=0)
+print("fit returned")
+"""
+
+
+def gen_data_ranks(run, tmp, tag="13 ddp"):
+    """Phase 13(d): phase 11's FS teacher on two gloo ranks on the card
+    (the JAX triple's env). Each child joins the group over gloo itself
+    (NCCL refuses two ranks on one GPU); the CLI's own
+    initialize_distributed then finds the group. Rank 0's report and tree
+    equal phase 11's one-process run; rank 1 prints no report."""
+    save = run["save"] + "-ddp"
+    port = free_port()
+    code = (f"import sys\nsys.path.insert(0, {HERE!r})\n"
+            "from eventclip_tpu_torch.cli import gen_data\n"
+            "from eventclip_tpu_torch.parallel.distributed import "
+            "initialize_distributed\n"
+            "initialize_distributed(backend='gloo', device='cuda')\n"
+            "gen_data.main(sys.argv[1:])\n")
+    procs = []
+    t0 = time.perf_counter()
+    for rank in (0, 1):
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"localhost:{port}",
+                   JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(rank))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code, *run["argv"], "--save_path", save],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DDP_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        raise AssertionError(f"gen_data ranks ran past {DDP_TIMEOUT_S} s")
+    wall = time.perf_counter() - t0
+
+    def report(text):
+        return text[text.index("Class stats:"):
+                    text.find("Pseudo-label dataset tree")]
+
+    if any(p.returncode for p in procs):
+        raise AssertionError("gen_data ranks failed:\n" + "\n".join(
+            o[-3000:] for o in outs))
+    same_report = report(outs[0]) == report(run["stdout"])
+    same_tree = tree_map(save) == tree_map(run["save"])
+    totals = [ln for ln in report(outs[0]).splitlines() if "\tSelect " in ln]
+    log(f"[{tag}] (d) cli.gen_data FS teacher on 2 gloo ranks on the card: "
+        f"{wall:.1f} s; report {'equal' if same_report else 'DIFFERENT'}, "
+        f"tree {'equal' if same_tree else 'DIFFERENT'} to phase 11's one "
+        f"process ({totals}); rank 1 printed a report: "
+        f"{'Class stats:' in outs[1]}")
+    if not (same_report and same_tree) or "Class stats:" in outs[1]:
+        raise AssertionError("2-rank gen_data differs from one process")
+    return dict(wall_s=wall, report_equal=True, tree_equal=True,
+                totals=totals)
+
+
+def ddp_phase(dev, gen, tmp, fs_teacher_run):
+    """Phase 13. Returns the record and the ddp path's kernel rows and
+    launches (phase 13(a)'s one-rank NCCL steps)."""
+    import torch
+
+    tag = "13 ddp"
+    t_phase = time.perf_counter()
+    rows = {
+        "histogram": check_histogram(gen, "ddp FT batch 32", 64, 70000, 480,
+                                     640, dev),
+        "qkv_attention": check_attention(
+            gen, "ddp FT batch 32", 64, 257, 16, 64, torch.bfloat16,
+            False, dev),
+        "qkv_attention_bwd": check_attention_bwd(
+            gen, "ddp FT batch 32", 64, 257, 16, 64, torch.bfloat16,
+            False, dev)}
+    d = os.path.join(tmp, "ddp")
+    os.makedirs(d)
+    out = {"nccl": nccl_one_rank(dev, d)}
+    out.update(fs_ranks_and_preemption(dev, d))
+    out["gen_data"] = gen_data_ranks(fs_teacher_run, tmp)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[{tag}] phase 13 in {out['phase_s']:.1f} s")
+    return out, rows, out["nccl"]["launches"]
+
+
 def main() -> int:
     import torch
 
@@ -2810,6 +3410,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         pseudo, rn50_launches = pseudo_labels(dev, requests[0][1], files,
                                               tmp)
+        # -- 13 -----------------------------------------------------------
+        ddp, rec["ddp"], ddp_launches = ddp_phase(
+            dev, gen, tmp, pseudo.pop("fs_teacher_run"))
     os.environ.pop("EVENTCLIP_BPE_PATH")
     rec["serve_pruned"] = {"qkv_attention": pruned_row}
     # the bundle's request: K1 and K2 at phase 3's serving shapes, their
@@ -2838,7 +3441,7 @@ def main() -> int:
               "train_f32": train32_launches, "train_fs": train_fs_launches,
               "cli": data["eval_cli"]["launches"],
               "serve_pruned": pruned_launches, "rn50": rn50_launches,
-              "export": served["export"]["launches"]}
+              "export": served["export"]["launches"], "ddp": ddp_launches}
     by_path = {p: {k: dict(launches=counts[p].get(k, 0), **r)
                    for k, r in recs.items()}
                for p, recs in rec.items() if p in counts}
@@ -2853,7 +3456,7 @@ def main() -> int:
         "requests": per_request, "train": train, "update_card_vs_cpu": update,
         "train_f32": train32, "train_fs": train_fs, "randaugment": augment,
         "serve_options": options, "pseudo_labels": pseudo,
-        "server_export": served, **data}
+        "server_export": served, "ddp": ddp, **data}
     log(json.dumps(line))
     log(card)
     print(json.dumps({"ok": True, "device": {

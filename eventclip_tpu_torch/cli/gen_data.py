@@ -22,8 +22,14 @@ forward it just queued, as the JAX package does. The per-batch filter
 (`filter_batch`), the top-k re-filter (`topk_refilter`) and the tree
 writer (`write_tree`) are plain functions over numpy arrays and paths.
 
-One process only: the root CLI's multi-host runs (JAX_COORDINATOR_ADDRESS,
-each host labelling its shard) are ROADMAP item 7 and refused by name.
+Sharded runs: every process runs this same command (one card each) and
+joins one run through the coordination env, the JAX triple
+(JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) or
+torchrun's. Each rank labels its shard of every teacher batch; with
+--int8_calib each rank calibrates on its own shard and the activation
+max-abs is folded over the ranks, so every rank quantizes the same
+teacher; the counts and selections are gathered, and rank 0 alone
+prints the report and writes the tree (the other ranks return None).
 """
 
 from __future__ import annotations
@@ -50,6 +56,8 @@ from ..models.clip.config import clip_arch_config
 from ..ops.preprocess import ClipPreprocess
 from ..ops.quant import calibrate_visual_amax, quantize_classifier_params
 from ..ops.rasterize import rasterize_for_clip
+from ..parallel.distributed import (allreduce_max_array, gather_objects,
+                                    host_shard_info, initialize_distributed)
 from ..utils.config import load_params
 
 
@@ -83,14 +91,6 @@ def parse_args(argv: Optional[List[str]] = None):
     parser.add_argument("--fp32", action="store_true",
                         help="run activations in f32 instead of bf16")
     return parser.parse_args(argv)
-
-
-def refuse_multi_host() -> None:
-    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
-    if os.environ.get("JAX_COORDINATOR_ADDRESS") or world > 1:
-        raise SystemExit("multi-host pseudo-labelling (each process "
-                         "labelling its shard of the split) is not ported "
-                         "yet (ROADMAP item 7, multi-GPU)")
 
 
 def resolve_link(path: str) -> str:
@@ -299,7 +299,8 @@ def build_teacher(params, args, test_set, device):
 def quantize_teacher(args, cls_cfg, model_params, loader, raster, device):
     """--int8: the W8A8 copy of the teacher; with --int8_calib NB, static
     activation scales from the FLOAT tower over the first NB batches'
-    views (padding views included, as the JAX package takes them)."""
+    views (padding views included, as the JAX package takes them), each
+    rank over its shard, folded by a max over the ranks."""
     act_amax = None
     if args.int8_calib > 0:
         spec, pp = raster
@@ -316,18 +317,21 @@ def quantize_teacher(args, cls_cfg, model_params, loader, raster, device):
             except ValueError as e:
                 raise SystemExit(f"--int8: {e}") from None
             act_amax = a if act_amax is None else torch.maximum(act_amax, a)
+        if act_amax is not None:  # shards are balanced: all or none
+            act_amax = torch.from_numpy(
+                allreduce_max_array(act_amax)).to(act_amax.device)
     try:
         return quantize_classifier_params(model_params, act_amax=act_amax)
     except ValueError as e:
         raise SystemExit(f"--int8: {e}") from None
 
 
-def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
+def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, Any]]:
     """Run the CLI; returns the selection (`path2cls`, the per-class
     counts), the accuracy, and the teacher's timing: wall and loader-wait
-    seconds of the labelling loop, batches, samples and encoded views."""
+    seconds of the labelling loop, batches, samples and encoded views (of
+    this rank's shard). Ranks other than 0 return None."""
     args = parse_args(argv)
-    refuse_multi_host()
     params = load_params(args.params)
     if args.fp32:
         params.bf16 = False
@@ -336,7 +340,14 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     if args.save_path:
         assert not osp.exists(args.save_path), (
             f"{args.save_path} already exists!")
-    device = torch.device("cpu" if args.cpu else "cuda")
+    device = torch.device("cpu" if args.cpu else
+                          f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    # a multi-process launch labels one split in shards (root
+    # gen_data.py:469-477)
+    initialize_distributed(device=device)
+    shard_index, num_shards = host_shard_info()
 
     is_zs = params.model == "ZSCLIP"
     tta = args.tta
@@ -377,8 +388,11 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     bs = max(int(params.get("val_batch_size", 32)), 1)
     if tta:
         bs = max(bs // 4, 1)
+    # the global batch splits into whole shards, one a rank
+    bs = max(bs - bs % num_shards, num_shards)
     loader = PrefetchLoader(test_set, bs, pad_last=True,
-                            num_workers=params.get("num_workers", 8))
+                            num_workers=params.get("num_workers", 8),
+                            shard_index=shard_index, num_shards=num_shards)
     if args.int8:
         model_params = quantize_teacher(args, cls_cfg, model_params, loader,
                                         (spec, pp), device)
@@ -435,6 +449,22 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         consume(*pending)
     sync_device(device)
     wall = time.perf_counter() - t0
+
+    if num_shards > 1:
+        # every rank labelled its shard: merge the selections so the
+        # report, top-k and tree see the whole split; rank 0 writes
+        parts = gather_objects((sel.n_correct, sel.n_total, sel.sel,
+                                sel.correct, sel.path2cls))
+        sel.n_correct = sum(p[0] for p in parts)
+        sel.n_total = sum(p[1] for p in parts)
+        for name in class_names:
+            sel.sel[name] = sum(p[2][name] for p in parts)
+            sel.correct[name] = sum(p[3][name] for p in parts)
+        sel.path2cls = {}
+        for p in parts:  # shards are disjoint slices of the split
+            sel.path2cls.update(p[4])
+        if shard_index != 0:
+            return None
 
     gt_cnt = {k: int((ds_labels == i).sum())
               for i, k in enumerate(class_names)}

@@ -22,7 +22,7 @@ unless --cpu is given:
 
 Text features come from the config's prompt through the BPE tokenizer
 (EVENTCLIP_BPE_PATH, or bpe_simple_vocab_16e6.txt.gz under
-eventclip_tpu_torch/assets/). `--n_model > 1` is ROADMAP item 7: refused,
+eventclip_tpu_torch/assets/). `--n_model > 1` is ROADMAP item 7e: refused,
 never ignored.
 """
 
@@ -89,7 +89,7 @@ def parse_args(argv: Optional[List[str]] = None):
 def refuse_unported(args) -> None:
     if args.n_model > 1:
         raise SystemExit("--n_model > 1 (tensor parallelism) is not ported "
-                         "yet (ROADMAP item 7, multi-GPU)")
+                         "yet (ROADMAP item 7e)")
 
 
 def load_and_override(args):

@@ -12,8 +12,20 @@ unless --cpu is given:
 Checkpoints go to `<ckpt_base>/<config name>[-N_<n>][-<K>shot]/models/`
 (best.npz, model_<step>.npz, resume.pt) with a metrics.jsonl beside them.
 --clip_ckpt takes an OpenAI `.pt` or a converted `.npz`; without it only
-debug towers or --smoke (random towers) run. `--zero1`, `--profile` and
-`--n_model > 1` are ROADMAP item 7 and are refused, never ignored.
+debug towers or --smoke (random towers) run. `--profile N` traces N train
+steps (torch.profiler) under `<ckpt dir>/profile/`.
+
+Data parallel: every process runs this same command, one card each, and
+joins one run through the coordination env, the JAX package's triple
+(JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) or
+torchrun's:
+
+    torchrun --nproc_per_node=2 -m eventclip_tpu_torch.cli.train ...
+
+Rank r runs on cuda:LOCAL_RANK (default 0) and loads its shard of every
+global batch; rank 0 alone writes checkpoints and metrics. `--zero1`
+(ROADMAP item 7d) and `--n_model > 1` (item 7e) are refused, never
+ignored.
 """
 
 from __future__ import annotations
@@ -24,6 +36,7 @@ from typing import List, Optional
 
 from ..data import build_dataset
 from ..engine.trainer import EventCLIPTrainer
+from ..parallel.distributed import host_shard_info, initialize_distributed
 from ..utils.config import load_params
 
 
@@ -39,7 +52,7 @@ def parse_args(argv: Optional[List[str]] = None):
                         default=os.environ.get("CLIP_CKPT", ""))
     parser.add_argument("--n_model", type=int, default=1,
                         help="tensor parallelism (not ported: ROADMAP "
-                        "item 7)")
+                        "item 7e)")
     parser.add_argument("--max_epochs", type=int, default=-1)
     parser.add_argument("--ckpt_base", type=str, default="checkpoint")
     parser.add_argument("--san_check_val_step", type=int, default=2)
@@ -50,23 +63,25 @@ def parse_args(argv: Optional[List[str]] = None):
                         help="allow RANDOM CLIP weights (pipeline/throughput "
                         "testing; accuracies will be garbage)")
     parser.add_argument("--profile", type=int, default=0,
-                        help="profile N train steps (not ported: ROADMAP "
-                        "item 7)")
+                        help="trace N train steps (torch.profiler) under "
+                        "<ckpt dir>/profile/")
     parser.add_argument("--fp32", action="store_true",
                         help="run activations in f32 instead of bf16")
     parser.add_argument("--accum", type=int, default=0,
                         help="gradient-accumulation microbatches per "
                         "optimizer step (keeps the config's global batch)")
     parser.add_argument("--zero1", action="store_true",
-                        help="ZeRO stage 1 (not ported: ROADMAP item 7)")
+                        help="ZeRO stage 1 (not ported: ROADMAP item 7d)")
     return parser.parse_args(argv)
 
 
 def refuse_unported(args) -> None:
-    if args.zero1 or args.profile > 0 or args.n_model > 1:
-        raise SystemExit("--zero1, --profile and --n_model > 1 are not "
-                         "ported yet (ROADMAP item 7, multi-GPU and trainer "
-                         "extras)")
+    if args.zero1:
+        raise SystemExit("--zero1 (ZeRO stage 1) is not ported yet "
+                         "(ROADMAP item 7d)")
+    if args.n_model > 1:
+        raise SystemExit("--n_model > 1 (tensor parallelism) is not ported "
+                         "yet (ROADMAP item 7e)")
 
 
 def load_and_override(args):
@@ -96,6 +111,8 @@ def load_and_override(args):
         params.data_root = args.data_root
     if args.max_epochs > 0:
         params.max_epochs = args.max_epochs
+    if args.profile > 0:
+        params.profile_steps = args.profile
     if args.fp32:
         params.bf16 = False
     if args.accum > 0:
@@ -107,12 +124,22 @@ def main(argv: Optional[List[str]] = None) -> EventCLIPTrainer:
     """Run the CLI; returns the trainer after `fit`."""
     args = parse_args(argv)
     refuse_unported(args)
+    device = "cpu" if args.cpu else \
+        f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+    if not args.cpu:
+        import torch
+
+        torch.cuda.set_device(device)
+    # a multi-process launch joins one data-parallel run before the
+    # datasets are built (root train.py:119-128)
+    initialize_distributed(device=device)
     params, exp_name = load_and_override(args)
 
     train_set, val_set = build_dataset(params)
-    print(f"dataset={params.dataset} classes={len(train_set.classes)} "
-          f"train={len(train_set)} val={len(val_set)} "
-          f"views(train/val)={train_set.max_imgs}/{val_set.max_imgs}")
+    if host_shard_info()[0] == 0:
+        print(f"dataset={params.dataset} classes={len(train_set.classes)} "
+              f"train={len(train_set)} val={len(val_set)} "
+              f"views(train/val)={train_set.max_imgs}/{val_set.max_imgs}")
 
     ckpt_dir = os.path.join(args.ckpt_base, exp_name)
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -120,8 +147,7 @@ def main(argv: Optional[List[str]] = None) -> EventCLIPTrainer:
         params, train_set, val_set, ckpt_dir=ckpt_dir,
         clip_ckpt=args.clip_ckpt or None,
         log_file=os.path.join(ckpt_dir, "metrics.jsonl"),
-        seed=args.seed, smoke=args.smoke,
-        device="cpu" if args.cpu else "cuda")
+        seed=args.seed, smoke=args.smoke, device=device)
     trainer.fit(resume_from=args.weight,
                 san_check_val_step=args.san_check_val_step)
     return trainer

@@ -24,7 +24,8 @@ from .datasets import (
     build_n_imagenet_mini_dataset,
 )
 from .event_windows import EventWindowDataset
-from .loader import PrefetchLoader, collate, device_prefetch
+from .loader import (PrefetchLoader, adaptive_prefetch, collate,
+                     device_prefetch)
 
 __all__ = [
     "center_events",
@@ -48,6 +49,7 @@ __all__ = [
     "build_n_imagenet_mini_dataset",
     "EventWindowDataset",
     "PrefetchLoader",
+    "adaptive_prefetch",
     "collate",
     "device_prefetch",
 ]

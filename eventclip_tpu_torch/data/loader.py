@@ -1,9 +1,10 @@
 """Batching, prefetching and view packing.
 
-Port of eventclip_tpu/data/loader.py, single process: `collate`, the
-threaded `PrefetchLoader`, `device_prefetch`, and the view packing of
-evaluation and serving. Per-host sharding of batches and the cross-host
-agreement on a packing bucket come with multi-GPU work.
+Port of eventclip_tpu/data/loader.py: `collate`, the threaded
+`PrefetchLoader` (each rank of a data-parallel run loads its shard of
+every global batch: the DistributedSampler contract), `device_prefetch`
+and `adaptive_prefetch`, and the view packing of evaluation and serving
+(ranks agree on the packing bucket before any array is formed).
 """
 
 from __future__ import annotations
@@ -11,7 +12,9 @@ from __future__ import annotations
 import math
 import os
 import queue
+import statistics
 import threading
+import time
 from collections import deque
 from typing import Any, Dict, Iterator, List, Optional
 
@@ -32,6 +35,53 @@ def device_prefetch(host_batches, place, depth: int = 2):
         yield buf.popleft()
 
 
+def adaptive_prefetch(host_batches, place, choice: Optional[dict] = None,
+                      warmup: int = 2, probe: int = 4):
+    """device_prefetch whose depth is measured, not assumed.
+
+    The first `warmup` steps run untimed, the next `probe` steps at depth
+    2, the `probe` after at depth 1, and the median-faster depth is stored
+    in ``choice['depth']`` and used for every step after; later epochs
+    (the trainer passes a persistent dict) skip straight to the winner.
+    Epochs too short to finish the A/B stay at the depth-1 tail and leave
+    the choice open.
+    """
+    if choice is None:
+        choice = {}
+    if choice.get("depth"):
+        yield from device_prefetch(host_batches, place, choice["depth"])
+        return
+
+    it = iter(host_batches)
+    buf: deque = deque()
+    times = {1: [], 2: []}
+    step = 0
+    exhausted = False
+    t_prev = None
+    while True:
+        if choice.get("depth"):
+            mode = choice["depth"]
+        else:
+            mode = 2 if step < warmup + probe else 1
+        while not exhausted and len(buf) < mode:
+            try:
+                buf.append(place(next(it)))
+            except StopIteration:
+                exhausted = True
+        if not buf:
+            return
+        yield buf.popleft()
+        now = time.perf_counter()
+        if t_prev is not None and step >= warmup and not choice.get("depth"):
+            times[mode].append(now - t_prev)
+        t_prev = now
+        step += 1
+        if (not choice.get("depth") and len(times[1]) >= probe
+                and len(times[2]) >= probe):
+            choice["depth"] = (1 if statistics.median(times[1])
+                               <= statistics.median(times[2]) else 2)
+
+
 def view_pack_buckets(total_views: int, align: int = 8) -> List[int]:
     """Static view-count buckets for packed eval (quarters of the budget).
 
@@ -48,11 +98,13 @@ def view_pack_buckets(total_views: int, align: int = 8) -> List[int]:
     return sorted(set(out))
 
 
-def eval_pack_buckets(batch_size: int, max_imgs: int,
-                      n_data: int) -> Optional[List[int]]:
+def eval_pack_buckets(batch_size: int, max_imgs: int, n_data: int,
+                      num_shards: int = 1) -> Optional[List[int]]:
     """The one policy for when/how eval view-packing applies: None (padded
     eval) only when EVENTCLIP_NO_PACK_EVAL is set; buckets are multiples of
-    lcm(8, n_data)."""
+    lcm(8, n_data). Multi-process runs pack too (`pack_view_batch` agrees
+    on the bucket); num_shards divides n_data, so each rank's slice of a
+    bucket is whole."""
     if os.environ.get("EVENTCLIP_NO_PACK_EVAL"):
         return None
     return view_pack_buckets(batch_size * max_imgs,
@@ -60,30 +112,42 @@ def eval_pack_buckets(batch_size: int, max_imgs: int,
 
 
 def pack_view_batch(batch: Dict[str, np.ndarray],
-                    buckets: List[int]) -> Dict[str, np.ndarray]:
+                    buckets: List[int],
+                    shard_index: int = 0,
+                    num_shards: int = 1) -> Dict[str, np.ndarray]:
     """Compact a padded-view batch so only REAL views get encoded.
 
-    In: 'windows' [B, T, N, ...] + 'valid_mask' [B, T]. Out: the same dict
-    with 'windows' [K, N, ...] holding the valid views and 'view_src' [K]
-    int32 flat [B*T] slot ids (sentinel B*T = packing padding). K is the
-    smallest bucket that fits the view count; a batch needing more views
-    than max(buckets) is returned unpacked (the padded forward is always
-    correct). Consumed by models.classifier.classifier_forward_packed.
+    In: 'windows' [B, T, N, ...] + 'valid_mask' [B, T], this rank's shard
+    of the global batch. Out: the same dict with 'windows'
+    [K/num_shards, N, ...] holding this shard's valid views and 'view_src'
+    [K/num_shards] int32 GLOBAL flat [B_global*T] slot ids (sentinel
+    B_global*T = packing padding), as the JAX function gives them (the
+    eval step maps them to its local batch). K is the smallest bucket
+    whose per-shard slice fits every rank's view count, agreed with one
+    host-side max over the ranks; a batch needing more views than
+    max(buckets) is returned unpacked on every rank (the padded forward
+    is always correct). Consumed by
+    models.classifier.classifier_forward_packed.
     """
     valid = np.asarray(batch["valid_mask"], dtype=bool)
     B, T = valid.shape
     idx = np.flatnonzero(valid.reshape(-1)).astype(np.int32)
     need = max(len(idx), 1)
-    fitting = [k for k in buckets if k >= need]
+    if num_shards > 1:
+        from ..parallel import distributed
+
+        need = int(distributed.allreduce_max_array(
+            np.asarray([need], dtype=np.int64))[0])
+    fitting = [k for k in buckets if k // num_shards >= need]
     if not fitting:
         return batch
-    K = fitting[0]
+    K = fitting[0] // num_shards  # this rank's slice of the packed axis
     windows = np.asarray(batch["windows"])
     flat = windows.reshape((B * T,) + windows.shape[2:])
     packed = np.zeros((K,) + flat.shape[1:], dtype=flat.dtype)
     packed[: len(idx)] = flat[idx]
-    src = np.full((K,), B * T, dtype=np.int32)
-    src[: len(idx)] = idx
+    src = np.full((K,), num_shards * B * T, dtype=np.int32)
+    src[: len(idx)] = idx + shard_index * B * T
     out = dict(batch)
     out["windows"] = packed
     out["view_src"] = src
@@ -105,7 +169,8 @@ class PrefetchLoader:
     """Threaded batch loader: worker threads build batches ahead of the
     consumer (numpy releases the GIL in its bulk work), yielded strictly
     in order. Epochs are seeded: `loader.epoch(k)` reshuffles
-    deterministically."""
+    deterministically. With `num_shards` > 1 this loader yields rank
+    `shard_index`'s slice of every global batch of `batch_size`."""
 
     def __init__(
         self,
@@ -116,19 +181,25 @@ class PrefetchLoader:
         num_workers: int = 4,
         prefetch: int = 4,
         seed: int = 0,
+        shard_index: int = 0,
+        num_shards: int = 1,
         pad_last: bool = False,
     ):
         """pad_last: repeat-pad the final ragged batch to batch_size and add
         a 'sample_mask' key (static shapes; masked in eval)."""
         assert not (drop_last and pad_last)
+        assert batch_size % num_shards == 0, (batch_size, num_shards)
         self.dataset = dataset
         self.batch_size = batch_size
+        self.local_batch = batch_size // num_shards
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.pad_last = pad_last
         self.num_workers = max(num_workers, 1)
         self.prefetch = max(prefetch, 1)
         self.seed = seed
+        self.shard_index = shard_index
+        self.num_shards = num_shards
         self._epoch = 0
 
     def epoch(self, k: int) -> "PrefetchLoader":
@@ -152,8 +223,15 @@ class PrefetchLoader:
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         order = self._order()
-        jobs = [order[b * self.batch_size:(b + 1) * self.batch_size]
-                for b in range(len(self))]
+        # (this shard's slice, fallback index) of every global batch: a
+        # ragged final global batch can leave a trailing shard with NO
+        # items; it still emits a lockstep batch (collectives), padded
+        # from a sample of the global batch with every row masked out
+        jobs = []
+        lo = self.shard_index * self.local_batch
+        for b in range(len(self)):
+            sl = order[b * self.batch_size:(b + 1) * self.batch_size]
+            jobs.append((sl[lo:lo + self.local_batch], int(sl[0])))
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         lock = threading.Lock()
@@ -196,14 +274,21 @@ class PrefetchLoader:
         finally:
             stop.set()
 
-    def _make_batch(self, idxs) -> Dict[str, np.ndarray]:
+    def _make_batch(self, job) -> Dict[str, np.ndarray]:
+        idxs, fallback = job
         items = [self.dataset[int(i)] for i in idxs]
         n = len(items)
-        if self.pad_last and n < self.batch_size:
-            items = items + [items[-1]] * (self.batch_size - n)
+        if n == 0 and not self.pad_last:
+            raise ValueError(
+                f"shard {self.shard_index}/{self.num_shards} got 0 of "
+                f"{self.local_batch} items for the final ragged batch; "
+                "use pad_last=True (eval) or drop_last=True (train)")
+        if self.pad_last and n < self.local_batch:
+            pad_src = items[-1] if items else self.dataset[fallback]
+            items = items + [pad_src] * (self.local_batch - n)
         batch = collate(items)
         if self.pad_last:
-            mask = np.zeros(self.batch_size, dtype=bool)
+            mask = np.zeros(self.local_batch, dtype=bool)
             mask[:n] = True
             batch["sample_mask"] = mask
         return batch

@@ -17,6 +17,10 @@ Resume state (trainable leaves, the optimizer's moments and count, epoch,
 best metric) uses the port's own format, `resume.pt` via torch.save: the
 JAX package's `resume.pkl` pickles optax state, which has no torch
 counterpart.
+
+In a data-parallel run every rank calls the manager at the same points,
+and rank 0 alone writes; every rank reads `resume.pt` after a barrier
+that follows rank 0's write.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from ..models.classifier import ClassifierConfig
 from ..models.clip.convert import flatten_tree, port_leaves, to_jax_flat
 from ..models.clip.convert_method import load_method_checkpoint
 from ..models.partition import trainable_mask
+from ..parallel.distributed import barrier, host_shard_info
 
 
 def save_checkpoint(path: str, flat: Dict[str, np.ndarray], *,
@@ -106,12 +111,15 @@ def save_trainable(path: str, cfg: ClassifierConfig, params: nn.Module,
 class CheckpointManager:
     """Rolling + best checkpoint management under `<ckpt_dir>/models/`:
     `best.npz` for the monitored metric's max, `model_<step>.npz` rolling
-    (the reference's discovery logic, test.py:156-167)."""
+    (the reference's discovery logic, test.py:156-167). Only rank 0 of a
+    data-parallel run writes (`is_main`); the others' saves are no-ops."""
 
     def __init__(self, ckpt_dir: str, cfg: ClassifierConfig,
                  monitor: str = "probs_acc", keep_last: int = 3):
         self.dir = os.path.join(ckpt_dir, "models")
-        os.makedirs(self.dir, exist_ok=True)
+        self.is_main = host_shard_info()[0] == 0
+        if self.is_main:
+            os.makedirs(self.dir, exist_ok=True)
         self.cfg = cfg
         self.monitor = monitor
         self.keep_last = keep_last
@@ -119,6 +127,8 @@ class CheckpointManager:
 
     def save(self, params: nn.Module, step: int,
              metrics: Optional[Dict[str, float]] = None) -> None:
+        if not self.is_main:
+            return
         flat = trainable_flat(self.cfg, params)
         save_checkpoint(os.path.join(self.dir, f"model_{step}.npz"), flat,
                         extra={"step": step})
@@ -133,7 +143,11 @@ class CheckpointManager:
     def save_resume_state(self, params: nn.Module, optimizer,
                           epoch: int) -> None:
         """Trainable leaves + optimizer state (the frozen CLIP weights are
-        re-derivable from the CLIP checkpoint at startup)."""
+        re-derivable from the CLIP checkpoint at startup); every rank
+        calls it, rank 0 writes, and all leave after the write."""
+        if not self.is_main:
+            barrier()
+            return
         blob = {
             "epoch": epoch,
             "params": trainable_flat(self.cfg, params),
@@ -143,12 +157,15 @@ class CheckpointManager:
         tmp = os.path.join(self.dir, "resume.pt.tmp")
         torch.save(blob, tmp)
         os.replace(tmp, os.path.join(self.dir, "resume.pt"))
+        barrier()
 
     @torch.no_grad()
     def load_resume_state(self, params: nn.Module, optimizer
                           ) -> Optional[int]:
         """Restore parameters and optimizer from resume.pt in place;
-        returns the epoch to resume at, or None without a resume file."""
+        returns the epoch to resume at, or None without a resume file.
+        Every rank calls it and reads the same file."""
+        barrier()
         path = os.path.join(self.dir, "resume.pt")
         if not os.path.exists(path):
             return None

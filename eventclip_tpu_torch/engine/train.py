@@ -1,10 +1,13 @@
-"""Train and eval steps on one device.
+"""Train and eval steps, on one device or data-parallel over ranks.
 
 Port of eventclip_tpu/engine/train.py (`make_train_step`,
-`make_eval_step`) for a single card: the JAX package's mesh, GSPMD
-sharding, ZeRO-1 and tensor parallelism are multi-GPU work for a later
-slice. PyTorch runs eagerly, so a "step" is a plain function that updates
-the parameters in place.
+`make_eval_step`). PyTorch runs eagerly, so a "step" is a plain function
+that updates the parameters in place. Under a process group
+(parallel/distributed.py) each rank runs the step on its shard of the
+global batch: the gradients are all-reduced to their mean over ranks
+before the accumulation mean and the clip, as the JAX step's GSPMD
+gradient is global, and the metrics are averaged over ranks. ZeRO-1 and
+tensor parallelism are later work (ROADMAP 7d, 7e).
 
 Mixed precision: master parameters live in float32; the visual tower's
 activations run in the classifier's dtype (bfloat16 by default).
@@ -13,7 +16,9 @@ Randomness: each step draws RandAugment's ops and the FS adapter's dropout
 masks from generators on the batch's device, seeded from (seed, update
 count, microbatch, stream), as the JAX step folds the update count into its
 key and splits it into augment and forward keys. A resumed run draws the
-same at the same step.
+same at the same step. Each draw is made for the global microbatch and a
+rank keeps its rows (`parallel.RowShard`), as the JAX step draws on the
+global batch: R ranks draw what one process on the global batch draws.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ from ..models.classifier import (ClassifierConfig, ClassifierParams,
                                  per_sample_ce, train_loss)
 from ..ops.randaugment import sample_ops
 from ..ops.rasterize import rasterize_augment_for_clip, rasterize_for_clip
+from ..parallel.distributed import (RowShard, all_reduce_mean_,
+                                    host_shard_info, is_distributed)
 from .optim import Optimizer
 
 Batch = Dict[str, torch.Tensor]
@@ -35,10 +42,11 @@ RANDAUGMENT_OPS = 2  # num_ops in every reference config
 
 
 def _batch_images(batch: Batch, pipeline,
-                  augment: Optional[torch.Generator] = None) -> torch.Tensor:
+                  augment: Optional[RowShard] = None) -> torch.Tensor:
     """Model inputs: precomputed 'img', or on-device rasterization of raw
     event 'windows' (the histogram kernel, then frame finish and CLIP
-    preprocess), with RandAugment drawn from `augment` when given."""
+    preprocess), with RandAugment drawn from `augment` when given (drawn
+    for its global rows, this batch's rows kept)."""
     if "img" in batch:
         return batch["img"]
     spec, pp = pipeline
@@ -46,8 +54,9 @@ def _batch_images(batch: Batch, pipeline,
         windows = batch["windows"]
         if augment is None:
             return rasterize_for_clip(spec, pp, windows)
-        draws = sample_ops(augment, windows.shape[0], RANDAUGMENT_OPS,
+        draws = sample_ops(augment.generator, augment.total, RANDAUGMENT_OPS,
                            spec.height, spec.width)
+        draws = [augment.rows(d, windows.shape[0]) for d in draws]
         return rasterize_augment_for_clip(spec, pp, windows, *draws)
 
 
@@ -80,13 +89,19 @@ def make_train_step(
     accum_steps > 1 splits the batch into that many equal microbatches
         along dim 0 and runs them one after another: the gradient is the
         mean of the microbatch gradients, one optimizer update per call,
-        and only one microbatch's activations are live at a time.
+        and only one microbatch's activations are live at a time. Over
+        ranks, global microbatch i is every rank's i-th local microbatch
+        in rank order (the JAX multi-host layout).
     seed: the draws' seed (see the module docstring); the forward runs
         with train=True, so the FS adapter's dropout is on.
+    Under a process group the batch is this rank's shard (equal on every
+    rank); built after the group is joined.
     """
     loss_weights = dict(loss_weights or {})
     accum = int(accum_steps)
     assert accum >= 1, accum
+    rank, world = host_shard_info()
+    reduce = is_distributed()
     generators: Dict[torch.device, Tuple[torch.Generator, ...]] = {}
 
     def loss_fn(mb: Batch, i: int):
@@ -98,9 +113,14 @@ def make_train_step(
         s_aug, s_fwd = step_seeds(seed, optimizer.count, i)
         gen_aug.manual_seed(s_aug)
         gen_fwd.manual_seed(s_fwd)
-        imgs = _batch_images(mb, pipeline, gen_aug if augment else None)
+        m = mb["label"].shape[0]  # this rank's rows of the microbatch
+        imgs = _batch_images(mb, pipeline, RowShard(gen_aug, rank * m,
+                                                    world * m)
+                             if augment else None)
         out = classifier_forward(params, cfg, imgs, mb["valid_mask"],
-                                 train=True, generator=gen_fwd)
+                                 train=True,
+                                 generator=RowShard(gen_fwd, rank * m,
+                                                    world * m))
         losses = train_loss(cfg, out, mb["label"])
         # nerv convention: total = sum(loss * params.<name>_w)
         total = sum(v * loss_weights.get(k, 1.0) for k, v in losses.items())
@@ -121,6 +141,18 @@ def make_train_step(
             total.backward()
             for k, v in losses.items():
                 metrics[k] = metrics.get(k, 0.0) + v.detach()
+        if reduce:
+            # the global gradient: the mean over ranks of each rank's
+            # (summed) microbatch gradients, in one flat buffer; every
+            # leaf the clip norm reads takes part (the same leaves hold a
+            # gradient on every rank: one model, one step)
+            with torch.no_grad():
+                all_reduce_mean_([p.grad for p in optimizer.norm_params
+                                  if p.grad is not None])
+                keys = list(metrics)
+                flat = torch.stack([metrics[k].float() for k in keys])
+                all_reduce_mean_([flat])
+                metrics = dict(zip(keys, flat.unbind()))
         if accum > 1:
             # the summed microbatch gradients -> their mean; equal
             # microbatch sizes make the mean of the metrics the batch's
@@ -136,21 +168,28 @@ def make_train_step(
 
 
 def make_eval_step(cfg: ClassifierConfig, params: ClassifierParams,
-                   top5: bool = False, pipeline=None
+                   top5: bool = False, pipeline=None, shard_index: int = 0,
+                   num_shards: int = 1
                    ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """Eval step returning summed counters (0-d tensors; the caller sums
-    them over batches). The batch adds 'sample_mask' [B] bool so a padded
-    final batch counts only its real rows; a batch carrying 'view_src'
-    (data.loader.pack_view_batch) is view-packed and only its real views
-    are rasterized and encoded."""
+    them over batches, and over ranks). The batch adds 'sample_mask' [B]
+    bool so a padded final batch counts only its real rows; a batch
+    carrying 'view_src' (data.loader.pack_view_batch) is view-packed and
+    only its real views are rasterized and encoded. With `num_shards` > 1
+    the batch is rank `shard_index`'s shard and its 'view_src' holds
+    global slot ids, mapped here to the local batch."""
 
     @torch.inference_mode()
     def step(batch: Batch) -> Dict[str, torch.Tensor]:
         if "view_src" in batch:
             spec, pp = pipeline
             imgs = rasterize_for_clip(spec, pp, batch["windows"])
-            out = classifier_forward_packed(params, cfg, imgs,
-                                            batch["view_src"],
+            src = batch["view_src"]
+            if num_shards > 1:
+                B, T = batch["valid_mask"].shape
+                src = torch.where(src == num_shards * B * T, B * T,
+                                  src - shard_index * B * T)
+            out = classifier_forward_packed(params, cfg, imgs, src,
                                             batch["valid_mask"])
         else:
             out = classifier_forward(params, cfg,

@@ -148,11 +148,15 @@ def init_adapter_params(cfg: AdapterConfig, generator: torch.Generator,
 def _dropped(x: torch.Tensor, p: float,
              generator: Optional[torch.Generator]) -> torch.Tensor:
     """x * Bernoulli(1 - p) / (1 - p), drawn from `generator`; x itself
-    without a generator or at p = 0."""
+    without a generator or at p = 0. A `parallel.RowShard` draws for the
+    global batch and keeps this rank's rows (dim 0 is the batch)."""
     if generator is None or p <= 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator,
-                      device=generator.device) >= p
+    if isinstance(generator, torch.Generator):
+        u = torch.rand(x.shape, generator=generator, device=generator.device)
+    else:
+        u = generator.rand(x.shape)
+    keep = u >= p
     return x * keep.to(x.device) / (1.0 - p)
 
 

@@ -32,7 +32,7 @@ converted `.npz`); without `text_feats`, the config's prompt goes through
 the BPE tokenizer and the text tower. Offline batch inference over files:
 `python -m eventclip_tpu_torch.serve --help` (`--from_export` serves a
 frozen bundle of export.py); the HTTP endpoint is server.py. Data
-parallelism over several cards is ROADMAP item 7: it is refused, never
+parallelism over several cards is ROADMAP item 7d: it is refused, never
 ignored.
 """
 
@@ -105,7 +105,7 @@ class Predictor:
         if data_parallel:
             raise NotImplementedError(
                 "data_parallel=True (batches sharded over several cards) is "
-                "not ported yet (ROADMAP item 7, multi-GPU)")
+                "not ported yet (ROADMAP item 7d)")
         # trainable models served without a checkpoint would classify with
         # random adapter/LoRA/prompt weights (the eval CLI's rule too)
         if params.model != "ZSCLIP" and not weight:
@@ -637,7 +637,7 @@ def main(argv=None) -> None:
     ap.add_argument("--prune_tokens", type=int, default=0)
     ap.add_argument("--data_parallel", action="store_true",
                     help="shard batches over several cards (not ported: "
-                    "ROADMAP item 7)")
+                    "ROADMAP item 7d)")
     ap.add_argument("--tta", action="store_true",
                     help="4-variant event TTA (4x compute, averaged probs)")
     ap.add_argument("--embed_out", default="",
@@ -650,7 +650,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     if args.data_parallel:
-        raise SystemExit("--data_parallel is not ported yet (ROADMAP item 7, "
+        raise SystemExit("--data_parallel is not ported yet (ROADMAP item 7d, "
                          "multi-GPU)")
     if bool(args.params) == bool(args.from_export):
         ap.error("pass exactly one of --params or --from_export")

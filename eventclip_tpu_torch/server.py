@@ -1050,7 +1050,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="keep K highest-variance ViT tokens (stacks w/ int8)")
     ap.add_argument("--data_parallel", action="store_true",
                     help="shard each batch over all local cards (not "
-                    "ported: ROADMAP item 7)")
+                    "ported: ROADMAP item 7d)")
     ap.add_argument("--tta", action="store_true",
                     help="4-variant event TTA (4x compute, averaged probs)")
     ap.add_argument("--embed", action="store_true",
@@ -1090,7 +1090,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         "EVENTCLIP_AUTH_TOKEN", "")
 
     if args.data_parallel:
-        raise SystemExit("--data_parallel is not ported yet (ROADMAP item 7, "
+        raise SystemExit("--data_parallel is not ported yet (ROADMAP item 7d, "
                          "multi-GPU)")
     device = "cpu" if args.cpu else "cuda"
     if bool(args.params) == bool(args.from_export):

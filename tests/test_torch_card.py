@@ -661,3 +661,63 @@ def test_exported_bundle_launches_the_kernels_on_card(cuda, tmp_path,
     np.testing.assert_array_equal(got["label"], want["label"])
     np.testing.assert_allclose(got["probs"], want["probs"], rtol=0,
                                atol=1e-5 if traced_on == "cuda" else 1e-4)
+
+
+# -- data-parallel training and the trainer extras (parallel/, utils/viz) ---
+
+
+def test_one_rank_nccl_steps_equal_plain_steps_on_card(cuda, tmp_path):
+    """Two FT steps (ViT-T/8@32, f32, RandAugment on) under a one-rank
+    NCCL group give the trainable leaves of the same steps with no group,
+    bit for bit (a one-rank mean is a copy), through K1, K2 and K3."""
+    import socket
+
+    from eventclip_tpu_torch.engine.checkpoint import trainable_flat
+    from eventclip_tpu_torch.parallel import distributed as D
+    from tests.torch_ddp_worker import build_trainer
+
+    def run(tag):
+        t = build_trainer("ft", str(tmp_path / tag), visualize=False,
+                          device=cuda)
+        kernels.reset_launches()
+        t.train_epoch(0)
+        torch.cuda.synchronize()
+        return (trainable_flat(t.cls_cfg, t.model_params),
+                dict(kernels.LAUNCHES), t.optimizer.count)
+
+    plain, _, n = run("plain")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    D.initialize_distributed(f"localhost:{port}", 1, 0, backend="nccl",
+                             device=cuda)
+    try:
+        assert D.is_distributed() and D.host_shard_info() == (0, 1)
+        got, launches, m = run("nccl")
+    finally:
+        D.shutdown_distributed()
+    assert n == m == 2
+    for k, v in plain.items():
+        assert (got[k] == v).all(), k
+    assert launches["histogram"] == 2
+    assert launches["qkv_attention"] > 0 and launches["qkv_attention_bwd"] > 0
+
+
+def test_viz_forward_launches_the_kernels_on_card(cuda, tmp_path):
+    """The trainer's validation GIFs run the card's forward: K1 for each
+    sample's probabilities and inputs, K2 for each layer of its tower.
+    Without PIL the first GIF write fails after that sample's forwards."""
+    from tests.torch_ddp_worker import build_trainer
+
+    t = build_trainer("fs", str(tmp_path), device=cuda, n_samples=2)
+    kernels.reset_launches()
+    try:
+        t._sample_events()
+    except ImportError:
+        pass
+    torch.cuda.synchronize()
+    probs, inputs = t.viz_forwards
+    assert probs >= 1
+    assert kernels.LAUNCHES["histogram"] == probs + inputs
+    assert kernels.LAUNCHES["qkv_attention"] == \
+        probs * t.clip_cfg.vision.layers

@@ -14,12 +14,18 @@ On a 3-class synthetic N-Caltech tree, with a tiny OpenAI-layout `.pt`
   accuracies, the `.pth` through a --train_shots sweep;
 - `--int8`, `--int8_calib` and `--prune_tokens` give the root CLI's
   printed accuracies, and so does `--arch RN-T@32` (a ResNet tower);
-- the argument overrides equal the root CLIs', and the flags that are
-  not ported raise SystemExit naming their ROADMAP item.
+- the argument overrides equal the root CLIs' (`--profile N` sets
+  `profile_steps` as the root CLI does), and the flags that are not
+  ported raise SystemExit naming their ROADMAP item (7d, 7e);
+- under the JAX triple or torchrun's env, two `cli.train` processes join
+  one data-parallel run (each loads half of every global batch, both take
+  the same steps) and only rank 0 writes `metrics.jsonl`, `run_id.txt`
+  and the checkpoints.
 """
 
 import gzip
 import importlib.util
+import json
 import os
 import shutil
 import sys
@@ -170,10 +176,13 @@ OVERRIDES = [
      "joint_fsclip_nin_mini_params-vitb32.py", "--num_shots", "1",
      "--max_epochs", "3", "--data_root", "/data/mini"],
     ["--params", "configs/ftclip/ft_text_fsclip_nin_params.py"],
+    ["--params", "configs/fsclip/joint_adapter/"
+     "joint_fsclip_ncaltech_params.py", "--profile", "3"],
 ]
 
 
-@pytest.mark.parametrize("argv", OVERRIDES, ids=["ncars", "mini", "ft"])
+@pytest.mark.parametrize("argv", OVERRIDES,
+                         ids=["ncars", "mini", "ft", "profile"])
 def test_train_overrides_equal_root(argv, monkeypatch):
     argv = [os.path.join(ROOT, a) if a.startswith("configs/") else a
             for a in argv]
@@ -264,11 +273,58 @@ def test_resnet_arch_eval_equals_root(files, capsys, monkeypatch,
 
 
 @pytest.mark.parametrize("cli,flags,item", [
-    (cli_test, ["--n_model", "2"], "item 7"),
-    (cli_train, ["--zero1"], "item 7"),
-    (cli_train, ["--profile", "3"], "item 7"),
-    (cli_train, ["--n_model", "2"], "item 7"),
+    (cli_test, ["--n_model", "2"], "item 7e"),
+    (cli_train, ["--zero1"], "item 7d"),
+    # --profile is honoured now (test_train_overrides_equal_root[profile]);
+    # what refuses this line is --zero1
+    (cli_train, ["--profile", "3", "--zero1"], "item 7d"),
+    (cli_train, ["--n_model", "2"], "item 7e"),
 ])
 def test_unported_flags_are_refused(cli, flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         cli.main(["--params", FS, "--cpu"] + flags)
+
+
+def launch_env(kind):
+    """The coordination env of rank r: the JAX triple that
+    scripts/submit_run.sh exports, or torchrun's."""
+    def env(rank, port):
+        if kind == "jax":
+            return {"JAX_COORDINATOR_ADDRESS": f"localhost:{port}",
+                    "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": str(rank)}
+        return {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+                "WORLD_SIZE": "2", "RANK": str(rank),
+                "LOCAL_RANK": str(rank)}
+    return env
+
+
+@pytest.mark.parametrize("kind", ["jax", "torchrun"])
+def test_train_cli_joins_one_run_under_launch_env(files, tmp_path, kind):
+    """ROADMAP fault 1: two `cli.train` processes under a launcher's env
+    train one run; rank 0 alone writes."""
+    from .test_torch_parallel import spawn_ranks
+
+    tree, _, _ = files
+    base = tmp_path / "ckpt"
+    argv = ["train", "--params", FS, "--cpu", "--data_root", tree,
+            "--max_epochs", "1", "--san_check_val_step", "1",
+            "--ckpt_base", str(base)]
+    outs = spawn_ranks("tests.torch_ddp_worker", argv,
+                       env_of=launch_env(kind))
+    for rank, (rc, log) in enumerate(outs):
+        assert rc == 0, log
+        assert f"SHARD {rank} 2" in log, log
+        # 18 training streams, global batch 4: 4 updates on both ranks
+        assert "STEPS 4" in log, log
+    exp = base / "fsclip_tiny_params"
+    lines = [json.loads(ln) for ln in open(exp / "metrics.jsonl")]
+    assert [ln["split"] for ln in lines] == ["val", "train", "val"]
+    assert lines[1]["steps"] == 4
+    assert lines[2]["n"] == 12  # every testing stream once
+    assert {os.path.relpath(os.path.join(d, f), exp)
+            for d, _, fs in os.walk(exp) for f in fs
+            if not f.endswith(".gif")} >= {
+        "run_id.txt", "metrics.jsonl", "models/best.npz",
+        "models/model_4.npz", "models/resume.pt"}
+    # a multi-rank run writes no validation GIFs (one process only)
+    assert not (exp / "viz").exists()

@@ -29,8 +29,12 @@ port's own table, `_table`), as does every top-k cut. Cases:
   `.pt` (val_batch_size 8: both packages sweep the same streams for the
   calibration), and an RN-T@32 teacher (`.npz` towers, the same text
   features handed to both), f32;
-- the factored functions on a hand-made table; refusals (multi-host,
-  int8 on a ResNet teacher).
+- the factored functions on a hand-made table; the refusal of int8 on a
+  ResNet teacher;
+- two gloo ranks (the JAX triple's env, `--cpu`) labelling the split in
+  shards, plain with --tta and with --int8 --int8_calib 1: rank 0's
+  report and tree equal the one-process run's (which the cases above
+  hold to the root CLI), and rank 1 prints no report.
 """
 
 import contextlib
@@ -442,10 +446,8 @@ def test_filter_functions_on_a_table(tmp_path, capsys):
 
 
 def test_multi_host_and_int8_resnet_are_refused(files, monkeypatch):
-    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
-    with pytest.raises(SystemExit, match="ROADMAP item 7"):
-        gen_data.main(["--params", files["zs"], "--cpu"])
-    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS")
+    # multi-host runs are ported (test_two_ranks_label_like_one_process);
+    # int8 on a ResNet teacher stays refused
     cfg = write_config(files["d"] / "rn_int8.py", arch="RN-T@32")
     monkeypatch.setattr(gen_data, "build_text_features",
                         lambda *a, **k: torch.eye(3, 32))
@@ -453,3 +455,38 @@ def test_multi_host_and_int8_resnet_are_refused(files, monkeypatch):
                        "supports the ViT towers only"):
         gen_data.main(["--params", cfg, "--cpu", "--smoke", "--fp32",
                        "--data_root", files["nc"], "--int8"])
+
+
+def report(out):
+    return out[out.index("Class stats:"):out.index("Pseudo-label dataset tree")]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--tta", "--tta_consistent", "--conf_thresh", "0.5"],
+    ["--conf_thresh", "0.5", "--int8", "--int8_calib", "1"],
+], ids=["tta", "int8-calib"])
+def test_two_ranks_label_like_one_process(files, tmp_path, flags):
+    """Batches of 8 (TTA: 2) split over 2 ranks, the last one leaving
+    rank 1 no stream; each rank calibrates on its shard and the max-abs
+    is folded over both, so the teacher is the one process's."""
+    from .test_torch_cli import launch_env
+    from .test_torch_parallel import spawn_ranks
+
+    argv = ["--params", files["zs"], "--clip_ckpt", files["pt"],
+            "--data_root", files["nc"], "--fp32", "--cpu"] + flags
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        gen_data.main(argv + ["--save_path", str(tmp_path / "one")])
+    want = report(buf.getvalue())
+    outs = spawn_ranks("tests.torch_ddp_worker",
+                       ["gen_data"] + argv + ["--save_path",
+                                              str(tmp_path / "two")],
+                       env_of=launch_env("jax"))
+    for rank, (rc, log) in enumerate(outs):
+        assert rc == 0, log
+        assert f"SHARD {rank} 2" in log, log
+    assert report(outs[0][1]) == want
+    assert "Class stats:" not in outs[1][1]
+    assert "Select " in want
+    assert tree_links(str(tmp_path / "two")) == \
+        tree_links(str(tmp_path / "one"))

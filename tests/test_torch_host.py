@@ -240,8 +240,9 @@ def test_training_path_imports_no_jax():
     one FS update on event windows with RandAugment, builds a model with
     models.factory, tokenizes prompts, reads a split asset, converts
     towers (ViT and ResNet) through the OpenAI key layout, runs a ResNet
-    tower and the pseudo-labelling filter, has neither jax, nor regex, nor
-    any eventclip_tpu module loaded."""
+    tower and the pseudo-labelling filter, the data-parallel helpers, a
+    sharded loader, adaptive prefetch and the viz helpers, has neither
+    jax, nor regex, nor any eventclip_tpu module loaded."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import torch
@@ -327,6 +328,21 @@ def test_training_path_imports_no_jax():
             tta_consistent=False, tta_min_prob=False, conf_thresh=.5,
             topk=-1)
         assert sel.path2cls == {"r/a/0.npy": "a"}
+        # the eleventh slice: the data-parallel helpers, the sharded
+        # loader, adaptive prefetch and the validation GIFs' helpers
+        from eventclip_tpu_torch.data import loader
+        from eventclip_tpu_torch.parallel import distributed
+        from eventclip_tpu_torch.utils import viz
+        assert distributed.host_shard_info() == (0, 1)
+        assert distributed.gather_objects({"a": 1}) == [{"a": 1}]
+        assert not distributed.any_process_flag(False)
+        shard = list(loader.PrefetchLoader(
+            [{"x": np.zeros(2), "label": i} for i in range(2)], 4,
+            num_workers=1, shard_index=1, num_shards=2, pad_last=True))
+        assert shard[0]["sample_mask"].tolist() == [False, False]
+        assert list(loader.adaptive_prefetch(range(3), lambda b: b)) == [
+            0, 1, 2]
+        assert viz.denormalize(np.zeros((3, 2, 2))).shape == (2, 2, 3)
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "regex") or m.startswith("jax.")
                      or m == "eventclip_tpu" or m.startswith("eventclip_tpu."))
