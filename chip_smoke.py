@@ -175,13 +175,34 @@ non-zero):
    are reported unchecked). (d) phase 11's FS teacher through cli.gen_data
    on two gloo ranks on the card (the JAX triple's env): rank 0's report
    and tree equal phase 11's one-process run, rank 1 prints none.
+14. ZeRO-1, tensor parallelism and data-parallel serving (after phase 13,
+   in its temp dir): K1, K2 and K3 held to their plain versions at the
+   shapes of each path (a tensor-parallel rank's K2 / K3 at [16, 257,
+   1536] with 8 heads, also inside each rank). (a)
+   ft_text_fsclip_nin_params.py (ViT-L/14, bf16, remat, RandAugment)
+   at batch 8 x 2 views: 3 steps in one process, then two gloo ranks on
+   the card (NCCL refuses two ranks on one GPU) run it on a 1 x 2
+   tensor-parallel layout (counters zeroed just before, read just after,
+   on each rank: the `tp` path; K1 1 / K2 48 / K3 24 a step a rank); the
+   gathered leaves hold one process's within TP_ATOL_LR / TP_SHARE; ms a
+   step and the host collectives' share, parameter bytes a rank. (b) the
+   same ranks on 2 data ranks with ZeRO-1 off and on (`zero1` path):
+   leaves bit-equal, Adam moment bytes a rank; the ZeRO-1 run's resume.pt
+   resumes one process here to its leaves, and that process's next step
+   holds the ranks' within the same bound. (c) phase 3's 32 x 225k
+   request through Predictor(data_parallel=True): on the one card bit-
+   equal to phase 3, and split over [cuda:0, cuda:0] (`dp_serve` path: K1
+   once a part) within DP_SERVE_REL of one part's view features; ms a
+   request.
 
 Then one JSON line with every kernel's numbers (by_path adds the eval
 CLI's `cli` rows, the pruned request's `serve_pruned` K2 row, RN50's
 text-tower `rn50` K2 row and the bundle's `export` rows, timed by the
-profiler inside its request, and phase 13(a)'s `ddp` rows; `eval_cli`,
-`train_cli` and `trained_eval` hold phase 9, `serve_options` phase 10,
-`pseudo_labels` phase 11, `server_export` phase 12, `ddp` phase 13), the
+profiler inside its request, phase 13(a)'s `ddp` rows and phase 14's
+`tp`, `zero1` and `dp_serve` rows; `eval_cli`, `train_cli` and
+`trained_eval` hold phase 9, `serve_options` phase 10, `pseudo_labels`
+phase 11, `server_export` phase 12, `ddp` phase 13, `parallel` phase 14),
+the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Imports nothing
 of JAX. Fails when no CUDA device is present or the port is missing.
@@ -2732,10 +2753,11 @@ def free_port():
         return s.getsockname()[1]
 
 
-def ft_ddp_trainer(dev, ckpt_dir, batch):
+def ft_ddp_trainer(dev, ckpt_dir, batch, n_model=1, zero1=False):
     """Phase 13(a)'s FT trainer: ft_text_fsclip_nin_params.py at full width
     (ViT-L/14, bf16, remat, RandAugment), batch cut to `batch` x 2 views,
-    3 steps."""
+    3 steps; phase 14 sets `n_model` (tensor parallelism over the process
+    group) and `zero1`."""
     from eventclip_tpu_torch.data.event_windows import EventWindowDataset
     from eventclip_tpu_torch.engine.trainer import EventCLIPTrainer
     from eventclip_tpu_torch.utils.config import load_params
@@ -2744,6 +2766,7 @@ def ft_ddp_trainer(dev, ckpt_dir, batch):
                                       "ft_text_fsclip_nin_params.py"))
     params.train_batch_size, params.val_batch_size = batch, 8
     params.max_epochs, params.visualize = 1, False
+    params.zero1 = zero1
     q = dict(params.quantize_args)
     train = EventWindowDataset(SyntheticNImageNet(3 * batch, seed=1), q,
                                augment=bool(params.get("img_aug", False)))
@@ -2751,7 +2774,7 @@ def ft_ddp_trainer(dev, ckpt_dir, batch):
                              dict(q, max_imgs=10))
     return EventCLIPTrainer(params, train, val, ckpt_dir,
                             log_file=os.path.join(ckpt_dir, "metrics.jsonl"),
-                            smoke=True, seed=0, device=dev)
+                            smoke=True, seed=0, device=dev, n_model=n_model)
 
 
 def nccl_one_rank(dev, tmp, batch=32, tag="13 ddp"):
@@ -3165,6 +3188,454 @@ def ddp_phase(dev, gen, tmp, fs_teacher_run):
     log(f"[{tag}] phase 13 in {out['phase_s']:.1f} s")
     return out, rows, out["nccl"]["launches"]
 
+# -- phase 14: ZeRO-1, tensor parallelism, data-parallel serving ------------
+
+# 14(a)/(b): ranks against one process, bf16 FT at ViT-L/14 after 3 steps
+# (and the resumed 4th), element by element over the trained f32 leaves.
+# The ranks' GEMMs see other shapes (half the heads, half the batch), so
+# their bf16 roundings differ and an element whose gradient is near zero
+# may flip Adam's step (about lr whatever the gradient's size): all but
+# a share TP_SHARE of the elements within TP_ATOL_LR x lr (the largest
+# difference is printed, not bounded: Adam moves an element by about lr a
+# step whatever its gradient, so no per-element bound below 2 lr a step
+# can tell a fault). On an H100 sound runs read shares of 1.3-1.6% (TP)
+# and 0.84% (2 data ranks, no TP); a rank that skips the row-parallel sum
+# read 65%, in a CPU rehearsal at ViT-T/8@32 in bf16 (where the sound
+# share is under 1e-4), not on the card.
+TP_ATOL_LR = 0.05
+TP_SHARE = 0.05
+TP_TIMEOUT_S = 420  # a hung rendezvous fails the phase, not the call
+# 14(c): the split over [cuda:0, cuda:0] against one part: each valid
+# view's feature norm-relative within DP_SERVE_REL (sound runs on an H100
+# read 1.58e-7), while any two views of different samples lie at least
+# ten times that apart (else views put back in the wrong order would
+# pass); the probabilities within DP_SERVE_PROBS_ATOL
+DP_SERVE_REL = 1e-5
+DP_SERVE_PROBS_ATOL = 1e-4
+
+
+class CommClock:
+    """Wall time and bytes of the host collectives a rank's process group
+    runs (gloo: CUDA tensors are staged through the host around them)."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.ms, self.bytes, self.calls = 0.0, 0, 0
+        for name in ("all_reduce", "all_gather"):
+            real = getattr(dist, name)
+
+            def timed(*a, _real=real, **k):
+                t = a[0]
+                n = (sum(x.numel() * x.element_size() for x in t)
+                     if isinstance(t, list) else t.numel() * t.element_size())
+                t0 = time.perf_counter()
+                out = _real(*a, **k)
+                self.ms += (time.perf_counter() - t0) * 1e3
+                self.bytes += n
+                self.calls += 1
+                return out
+            setattr(dist, name, timed)
+
+    def reset(self):
+        self.ms, self.bytes, self.calls = 0.0, 0, 0
+
+
+def tp_rank(rank, port, out_dir, device):
+    """One of phase 14's two gloo ranks on the one card (a spawned
+    process): K2 / K3 at this rank's tensor-parallel shape against their
+    plain versions, then 3 FT steps on each layout (2 data ranks, 2 data
+    ranks with ZeRO-1, 1 x 2 tensor-parallel); the ZeRO-1 run writes its
+    resume.pt and takes a 4th step. Writes its record (and, rank 0, the
+    gathered leaves) under out_dir."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from eventclip_tpu_torch import kernels
+    from eventclip_tpu_torch.engine.checkpoint import trainable_flat
+    from eventclip_tpu_torch.parallel import distributed as D
+
+    D.initialize_distributed(f"localhost:{port}", 2, rank, backend="gloo",
+                             device=device)
+    dev = torch.device(device)
+    clock = CommClock()
+    gen = torch.Generator(device=dev).manual_seed(10 + rank)
+    rec = {"check": {
+        "qkv_attention": check_attention(
+            gen, f"TP rank {rank}", 16, 257, 8, 64, torch.bfloat16, False,
+            dev),
+        "qkv_attention_bwd": check_attention_bwd(
+            gen, f"TP rank {rank}", 16, 257, 8, 64, torch.bfloat16, False,
+            dev)}}
+
+    def save_leaves(tr, name):
+        flat = trainable_flat(tr.cls_cfg, tr.model_params)  # a collective
+        if rank == 0:
+            torch.save({k: torch.from_numpy(v) for k, v in flat.items()},
+                       os.path.join(out_dir, f"{name}.pt"))
+
+    for name, n_model, zero1 in (("dp", 1, False), ("zero1", 1, True),
+                                 ("tp", 2, False)):
+        tr = ft_ddp_trainer(dev, os.path.join(out_dir, name), 8,
+                            n_model=n_model, zero1=zero1)
+        torch.cuda.synchronize()
+        clock.reset()
+        # this path's run: counts zeroed just before, read just after
+        # each step's allocator peak (kept on the host: no sync added)
+        peaks = []
+
+        def peaked(batch, _step=tr.train_step):
+            torch.cuda.reset_peak_memory_stats()
+            out = _step(batch)
+            peaks.append(torch.cuda.max_memory_allocated())
+            return out
+        tr.train_step = peaked
+        kernels.reset_launches()
+        tr.train_epoch(0)
+        torch.cuda.synchronize()
+        steps = len(tr.step_times)
+        r = dict(launches=dict(kernels.LAUNCHES),
+                 step_ms=[st * 1e3 for _, st in tr.step_times],
+                 wait_ms=[w * 1e3 for w, _ in tr.step_times],
+                 comm_ms=clock.ms / steps, comm_bytes=clock.bytes / steps,
+                 comm_calls=clock.calls / steps,
+                 moment_bytes=tr.optimizer.moment_bytes(),
+                 # each step's peak and what the rank holds after them
+                 # (weights, moments, the last gradients)
+                 peak_bytes=list(peaks),
+                 held_bytes=torch.cuda.memory_allocated(),
+                 param_bytes=sum(p.numel() * p.element_size()
+                                 for p in tr.model_params.parameters()),
+                 layout=[tr.n_data, tr.n_model],
+                 local_batch=tr.train_loader.local_batch,
+                 zero1=tr.zero1)
+        save_leaves(tr, name)
+        if name == "zero1":
+            t0 = time.perf_counter()
+            tr.ckpt.save_resume_state(tr.model_params, tr.optimizer, 1)
+            r["resume_write_s"] = time.perf_counter() - t0
+            nxt = tr.device_batch(next(iter(tr.train_loader.epoch(1))))
+            tr.train_step(nxt)
+            torch.cuda.synchronize()
+            save_leaves(tr, "zero1_next")
+        rec[name] = r
+        del tr
+        torch.cuda.empty_cache()
+    rec["backend"] = torch.distributed.get_backend()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    D.shutdown_distributed()
+
+
+def spawn_tp_ranks(dev, out_dir):
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(tp_rank, args=(free_port(), out_dir, str(dev)),
+                             nprocs=2, join=False, start_method="spawn")
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    while not ctx.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise AssertionError(f"the 2 ranks did not finish within "
+                                 f"{TP_TIMEOUT_S} s")
+    return [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+            for r in (0, 1)]
+
+
+def leaf_gap(got, want, lrs):
+    """{JAX path: tensor} against {JAX path: tensor}: the largest |diff|
+    (also in units of its leaf's lr) and the share of elements above
+    TP_ATOL_LR x lr; `lrs` is (lr, clip_lr): the visual tower's leaves
+    move by clip_lr, the others (the prompts) by lr."""
+    import torch
+
+    above = n = 0
+    worst = worst_lr = 0.0
+    for k, w in want.items():
+        lr = lrs[1] if k.startswith(("clip/visual", "lora")) else lrs[0]
+        d = (got[k].double() - w.double()).abs()
+        worst = max(worst, float(d.max()))
+        worst_lr = max(worst_lr, float(d.max()) / lr)
+        above += int((d > TP_ATOL_LR * lr).sum())
+        n += d.numel()
+    return dict(max_diff=worst, max_diff_lr=worst_lr,
+                share_above=above / max(n, 1), bound_atol_lr=TP_ATOL_LR,
+                bound_share=TP_SHARE,
+                bit_equal=all(torch.equal(got[k], want[k]) for k in want))
+
+
+def off_bound(gap):
+    return gap["share_above"] > gap["bound_share"]
+
+
+def flat_leaves(trainer):
+    import torch
+
+    from eventclip_tpu_torch.engine.checkpoint import trainable_flat
+
+    return {k: torch.from_numpy(v) for k, v in
+            trainable_flat(trainer.cls_cfg, trainer.model_params).items()}
+
+
+def tp_zero1_phase(dev, tmp, tag="14 tp/zero1"):
+    """14(a) and (b): one process on the card, then two gloo ranks on the
+    card (NCCL refuses two ranks on one GPU), then one process resumed
+    from the ranks' ZeRO-1 resume.pt."""
+    import torch
+
+    from eventclip_tpu_torch import kernels
+
+    out_dir = os.path.join(tmp, "tp")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    one = ft_ddp_trainer(dev, os.path.join(out_dir, "one"), 8)
+    kernels.reset_launches()
+    one.train_epoch(0)
+    torch.cuda.synchronize()
+    one_ms = [st * 1e3 for _, st in one.step_times]
+    one_launches = dict(kernels.LAUNCHES)
+    want = flat_leaves(one)
+    one_moments = one.optimizer.moment_bytes()
+    one_param_bytes = sum(p.numel() * p.element_size()
+                          for p in one.model_params.parameters())
+    lr = (float(one.opt_cfg.lr), float(one.opt_cfg.clip_lr))
+    L = one.clip_cfg.vision.layers
+    del one
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    recs = spawn_tp_ranks(dev, out_dir)
+    ranks_s = time.perf_counter() - t0
+    got = {n: torch.load(os.path.join(out_dir, f"{n}.pt"))
+           for n in ("dp", "zero1", "tp", "zero1_next")}
+    out = {"one_step_ms": one_ms, "one_launches": one_launches,
+           "one_param_bytes": one_param_bytes, "one_moment_bytes":
+           one_moments, "ranks": recs, "one_s": one_s, "ranks_s": ranks_s}
+    steps = len(one_ms)
+    expect = {"histogram": steps, "qkv_attention": 2 * L * steps,
+              "qkv_attention_bwd": L * steps}
+    for r, rec in enumerate(recs):
+        for name in ("dp", "zero1", "tp"):
+            if rec[name]["launches"] != expect:
+                raise AssertionError(f"rank {r} {name} launches "
+                                     f"{rec[name]['launches']} != {expect}")
+    tp0, tp1 = recs[0]["tp"], recs[1]["tp"]
+    out["tp"] = leaf_gap(got["tp"], want, lr)
+    out["dp"] = leaf_gap(got["dp"], want, lr)
+    comm = statistics.median([tp0["comm_ms"], tp1["comm_ms"]])
+    step = statistics.median(tp0["step_ms"])
+    log(f"[{tag}] (a) TP FT ViT-L/14 bf16 remat RandAugment, batch 8 x 2 "
+        f"views, 1 x 2 layout: 2 ranks share the one card over "
+        f"{recs[0]['backend']} (NCCL refuses two ranks on one GPU, so each "
+        f"model-group sum goes card -> host -> card): step "
+        f"{[round(x, 1) for x in tp0['step_ms']]} ms (median {step:.1f}; "
+        f"one process {statistics.median(one_ms):.1f}), of which host "
+        f"collectives {tp0['comm_ms']:.1f} ms in {tp0['comm_calls']:.0f} "
+        f"calls moving {tp0['comm_bytes'] / 2**20:.0f} MiB a step; "
+        f"parameter bytes a rank {tp0['param_bytes'] / 2**30:.3f} GiB vs "
+        f"one process {one_param_bytes / 2**30:.3f} GiB; launches a rank "
+        f"{tp0['launches']} (rank 1 {tp1['launches']}); leaves vs one "
+        f"process: max |diff| {out['tp']['max_diff']:.3g} = "
+        f"{out['tp']['max_diff_lr']:.3g} lr, share "
+        f"above {TP_ATOL_LR} lr {out['tp']['share_above']:.2e} (<= "
+        f"{TP_SHARE}); the 2 data ranks' (no TP) read max "
+        f"{out['dp']['max_diff_lr']:.3g} lr, share "
+        f"{out['dp']['share_above']:.2e}")
+    out["tp_comm_share"] = comm / step
+    # (b) ZeRO-1 against the replicated update, on 2 data ranks
+    bit = all(torch.equal(got["zero1"][k], got["dp"][k]) for k in got["dp"])
+    diff = max(float((got["zero1"][k].double() - got["dp"][k].double())
+                     .abs().max()) for k in got["dp"])
+    z, d = recs[0]["zero1"], recs[0]["dp"]
+    out["zero1"] = dict(bit_equal=bit, max_diff=diff,
+                        moment_bytes=z["moment_bytes"],
+                        replicated_moment_bytes=d["moment_bytes"],
+                        peak_bytes=z["peak_bytes"],
+                        replicated_peak_bytes=d["peak_bytes"],
+                        held_bytes=z["held_bytes"],
+                        replicated_held_bytes=d["held_bytes"])
+    log(f"[{tag}] (b) ZeRO-1 on 2 data ranks (batch 4 a rank): leaves "
+        f"{'bit-equal' if bit else 'NOT bit-equal'} to the replicated "
+        f"update (max |diff| {diff:.3g}); Adam moments a rank "
+        f"{z['moment_bytes'] / 1e9:.3f} GB on vs {d['moment_bytes'] / 1e9:.3f}"
+        f" GB off (one process {one_moments / 1e9:.3f} GB); card memory a "
+        f"rank (torch's allocator, rank 0) at each step's peak "
+        f"{[round(b / 1e9, 3) for b in z['peak_bytes']]} GB on vs "
+        f"{[round(b / 1e9, 3) for b in d['peak_bytes']]} GB off, held "
+        f"after the steps {z['held_bytes'] / 1e9:.3f} vs "
+        f"{d['held_bytes'] / 1e9:.3f} GB; step "
+        f"{statistics.median(z['step_ms']):.1f} ms on vs "
+        f"{statistics.median(d['step_ms']):.1f} ms off (host collectives "
+        f"{z['comm_ms']:.1f} vs {d['comm_ms']:.1f} ms a step); resume.pt "
+        f"written in {z['resume_write_s']:.1f} s")
+    faults = [f"{k} leaves off the bound: {out[k]}" for k in ("tp", "dp")
+              if off_bound(out[k])]
+    if not bit and diff > 0:
+        # torch's Adam updates elementwise: a slice's update is the whole
+        # leaf's on those elements; a difference is a fault
+        faults.append(f"ZeRO-1 differs from the replicated update by "
+                      f"{diff}")
+    # one process resumed from the ZeRO-1 file takes the 4th step
+    t0 = time.perf_counter()
+    res = ft_ddp_trainer(dev, os.path.join(out_dir, "zero1"), 8)
+    epoch = res.ckpt.load_resume_state(res.model_params, res.optimizer)
+    load_s = time.perf_counter() - t0
+    same = all(torch.equal(flat_leaves(res)[k], got["zero1"][k])
+               for k in got["zero1"])
+    nxt = res.device_batch(next(iter(res.train_loader.epoch(1))))
+    res.train_step(nxt)
+    torch.cuda.synchronize()
+    out["resume"] = leaf_gap(flat_leaves(res), got["zero1_next"], lr)
+    out["resume"].update(epoch=epoch, count=res.optimizer.count,
+                         leaves_equal=same, load_s=load_s)
+    log(f"[{tag}] (b) resume.pt written under ZeRO-1 (whole leaves and "
+        f"moments) resumed by one process in {load_s:.1f} s: epoch {epoch},"
+        f" count {res.optimizer.count - 1} before its step, leaves "
+        f"{'bit-equal' if same else 'NOT equal'} to the ranks'; its next "
+        f"step vs the ranks' max |diff| {out['resume']['max_diff']:.3g} = "
+        f"{out['resume']['max_diff_lr']:.3g} lr, share above {TP_ATOL_LR} "
+        f"lr {out['resume']['share_above']:.2e}")
+    if not same or epoch != 1:
+        faults.append("the ZeRO-1 resume.pt did not restore the ranks' "
+                      "state")
+    if off_bound(out["resume"]):
+        faults.append(f"the resumed step off the bound: {out['resume']}")
+    del res
+    torch.cuda.empty_cache()
+    if faults:
+        raise AssertionError("; ".join(faults))
+    return out
+
+
+def dp_serve_phase(dev, params, names, text_feats, ref, tag="14 dp serve"):
+    """14(c): Predictor(data_parallel=True) on the one card (one part)
+    and over [cuda:0, cuda:0] (two), against phase 3's request."""
+    import torch
+
+    from eventclip_tpu_torch import kernels
+    from eventclip_tpu_torch.models.clip.config import clip_arch_config
+    from eventclip_tpu_torch.models.clip.model import init_clip_params
+    from eventclip_tpu_torch.serve import Predictor
+
+    clip_cfg = clip_arch_config(params.clip_dict["arch"])
+    clip = init_clip_params(clip_cfg, torch.Generator(device=dev)
+                            .manual_seed(0), device=dev)  # phase 3's towers
+    wins, valids = ref["wins"], ref["valids"]
+    L = clip_cfg.vision.layers
+    out = {}
+    for label, devices in (("one card", None), ("[cuda:0, cuda:0]",
+                                                 [dev, dev])):
+        pred = Predictor(params, names, clip_params=clip,
+                         text_feats=text_feats, batch_size=32, device=dev,
+                         data_parallel=True, devices=devices)
+        pred.warm_up()
+        times = []
+        kernels.reset_launches()
+        for _ in range(3):
+            t0 = time.perf_counter()
+            probs = pred.predict_windows(wins, valids, top_k=5)["probs"]
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        launches = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
+        batch = pred._place_chunk(wins[:32], valids[:32])
+        feats = pred._forward(batch)["view_feats"].float()
+        r = dict(parts=pred._split.n, ms=statistics.median(times),
+                 launches=launches, views=int(batch["windows"].shape[0]),
+                 bit_equal=bool(np.array_equal(probs, ref["probs"])),
+                 max_abs_diff=float(np.abs(probs - ref["probs"]).max()))
+        # K1 once a part, K2 once a block a part, a request
+        expect = {"histogram": r["parts"], "qkv_attention": r["parts"] * L}
+        if launches != expect:
+            raise AssertionError(f"{label}: launches a request {launches} "
+                                 f"!= {expect}")
+        valid = batch["valid_mask"].bool()
+        if devices is None:
+            ref_feats, ref_probs = feats, probs
+            if not r["bit_equal"]:
+                raise AssertionError(f"data_parallel=True on one card "
+                                     f"differs from phase 3: {r}")
+            # how far apart views of different samples lie
+            f = feats[valid]
+            sample = torch.arange(valid.shape[0], device=f.device)[
+                :, None].expand_as(valid)[valid]
+            gap = torch.cdist(f.double(), f.double()) / \
+                f.double().norm(dim=-1, keepdim=True).clamp_min(1e-30)
+            gap[sample[:, None] == sample[None, :]] = float("inf")
+            r["separation"] = float(gap.min())
+        else:
+            num = (feats - ref_feats).norm(dim=-1)
+            den = ref_feats.norm(dim=-1).clamp_min(1e-30)
+            r["feature_rel"] = float((num / den)[valid].max())
+            r["probs_vs_one_part"] = float(np.abs(probs - ref_probs).max())
+            sep = out["one card"]["separation"]
+            if r["feature_rel"] > DP_SERVE_REL or \
+                    sep < 10 * DP_SERVE_REL or \
+                    r["probs_vs_one_part"] > DP_SERVE_PROBS_ATOL:
+                raise AssertionError(
+                    f"the split over two parts: {r}; views of different "
+                    f"samples {sep:.3g} apart (norm-relative)")
+        out[label] = r
+        log(f"[{tag}] (c) Predictor(data_parallel=True) {label}: "
+            f"{r['parts']} part(s), request 32 x 225k {r['ms']:.1f} ms "
+            f"median of 3 (phase 3 {ref['ms']:.1f} ms, host windowing "
+            f"included there); launches a request {launches}; probs "
+            f"{'bit-equal' if r['bit_equal'] else 'not bit-equal'} to phase "
+            f"3's (max |diff| {r['max_abs_diff']:.3g})" +
+            (f"; views of different samples at least "
+             f"{r['separation']:.3g} apart, norm-relative (>= "
+             f"{10 * DP_SERVE_REL})" if "separation" in r else "") +
+            (f"; view features vs one part, norm-relative max "
+             f"{r['feature_rel']:.3g} (<= {DP_SERVE_REL}), probs max |diff| "
+             f"{r['probs_vs_one_part']:.3g} (<= {DP_SERVE_PROBS_ATOL})"
+             if "feature_rel" in r else ""))
+        del pred
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_phase(dev, gen, tmp, params, names, text_feats, ref):
+    """Phase 14. Returns the record, the kernel rows of the tp, zero1 and
+    dp_serve paths, and each path's launches (rank 0's, and the split
+    request's)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    rows = {
+        "tp": {"histogram": check_histogram(gen, "TP FT batch 8", 16, 70000,
+                                            480, 640, dev),
+               "qkv_attention": check_attention(
+                   gen, "TP FT batch 8, a rank", 16, 257, 8, 64,
+                   torch.bfloat16, False, dev),
+               "qkv_attention_bwd": check_attention_bwd(
+                   gen, "TP FT batch 8, a rank", 16, 257, 8, 64,
+                   torch.bfloat16, False, dev)},
+        "zero1": {"histogram": check_histogram(gen, "ZeRO-1 FT batch 4", 8,
+                                               70000, 480, 640, dev),
+                  "qkv_attention": check_attention(
+                      gen, "ZeRO-1 FT batch 4", 8, 257, 16, 64,
+                      torch.bfloat16, False, dev),
+                  "qkv_attention_bwd": check_attention_bwd(
+                      gen, "ZeRO-1 FT batch 4", 8, 257, 16, 64,
+                      torch.bfloat16, False, dev)}}
+    out = {"train": tp_zero1_phase(dev, tmp)}
+    dp = dp_serve_phase(dev, params, names, text_feats, ref)
+    out["serve"] = dp
+    half = dp["[cuda:0, cuda:0]"]["views"] // 2
+    rows["dp_serve"] = {
+        "histogram": check_histogram(gen, "split serving, a part", half,
+                                     20000, 180, 240, dev),
+        "qkv_attention": check_attention(
+            gen, "split serving, a part", half, 257, 16, 64,
+            torch.bfloat16, False, dev)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[14 parallel] phase 14 in {out['phase_s']:.1f} s")
+    launches = {"tp": out["train"]["ranks"][0]["tp"]["launches"],
+                "zero1": out["train"]["ranks"][0]["zero1"]["launches"],
+                "dp_serve": dp["[cuda:0, cuda:0]"]["launches"]}
+    return out, rows, launches
+
 
 def main() -> int:
     import torch
@@ -3366,6 +3837,12 @@ def main() -> int:
         f"{cos:.6f} (card bf16 vs CPU f32; CPU forward {cpu_s:.1f} s)")
     if not cos >= 0.99:
         raise AssertionError(f"card vs CPU feature cosine {cos} < 0.99")
+    # phase 14(c) serves phase 3's first request again: its windows and
+    # phase 3's answer, kept on the host
+    wins, valids = pred.gather_windows(requests[0][1])
+    dp_ref = dict(wins=wins, valids=valids,
+                  probs=pred.predict_windows(wins, valids, top_k=5)["probs"],
+                  ms=per_request[requests[0][0]]["ms"])
 
     # -- 5, 6 ---------------------------------------------------------------
     train, train_launches = train_phase(dev)
@@ -3413,6 +3890,10 @@ def main() -> int:
         # -- 13 -----------------------------------------------------------
         ddp, rec["ddp"], ddp_launches = ddp_phase(
             dev, gen, tmp, pseudo.pop("fs_teacher_run"))
+        # -- 14 -----------------------------------------------------------
+        parallel, rows14, launches14 = parallel_phase(
+            dev, gen, tmp, params, names, text_feats, dp_ref)
+        rec.update(rows14)
     os.environ.pop("EVENTCLIP_BPE_PATH")
     rec["serve_pruned"] = {"qkv_attention": pruned_row}
     # the bundle's request: K1 and K2 at phase 3's serving shapes, their
@@ -3441,7 +3922,8 @@ def main() -> int:
               "train_f32": train32_launches, "train_fs": train_fs_launches,
               "cli": data["eval_cli"]["launches"],
               "serve_pruned": pruned_launches, "rn50": rn50_launches,
-              "export": served["export"]["launches"], "ddp": ddp_launches}
+              "export": served["export"]["launches"], "ddp": ddp_launches,
+              **launches14}
     by_path = {p: {k: dict(launches=counts[p].get(k, 0), **r)
                    for k, r in recs.items()}
                for p, recs in rec.items() if p in counts}
@@ -3456,7 +3938,7 @@ def main() -> int:
         "requests": per_request, "train": train, "update_card_vs_cpu": update,
         "train_f32": train32, "train_fs": train_fs, "randaugment": augment,
         "serve_options": options, "pseudo_labels": pseudo,
-        "server_export": served, "ddp": ddp, **data}
+        "server_export": served, "ddp": ddp, "parallel": parallel, **data}
     log(json.dumps(line))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,10 @@ forward it just queued, as the JAX package does. The per-batch filter
 (`filter_batch`), the top-k re-filter (`topk_refilter`) and the tree
 writer (`write_tree`) are plain functions over numpy arrays and paths.
 
+One process splits every teacher batch over all its visible cards (the
+model once on each, parallel/local.py), as the root gen_data.py shards
+it over its mesh of local devices.
+
 Sharded runs: every process runs this same command (one card each) and
 joins one run through the coordination env, the JAX triple
 (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID) or
@@ -51,13 +55,15 @@ from ..engine.checkpoint import load_checkpoint
 from ..engine.trainer import (build_text_features, resolve_clip_params,
                               snapshot_logit_scale, sync_device)
 from ..models.classifier import (DEFAULT_PROMPT, build_classifier_config,
-                                 classifier_forward, init_classifier_params)
+                                 init_classifier_params)
 from ..models.clip.config import clip_arch_config
 from ..ops.preprocess import ClipPreprocess
 from ..ops.quant import calibrate_visual_amax, quantize_classifier_params
 from ..ops.rasterize import rasterize_for_clip
 from ..parallel.distributed import (allreduce_max_array, gather_objects,
-                                    host_shard_info, initialize_distributed)
+                                    host_shard_info, initialize_distributed,
+                                    launch_env)
+from ..parallel.local import LocalSplit, local_devices
 from ..utils.config import load_params
 
 
@@ -388,8 +394,12 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, Any]]:
     bs = max(int(params.get("val_batch_size", 32)), 1)
     if tta:
         bs = max(bs // 4, 1)
-    # the global batch splits into whole shards, one a rank
-    bs = max(bs - bs % num_shards, num_shards)
+    # the global batch splits into whole shards, one a rank, and each
+    # rank's into one part a local card (a launch drives one card a rank)
+    devices = [device] if launch_env()[1] is not None \
+        else local_devices(device)
+    n_data = num_shards * len(devices)
+    bs = max(bs - bs % n_data, n_data)
     loader = PrefetchLoader(test_set, bs, pad_last=True,
                             num_workers=params.get("num_workers", 8),
                             shard_index=shard_index, num_shards=num_shards)
@@ -397,14 +407,14 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, Any]]:
         model_params = quantize_teacher(args, cls_cfg, model_params, loader,
                                         (spec, pp), device)
     n_cls = len(class_names)
+    split = LocalSplit(model_params, devices)
 
     @torch.inference_mode()
     def probs_step(windows, valid):
         lead = tuple(windows.shape[:-3])  # [B] or [B, 4]
         flat_w = windows.reshape((-1,) + tuple(windows.shape[-3:]))
         flat_v = valid.reshape((-1, valid.shape[-1]))
-        imgs = rasterize_for_clip(spec, pp, flat_w)
-        out = classifier_forward(model_params, cls_cfg, imgs, flat_v)
+        out = split.forward(cls_cfg, spec, pp, flat_w, flat_v)
         return out["probs"].reshape(lead + (n_cls,))
 
     def place(batch):

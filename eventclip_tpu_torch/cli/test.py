@@ -22,14 +22,26 @@ unless --cpu is given:
 
 Text features come from the config's prompt through the BPE tokenizer
 (EVENTCLIP_BPE_PATH, or bpe_simple_vocab_16e6.txt.gz under
-eventclip_tpu_torch/assets/). `--n_model > 1` is ROADMAP item 7e: refused,
-never ignored.
+eventclip_tpu_torch/assets/).
+
+Parallelism, as the root test.py's mesh: one process splits every eval
+batch over all its visible cards (the model once on each,
+parallel/local.py). Under a launcher's env (the JAX triple or torchrun's,
+one card a process) the ranks join one run: `--n_model M` splits the
+towers over groups of M ranks (the world must be a multiple of M), the
+data groups shard every eval batch as the trainer's eval does, the
+counters are summed over the data groups, and rank 0 alone prints:
+
+    torchrun --nproc_per_node=4 -m eventclip_tpu_torch.cli.test \
+        --params ... --weight best.npz --n_model 2
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import os
 import time
 from typing import Any, Dict, List, Optional
@@ -49,6 +61,11 @@ from ..models.clip.config import clip_arch_config
 from ..ops.preprocess import ClipPreprocess
 from ..ops.quant import calibrate_visual_amax, quantize_classifier_params
 from ..ops.rasterize import rasterize_for_clip
+from ..parallel.distributed import (all_reduce_sum, host_shard_info,
+                                    initialize_distributed, launch_env,
+                                    process_index)
+from ..parallel.local import LocalSplit, local_devices
+from ..parallel.sharding import make_mesh, shard_params
 from ..utils.config import load_params
 from ..utils.meters import AverageMeter
 
@@ -86,12 +103,6 @@ def parse_args(argv: Optional[List[str]] = None):
     return parser.parse_args(argv)
 
 
-def refuse_unported(args) -> None:
-    if args.n_model > 1:
-        raise SystemExit("--n_model > 1 (tensor parallelism) is not ported "
-                         "yet (ROADMAP item 7e)")
-
-
 def load_and_override(args):
     """The eval CLI's param mutations (reference test.py:96-124): --N
     (thousands of events a window), --arch and --prompt are zero-shot only
@@ -124,13 +135,34 @@ def load_and_override(args):
     return params, cfg_base
 
 
+def _device(args):
+    """(launched, this process's device), the process group joined under
+    a launcher's env (one card a rank, cuda:LOCAL_RANK)."""
+    launched = launch_env()[1] is not None
+    device = torch.device("cpu" if args.cpu else (
+        f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}" if launched
+        else "cuda"))
+    if device.type == "cuda" and launched:
+        torch.cuda.set_device(device)
+    initialize_distributed(device=device)
+    return launched, device
+
+
 def build_eval_context(params, args) -> Dict[str, Any]:
     """What an evaluation needs apart from the weight file: the dataset,
     the CLIP towers, the text features, the eval step and the loader,
     built once for every checkpoint of a --train_shots sweep. `timing`
     holds the CLIP load's and the text features' seconds; `evals` gets one
-    record for each evaluation."""
-    device = torch.device("cpu" if args.cpu else "cuda")
+    record for each evaluation. Under a launcher's env this rank drives
+    one card and its data shard (tensor-parallel with --n_model); else
+    every visible card takes a part of each batch."""
+    if args.int8:
+        assert args.n_model == 1, (
+            "--int8 composes with data parallelism only; drop --n_model")
+    launched, device = _device(args)
+    mesh = make_mesh(args.n_model)
+    tp = mesh if mesh.n_model > 1 else None
+    shard_index, num_shards = host_shard_info(tp)
     kwargs = {"subset": args.subset} if args.subset > 0 else {}
     val_set = build_dataset(params, val_only=True, **kwargs)
 
@@ -157,6 +189,7 @@ def build_eval_context(params, args) -> Dict[str, Any]:
     t2 = time.perf_counter()
     template = init_classifier_params(cls_cfg, gen, clip=clip,
                                       text_feats=text_feats, device=device)
+    shard_params(template, tp)
     print(f"CLIP {clip_cfg.name} ({'pretrained' if pretrained else 'random'}"
           f") in {t1 - t0:.2f} s; text features {tuple(text_feats.shape)} "
           f"in {(t2 - t1) * 1e3:.1f} ms")
@@ -165,19 +198,38 @@ def build_eval_context(params, args) -> Dict[str, Any]:
     pp = ClipPreprocess(in_height=spec.height, in_width=spec.width,
                         image_size=clip_cfg.vision.image_size)
     top5 = params.dataset == "n_imagenet"
+    # the data axis: the data groups of a launch, or this process's cards
+    devices = [device] if launched else local_devices(device)
+    n_data = num_shards * len(devices)
     bs = int(params.get("val_batch_size", 64))
+    bs = max(bs - bs % n_data, n_data)
     loader = PrefetchLoader(val_set, bs, pad_last=True,
-                            num_workers=params.get("num_workers", 8))
-    return {
+                            num_workers=params.get("num_workers", 8),
+                            shard_index=shard_index, num_shards=num_shards)
+    split = LocalSplit(template, devices) if len(devices) > 1 else None
+    ctx = {
         "device": device, "template": template, "cls_cfg": cls_cfg,
-        "eval_step": make_eval_step(cls_cfg, template, top5=top5,
-                                    pipeline=(spec, pp)),
+        "shard": (shard_index, num_shards), "split": split, "tp": tp,
         "loader": loader, "top5": top5, "raster": (spec, pp),
         # packed eval (data/loader.py::pack_view_batch): only the real
         # views of each batch are encoded
-        "pack_buckets": eval_pack_buckets(bs, val_set.max_imgs, 1),
+        "pack_buckets": eval_pack_buckets(bs, val_set.max_imgs, n_data,
+                                          num_shards),
         "timing": {"clip_s": t1 - t0, "text_feats_s": t2 - t1}, "evals": [],
     }
+    ctx["eval_step"] = _eval_step(ctx, template)
+    return ctx
+
+
+def _eval_step(ctx, template):
+    return make_eval_step(ctx["cls_cfg"], template, top5=ctx["top5"],
+                          pipeline=ctx["raster"],
+                          shard_index=ctx["shard"][0],
+                          num_shards=ctx["shard"][1],
+                          split=(LocalSplit(template, ctx["split"].devices)
+                                 if ctx["split"] is not None
+                                 and template is not ctx["template"]
+                                 else ctx["split"]))
 
 
 def quantized_template(args, ctx):
@@ -224,16 +276,16 @@ def evaluate(params, args, weight: str = "", printing: bool = True,
         assert params.model == "ZSCLIP", "non-ZS evaluation needs --weight"
     device, eval_step, top5 = ctx["device"], ctx["eval_step"], ctx["top5"]
     if args.int8:
-        eval_step = make_eval_step(ctx["cls_cfg"], quantized_template(args,
-                                                                      ctx),
-                                   top5=top5, pipeline=ctx["raster"])
+        eval_step = _eval_step(ctx, quantized_template(args, ctx))
+    shard_index, num_shards = ctx["shard"]
 
     def prep(batch):
         dev = {k: v for k, v in batch.items()
                if k in ("windows", "valid_mask", "sample_mask")}
         dev["label"] = batch["label"].astype("int32")
         if ctx["pack_buckets"] and "windows" in dev:
-            dev = pack_view_batch(dev, ctx["pack_buckets"])
+            dev = pack_view_batch(dev, ctx["pack_buckets"], shard_index,
+                                  num_shards)
         return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
                     device, non_blocking=True) for k, v in dev.items()}
 
@@ -267,6 +319,10 @@ def evaluate(params, args, weight: str = "", printing: bool = True,
     for res in results:
         for k, v in res.items():
             sums[k] = sums.get(k, 0.0) + float(v)
+    if ctx["tp"] is not None and ctx["tp"].model_index:
+        # the ranks of a model group hold one data shard: count it once
+        sums = {k: 0.0 for k in sums}
+    sums = all_reduce_sum(sums)
     wall = time.perf_counter() - t0
     n = max(sums.get("n", 1.0), 1.0)
     ctx["evals"].append(dict(sums, weight=weight, wall_s=wall, wait_s=wait,
@@ -304,9 +360,17 @@ def find_weight(weight_dir: str) -> str:
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Run the CLI; returns the accuracies (a sweep's per-shot means) and
-    the evaluation context."""
+    the evaluation context. Ranks other than 0 of a launch print
+    nothing."""
     args = parse_args(argv)
-    refuse_unported(args)
+    _device(args)
+    if process_index() != 0:
+        with contextlib.redirect_stdout(io.StringIO()):
+            return _main(args)
+    return _main(args)
+
+
+def _main(args) -> Dict[str, Any]:
     params, cfg_base = load_and_override(args)
     ctx = build_eval_context(params, args)
 

@@ -23,9 +23,14 @@ torchrun's:
     torchrun --nproc_per_node=2 -m eventclip_tpu_torch.cli.train ...
 
 Rank r runs on cuda:LOCAL_RANK (default 0) and loads its shard of every
-global batch; rank 0 alone writes checkpoints and metrics. `--zero1`
-(ROADMAP item 7d) and `--n_model > 1` (item 7e) are refused, never
-ignored.
+global batch; rank 0 alone writes checkpoints and metrics. `--n_model M`
+splits the towers' blocks over groups of M ranks (Megatron tensor
+parallelism; the world must be a multiple of M, and the ranks of a group
+load the same rows), and `--zero1` keeps each data rank's slice of the
+Adam moments only (parallel/sharding.py):
+
+    torchrun --nproc_per_node=4 -m eventclip_tpu_torch.cli.train \
+        --params ... --n_model 2 --zero1
 """
 
 from __future__ import annotations
@@ -36,7 +41,7 @@ from typing import List, Optional
 
 from ..data import build_dataset
 from ..engine.trainer import EventCLIPTrainer
-from ..parallel.distributed import host_shard_info, initialize_distributed
+from ..parallel.distributed import initialize_distributed, process_index
 from ..utils.config import load_params
 
 
@@ -51,8 +56,8 @@ def parse_args(argv: Optional[List[str]] = None):
     parser.add_argument("--clip_ckpt", type=str,
                         default=os.environ.get("CLIP_CKPT", ""))
     parser.add_argument("--n_model", type=int, default=1,
-                        help="tensor parallelism (not ported: ROADMAP "
-                        "item 7e)")
+                        help="model-parallel (tensor-parallel) group size; "
+                        "the world must be a multiple of it")
     parser.add_argument("--max_epochs", type=int, default=-1)
     parser.add_argument("--ckpt_base", type=str, default="checkpoint")
     parser.add_argument("--san_check_val_step", type=int, default=2)
@@ -71,17 +76,10 @@ def parse_args(argv: Optional[List[str]] = None):
                         help="gradient-accumulation microbatches per "
                         "optimizer step (keeps the config's global batch)")
     parser.add_argument("--zero1", action="store_true",
-                        help="ZeRO stage 1 (not ported: ROADMAP item 7d)")
+                        help="shard the persistent optimizer moments over "
+                        "the data axis (ZeRO stage 1) instead of "
+                        "replicating them per data-parallel replica")
     return parser.parse_args(argv)
-
-
-def refuse_unported(args) -> None:
-    if args.zero1:
-        raise SystemExit("--zero1 (ZeRO stage 1) is not ported yet "
-                         "(ROADMAP item 7d)")
-    if args.n_model > 1:
-        raise SystemExit("--n_model > 1 (tensor parallelism) is not ported "
-                         "yet (ROADMAP item 7e)")
 
 
 def load_and_override(args):
@@ -117,13 +115,14 @@ def load_and_override(args):
         params.bf16 = False
     if args.accum > 0:
         params.accum_steps = args.accum
+    if args.zero1:
+        params.zero1 = True
     return params, exp_name
 
 
 def main(argv: Optional[List[str]] = None) -> EventCLIPTrainer:
     """Run the CLI; returns the trainer after `fit`."""
     args = parse_args(argv)
-    refuse_unported(args)
     device = "cpu" if args.cpu else \
         f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
     if not args.cpu:
@@ -136,7 +135,7 @@ def main(argv: Optional[List[str]] = None) -> EventCLIPTrainer:
     params, exp_name = load_and_override(args)
 
     train_set, val_set = build_dataset(params)
-    if host_shard_info()[0] == 0:
+    if process_index() == 0:
         print(f"dataset={params.dataset} classes={len(train_set.classes)} "
               f"train={len(train_set)} val={len(val_set)} "
               f"views(train/val)={train_set.max_imgs}/{val_set.max_imgs}")
@@ -147,7 +146,8 @@ def main(argv: Optional[List[str]] = None) -> EventCLIPTrainer:
         params, train_set, val_set, ckpt_dir=ckpt_dir,
         clip_ckpt=args.clip_ckpt or None,
         log_file=os.path.join(ckpt_dir, "metrics.jsonl"),
-        seed=args.seed, smoke=args.smoke, device=device)
+        seed=args.seed, smoke=args.smoke, device=device,
+        n_model=args.n_model)
     trainer.fit(resume_from=args.weight,
                 san_check_val_step=args.san_check_val_step)
     return trainer

@@ -20,7 +20,13 @@ counterpart.
 
 In a data-parallel run every rank calls the manager at the same points,
 and rank 0 alone writes; every rank reads `resume.pt` after a barrier
-that follows rank 0's write.
+that follows rank 0's write. Under tensor parallelism or ZeRO-1
+(parallel/sharding.py) the files still hold whole leaves: the model
+shards are gathered over the model group, and the optimizer's moment
+slices over the data group (the JAX package's `fetch_opt_state`), by
+every rank before rank 0 writes; loading cuts each whole leaf to the
+rank's shard. So a file written under any layout (n_data, n_model,
+zero1) loads under any other.
 """
 
 from __future__ import annotations
@@ -38,7 +44,9 @@ from ..models.classifier import ClassifierConfig
 from ..models.clip.convert import flatten_tree, port_leaves, to_jax_flat
 from ..models.clip.convert_method import load_method_checkpoint
 from ..models.partition import trainable_mask
-from ..parallel.distributed import barrier, host_shard_info
+from ..parallel.distributed import barrier, process_index
+from ..parallel.sharding import (MODEL_AXIS, full_tensors, model_placements,
+                                 piece, port_layout)
 
 
 def save_checkpoint(path: str, flat: Dict[str, np.ndarray], *,
@@ -83,10 +91,7 @@ def load_checkpoint(path: str, target: Optional[nn.Module] = None):
             unconsumed.append(key)
             continue
         for name, leaf in leaves:
-            p = named[name]
-            assert tuple(leaf.shape) == tuple(p.shape), (
-                f"{key}: ckpt {leaf.shape} vs target {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.asarray(leaf)).to(p.dtype))
+            assign_leaf(target, name, named[name], leaf, key)
     if unconsumed:
         raise ValueError(
             f"{len(unconsumed)} checkpoint leaves match no parameter in this "
@@ -94,12 +99,35 @@ def load_checkpoint(path: str, target: Optional[nn.Module] = None):
     return target, extra
 
 
+@torch.no_grad()
+def assign_leaf(target: nn.Module, name: str, p: torch.Tensor, leaf,
+                key: str = "") -> None:
+    """Copy a whole port-shaped leaf into parameter `p` of `target`, cut
+    to this rank's model shard when `target` was sharded."""
+    t = torch.from_numpy(np.asarray(leaf))
+    tp = getattr(target, "tp", None)
+    if tp is not None:
+        pl = model_placements(target)[name]
+        if pl.axis_dim(MODEL_AXIS) is not None:
+            assert np.prod(t.shape) == np.prod(p.shape) * tp.n_model, (
+                f"{key or name}: ckpt {tuple(t.shape)} vs a shard "
+                f"{tuple(p.shape)} of {tp.n_model}")
+            t = port_layout(piece(t, pl, MODEL_AXIS, tp.model_index,
+                                  tp.n_model), pl)
+    assert tuple(t.shape) == tuple(p.shape), (
+        f"{key or name}: ckpt {tuple(t.shape)} vs target {tuple(p.shape)}")
+    p.copy_(t.to(p.dtype))
+
+
 def trainable_flat(cfg: ClassifierConfig, params: nn.Module
                    ) -> Dict[str, np.ndarray]:
-    """The trainable leaves as {JAX tree path: array in the JAX shape}."""
+    """The trainable leaves as {JAX tree path: array in the JAX shape};
+    model shards are gathered to whole leaves first (a collective for the
+    model group: every rank of it calls this)."""
     mask = trainable_mask(cfg, params)
-    return to_jax_flat((n, p) for n, p in params.named_parameters()
-                       if mask[n])
+    named = [(n, p) for n, p in params.named_parameters() if mask[n]]
+    return to_jax_flat(full_tensors(named, model_placements(params),
+                                    getattr(params, "tp", None)))
 
 
 def save_trainable(path: str, cfg: ClassifierConfig, params: nn.Module,
@@ -112,12 +140,13 @@ class CheckpointManager:
     """Rolling + best checkpoint management under `<ckpt_dir>/models/`:
     `best.npz` for the monitored metric's max, `model_<step>.npz` rolling
     (the reference's discovery logic, test.py:156-167). Only rank 0 of a
-    data-parallel run writes (`is_main`); the others' saves are no-ops."""
+    data-parallel run writes (`is_main`); the others only join the
+    gathers of a sharded model."""
 
     def __init__(self, ckpt_dir: str, cfg: ClassifierConfig,
                  monitor: str = "probs_acc", keep_last: int = 3):
         self.dir = os.path.join(ckpt_dir, "models")
-        self.is_main = host_shard_info()[0] == 0
+        self.is_main = process_index() == 0
         if self.is_main:
             os.makedirs(self.dir, exist_ok=True)
         self.cfg = cfg
@@ -127,9 +156,12 @@ class CheckpointManager:
 
     def save(self, params: nn.Module, step: int,
              metrics: Optional[Dict[str, float]] = None) -> None:
-        if not self.is_main:
+        sharded = getattr(params, "tp", None) is not None
+        if not (self.is_main or sharded):
             return
         flat = trainable_flat(self.cfg, params)
+        if not self.is_main:
+            return
         save_checkpoint(os.path.join(self.dir, f"model_{step}.npz"), flat,
                         extra={"step": step})
         self._prune()
@@ -144,14 +176,22 @@ class CheckpointManager:
                           epoch: int) -> None:
         """Trainable leaves + optimizer state (the frozen CLIP weights are
         re-derivable from the CLIP checkpoint at startup); every rank
-        calls it, rank 0 writes, and all leave after the write."""
+        calls it, every rank joins the gathers of model shards and moment
+        slices, rank 0 writes, and all leave after the write."""
+        gathers = (getattr(params, "tp", None) is not None
+                   or getattr(optimizer, "zero1", False))
+        if not (self.is_main or gathers):
+            barrier()
+            return
+        flat = trainable_flat(self.cfg, params)
+        opt_state = optimizer.state_dict()
         if not self.is_main:
             barrier()
             return
         blob = {
             "epoch": epoch,
-            "params": trainable_flat(self.cfg, params),
-            "optimizer": optimizer.state_dict(),
+            "params": flat,
+            "optimizer": opt_state,
             "best_metric": self.best_metric,
         }
         tmp = os.path.join(self.dir, "resume.pt.tmp")
@@ -173,7 +213,7 @@ class CheckpointManager:
         named = dict(params.named_parameters())
         for key, value in blob["params"].items():
             for name, leaf in port_leaves(key, value):
-                named[name].copy_(torch.from_numpy(np.asarray(leaf)))
+                assign_leaf(params, name, named[name], leaf, key)
         optimizer.load_state_dict(blob["optimizer"])
         self.best_metric = float(blob.get("best_metric", -np.inf))
         return int(blob["epoch"])

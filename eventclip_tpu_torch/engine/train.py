@@ -4,10 +4,18 @@ Port of eventclip_tpu/engine/train.py (`make_train_step`,
 `make_eval_step`). PyTorch runs eagerly, so a "step" is a plain function
 that updates the parameters in place. Under a process group
 (parallel/distributed.py) each rank runs the step on its shard of the
-global batch: the gradients are all-reduced to their mean over ranks
+global batch: the gradients are all-reduced to their mean over the data ranks
 before the accumulation mean and the clip, as the JAX step's GSPMD
-gradient is global, and the metrics are averaged over ranks. ZeRO-1 and
-tensor parallelism are later work (ROADMAP 7d, 7e).
+gradient is global, and the metrics are averaged over the data ranks.
+
+Under tensor parallelism (parameters cut by parallel/sharding.py's
+`shard_params`, which sets `params.tp`) the towers run Megatron's
+operators (models/clip/model.py) and the ranks of a model group hold one
+data shard. The LoRA factors are replicated but each model rank uses
+them in part (its rows of q/k/v's B, its columns of o's A), so their
+gradients are summed over the model group first; every other replicated
+leaf gets the whole gradient on every model rank. ZeRO-1 lives in the
+optimizer (engine/optim.py).
 
 Mixed precision: master parameters live in float32; the visual tower's
 activations run in the classifier's dtype (bfloat16 by default).
@@ -34,7 +42,8 @@ from ..models.classifier import (ClassifierConfig, ClassifierParams,
 from ..ops.randaugment import sample_ops
 from ..ops.rasterize import rasterize_augment_for_clip, rasterize_for_clip
 from ..parallel.distributed import (RowShard, all_reduce_mean_,
-                                    host_shard_info, is_distributed)
+                                    host_shard_info, is_distributed,
+                                    model_all_reduce_sum_)
 from .optim import Optimizer
 
 Batch = Dict[str, torch.Tensor]
@@ -94,14 +103,19 @@ def make_train_step(
         in rank order (the JAX multi-host layout).
     seed: the draws' seed (see the module docstring); the forward runs
         with train=True, so the FS adapter's dropout is on.
-    Under a process group the batch is this rank's shard (equal on every
-    rank); built after the group is joined.
+    Under a process group the batch is this data rank's shard (equal on
+    every rank); built after the group is joined (and, under tensor
+    parallelism, after `shard_params`).
     """
     loss_weights = dict(loss_weights or {})
     accum = int(accum_steps)
     assert accum >= 1, accum
-    rank, world = host_shard_info()
+    tp = getattr(params, "tp", None)
+    rank, world = host_shard_info(tp)
     reduce = is_distributed()
+    # replicated leaves each model rank uses in part
+    partial = ([p for n, p in params.named_parameters()
+                if n.startswith("lora.")] if tp is not None else [])
     generators: Dict[torch.device, Tuple[torch.Generator, ...]] = {}
 
     def loss_fn(mb: Batch, i: int):
@@ -120,7 +134,7 @@ def make_train_step(
         out = classifier_forward(params, cfg, imgs, mb["valid_mask"],
                                  train=True,
                                  generator=RowShard(gen_fwd, rank * m,
-                                                    world * m))
+                                                    world * m), tp=tp)
         losses = train_loss(cfg, out, mb["label"])
         # nerv convention: total = sum(loss * params.<name>_w)
         total = sum(v * loss_weights.get(k, 1.0) for k, v in losses.items())
@@ -142,16 +156,24 @@ def make_train_step(
             for k, v in losses.items():
                 metrics[k] = metrics.get(k, 0.0) + v.detach()
         if reduce:
-            # the global gradient: the mean over ranks of each rank's
+            # the global gradient: the mean over data ranks of each rank's
             # (summed) microbatch gradients, in one flat buffer; every
             # leaf the clip norm reads takes part (the same leaves hold a
             # gradient on every rank: one model, one step)
             with torch.no_grad():
+                grads = [p.grad for p in partial if p.grad is not None]
+                if grads:
+                    flat = torch.cat([g.reshape(-1) for g in grads])
+                    model_all_reduce_sum_(flat, tp)
+                    off = 0
+                    for g in grads:
+                        g.copy_(flat[off:off + g.numel()].view_as(g))
+                        off += g.numel()
                 all_reduce_mean_([p.grad for p in optimizer.norm_params
-                                  if p.grad is not None])
+                                  if p.grad is not None], tp)
                 keys = list(metrics)
                 flat = torch.stack([metrics[k].float() for k in keys])
-                all_reduce_mean_([flat])
+                all_reduce_mean_([flat], tp)
                 metrics = dict(zip(keys, flat.unbind()))
         if accum > 1:
             # the summed microbatch gradients -> their mean; equal
@@ -169,32 +191,43 @@ def make_train_step(
 
 def make_eval_step(cfg: ClassifierConfig, params: ClassifierParams,
                    top5: bool = False, pipeline=None, shard_index: int = 0,
-                   num_shards: int = 1
+                   num_shards: int = 1, split=None
                    ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """Eval step returning summed counters (0-d tensors; the caller sums
-    them over batches, and over ranks). The batch adds 'sample_mask' [B]
-    bool so a padded final batch counts only its real rows; a batch
+    them over batches, and over data ranks). The batch adds 'sample_mask'
+    [B] bool so a padded final batch counts only its real rows; a batch
     carrying 'view_src' (data.loader.pack_view_batch) is view-packed and
     only its real views are rasterized and encoded. With `num_shards` > 1
-    the batch is rank `shard_index`'s shard and its 'view_src' holds
-    global slot ids, mapped here to the local batch."""
+    the batch is data rank `shard_index`'s shard and its 'view_src' holds
+    global slot ids, mapped here to the local batch. Parameters cut by
+    `shard_params` run tensor-parallel (`params.tp`). `split` (a
+    parallel/local.py LocalSplit over `params`) cuts each 'windows' batch
+    over the local cards."""
+    tp = getattr(params, "tp", None)
 
     @torch.inference_mode()
     def step(batch: Batch) -> Dict[str, torch.Tensor]:
         if "view_src" in batch:
             spec, pp = pipeline
-            imgs = rasterize_for_clip(spec, pp, batch["windows"])
             src = batch["view_src"]
             if num_shards > 1:
                 B, T = batch["valid_mask"].shape
                 src = torch.where(src == num_shards * B * T, B * T,
                                   src - shard_index * B * T)
-            out = classifier_forward_packed(params, cfg, imgs, src,
-                                            batch["valid_mask"])
+            if split is not None:
+                out = split.forward(cfg, spec, pp, batch["windows"],
+                                    batch["valid_mask"], src)
+            else:
+                imgs = rasterize_for_clip(spec, pp, batch["windows"])
+                out = classifier_forward_packed(params, cfg, imgs, src,
+                                                batch["valid_mask"], tp=tp)
+        elif split is not None and "windows" in batch:
+            out = split.forward(cfg, *pipeline, batch["windows"],
+                                batch["valid_mask"])
         else:
             out = classifier_forward(params, cfg,
                                      _batch_images(batch, pipeline),
-                                     batch["valid_mask"])
+                                     batch["valid_mask"], tp=tp)
         m = batch["sample_mask"].float()
         label = batch["label"].long()
         res = {

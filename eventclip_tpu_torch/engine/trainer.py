@@ -10,10 +10,12 @@ tracking, resume from a full-state file, a stable run id, graceful
 preemption on SIGTERM / SIGUSR1, a profiler trace of `profile_steps`
 steps, validation GIFs), data-parallel over the ranks of a process group
 (parallel/distributed.py: each rank loads its shard of every global batch,
-rank 0 alone writes files), plus `resolve_clip_params` (a released OpenAI
-`.pt`, a converted `.npz`, or the smoke/debug random init),
-`snapshot_logit_scale` and `build_text_features` (prompts through the BPE
-tokenizer). ZeRO-1 and tensor parallelism are ROADMAP items 7d and 7e.
+rank 0 alone writes files), with `n_model` > 1 tensor-parallel over
+groups of that many ranks and with `params.zero1` keeping each data
+rank's slice of the Adam moments only (parallel/sharding.py), plus
+`resolve_clip_params` (a released OpenAI `.pt`, a converted `.npz`, or
+the smoke/debug random init), `snapshot_logit_scale` and
+`build_text_features` (prompts through the BPE tokenizer).
 """
 
 from __future__ import annotations
@@ -45,7 +47,9 @@ from ..models.clip.tokenizer import SimpleTokenizer
 from ..ops.preprocess import ClipPreprocess
 from ..ops.rasterize import rasterize_for_clip
 from ..parallel.distributed import (all_reduce_sum, any_process_flag,
-                                    host_shard_info)
+                                    host_shard_info, process_count,
+                                    process_index)
+from ..parallel.sharding import make_mesh, shard_params
 from ..utils.meters import AverageMeter
 from .checkpoint import CheckpointManager, load_checkpoint
 from .optim import OptimConfig, Optimizer
@@ -172,7 +176,10 @@ def sync_device(device: torch.device) -> None:
 class EventCLIPTrainer:
     """Train and evaluate one classifier on one device, or data-parallel
     over the ranks of a process group joined before it is built (each
-    rank on its own `device`).
+    rank on its own `device`). `n_model` > 1 splits the towers' blocks
+    over groups of that many ranks (rank = data_index · n_model +
+    model_index; the world must divide), and the config's `zero1` keeps
+    the optimizer moments of each data rank's slices only.
 
     params: the experiment config (utils.config.Params). train_set /
     val_set: `data.event_windows.EventWindowDataset`s. clip_ckpt: released
@@ -209,6 +216,7 @@ class EventCLIPTrainer:
         seed: int = 0,
         smoke: bool = False,
         device="cuda",
+        n_model: int = 1,
     ):
         self.params = params
         self.train_set = train_set
@@ -241,21 +249,31 @@ class EventCLIPTrainer:
             self.cls_cfg, gen, clip=clip, text_feats=text_feats,
             device=self.device)
 
+        # the layout of the ranks: data-parallel over all of them unless
+        # model sharding is asked (a collective: every rank builds it)
+        self.mesh = make_mesh(n_model)
+        self.n_data, self.n_model = self.mesh.n_data, self.mesh.n_model
+        self.tp = self.mesh if self.n_model > 1 else None
+
         # gradient accumulation: one optimizer update per accum_steps
         # sequential microbatches, keeping the config's global batch;
-        # every rank's microbatch is a whole share of the global one
+        # every data rank's microbatch is a whole share of the global one
         self.accum = max(int(params.get("accum_steps", 1)), 1)
-        shard_index, num_shards = host_shard_info()
+        shard_index, num_shards = host_shard_info(self.tp)
         self.global_batch = int(params.train_batch_size)
         divisor = num_shards * self.accum
         if self.global_batch % divisor:
             adjusted = max(divisor,
                            self.global_batch - self.global_batch % divisor)
             print(f"WARNING: train_batch_size={self.global_batch} is not "
-                  f"divisible by ranks*accum_steps={divisor}; training at "
+                  f"divisible by data_devices*accum={divisor}; training at "
                   f"global batch {adjusted} instead", flush=True)
             self.global_batch = adjusted
-        self.is_main = shard_index == 0
+        self.is_main = process_index() == 0
+        if self.is_main:
+            print(f"mesh: devices={process_count()} data={self.n_data} "
+                  f"model={self.n_model} "
+                  f"host_shard={shard_index}/{num_shards}", flush=True)
         if num_shards > 1 and self.is_main:
             print(f"data parallel: {num_shards} ranks, each loading "
                   f"{self.global_batch // num_shards} of every global "
@@ -286,8 +304,12 @@ class EventCLIPTrainer:
             warmup_steps_pct=float(params.get("warmup_steps_pct", 0.05)),
             grad_clip=float(params.get("grad_clip", -1)),
         )
+        # each leaf cut once to this rank's model shard, before the
+        # optimizer sees it; ZeRO-1 needs more than one data rank
+        shard_params(self.model_params, self.tp)
+        self.zero1 = bool(params.get("zero1", False)) and self.n_data > 1
         self.optimizer = Optimizer(self.cls_cfg, self.opt_cfg,
-                                         self.model_params)
+                                   self.model_params, zero1=self.zero1)
 
         spec = train_set.raster_spec()
         self.pipeline = (spec, ClipPreprocess(
@@ -534,6 +556,9 @@ class EventCLIPTrainer:
         for res in results:
             for k, v in res.items():
                 sums[k] = sums.get(k, 0.0) + float(v)
+        if self.tp is not None and self.tp.model_index:
+            # the ranks of a model group hold one data shard: count it once
+            sums = {k: 0.0 for k in sums}
         sums = all_reduce_sum(sums)
         n = max(sums.pop("n", 1.0), 1.0)
         stats = {
@@ -549,7 +574,7 @@ class EventCLIPTrainer:
         _log_jsonl(self.log_file, {"run_id": self.run_id, "split": "val",
                                    "epoch": self.epoch, **stats})
         if self.visualize and max_steps is None and self.is_main \
-                and host_shard_info()[1] == 1:
+                and process_count() == 1:
             # one rank's forwards alone: a multi-rank run skips it (its
             # metrics and checkpoints carry the run), as the JAX one does
             try:

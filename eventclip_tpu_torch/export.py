@@ -163,6 +163,11 @@ def export_predictor(pred: Predictor, path: str, *,
     Returns the metadata dict written into the bundle. The weights are
     written once as raw leaf bytes, so the file is about the size of the
     weights however many bucket programs freeze."""
+    if getattr(pred, "data_parallel", False):
+        raise ValueError(
+            "export_predictor freezes single-device programs; build the "
+            "Predictor with data_parallel=False (a multi-chip deployment "
+            "re-shards at load time and should serve live)")
     dev = pred.device
     platforms = list(platforms or [dev.type])
     bad = [p for p in platforms if p not in _DEVICE_TYPES]
@@ -364,6 +369,7 @@ class ExportedPredictor(Predictor):
 
         self._step = load(_STEP_NAME)
         self._buckets = [int(k) for k in meta["buckets"]] or None
+        self.data_parallel = False  # a bundle is a single-device program
         self._step_packed = {k: load(_packed_name(k))
                              for k in self._buckets or []}
         self._embed = _EMBED_NAME in blobs

@@ -256,11 +256,14 @@ def aggregate_probs(logits: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 
 def _encode_views(params: ClassifierParams, cfg: ClassifierConfig,
-                  flat_imgs: torch.Tensor, train: bool) -> torch.Tensor:
+                  flat_imgs: torch.Tensor, train: bool,
+                  tp=None) -> torch.Tensor:
     """[V, 3, S, S] -> [V, C] raw (un-normalized) f32 encoder features,
     through the ViT or, for a ResNet config, the ResNet tower. Only FT
     records a graph through the tower; ZS and FS encode under
-    no_grad (the frozen tower, the JAX package's stop_gradient)."""
+    no_grad (the frozen tower, the JAX package's stop_gradient). `tp` (a
+    parallel/sharding.py TPContext) runs the ViT's blocks
+    tensor-parallel; a ResNet tower has none to split."""
     trains_tower = cfg.model == "FTCLIP"
     with torch.set_grad_enabled(trains_tower and torch.is_grad_enabled()):
         if isinstance(cfg.clip.vision, ResNetVisionConfig):
@@ -272,57 +275,103 @@ def _encode_views(params: ClassifierParams, cfg: ClassifierConfig,
         return encode_image(
             params.clip.visual, flat_imgs, dtype=cfg.dtype, lora=params.lora,
             remat=cfg.remat and trains_tower and train,
-            keep_tokens=None if train else cfg.keep_tokens).float()
+            keep_tokens=None if train else cfg.keep_tokens, tp=tp).float()
 
 
 def classifier_forward(params: ClassifierParams, cfg: ClassifierConfig,
                        imgs: torch.Tensor, valid: torch.Tensor,
                        train: bool = False,
-                       generator: Optional[torch.Generator] = None
-                       ) -> Dict[str, torch.Tensor]:
+                       generator: Optional[torch.Generator] = None,
+                       tp=None) -> Dict[str, torch.Tensor]:
     """imgs [B, T, 3, S, S] CLIP-normalized, valid [B, T] -> output dict.
 
     All T views are encoded (padded views carry zeros) and masked after.
-    `train` with a `generator` turns on the FS adapter's dropout."""
+    `train` with a `generator` turns on the FS adapter's dropout; `tp`
+    runs the visual blocks tensor-parallel."""
     B, T = valid.shape
     flat = imgs.reshape((B * T,) + tuple(imgs.shape[2:]))
-    feats = _encode_views(params, cfg, flat, train).reshape(B, T, -1)
-    return _aggregate_head(params, cfg, feats, valid, train, generator)
+    feats = _encode_views(params, cfg, flat, train, tp=tp).reshape(B, T, -1)
+    return _aggregate_head(params, cfg, feats, valid, train, generator, tp)
 
 
 def classifier_forward_packed(params: ClassifierParams,
                               cfg: ClassifierConfig, imgs: torch.Tensor,
                               view_src: torch.Tensor,
-                              valid: torch.Tensor) -> Dict[str, torch.Tensor]:
+                              valid: torch.Tensor,
+                              tp=None) -> Dict[str, torch.Tensor]:
     """Forward over view-PACKED images (only valid views encoded).
 
     imgs [K, 3, S, S] holds the batch's valid views compacted across
     samples; view_src [K] maps each row to its flat slot in [B*T] (the
     sentinel B*T marks packing padding, summed into a spare slot that is
     dropped)."""
+    feats_k = _encode_views(params, cfg, imgs, train=False, tp=tp)
+    return classifier_head_packed(params, cfg, feats_k, view_src, valid, tp)
+
+
+def classifier_head_packed(params: ClassifierParams, cfg: ClassifierConfig,
+                           feats_k: torch.Tensor, view_src: torch.Tensor,
+                           valid: torch.Tensor,
+                           tp=None) -> Dict[str, torch.Tensor]:
+    """The packed forward after the encoder: [K, C] view features put back
+    in their [B*T] slots (the sentinel's into a spare slot, dropped), then
+    the head."""
     B, T = valid.shape
-    feats_k = _encode_views(params, cfg, imgs, train=False)
     C = feats_k.shape[-1]
     flat = torch.zeros((B * T + 1, C), dtype=torch.float32,
                        device=feats_k.device)
     flat = flat.index_add(0, view_src.to(torch.int64), feats_k)
     feats = flat[: B * T].reshape(B, T, C)
-    return _aggregate_head(params, cfg, feats, valid)
+    return _aggregate_head(params, cfg, feats, valid, tp=tp)
+
+
+def classifier_head(params: ClassifierParams, cfg: ClassifierConfig,
+                    feats: torch.Tensor, valid: torch.Tensor
+                    ) -> Dict[str, torch.Tensor]:
+    """The eval forward after the encoder: [B*T, C] view features of a
+    padded batch -> the output dict."""
+    B, T = valid.shape
+    return _aggregate_head(params, cfg, feats.reshape(B, T, -1), valid)
+
+
+class _AdapterCall(nn.Module):
+    """`apply_adapter` as a module call, so `functional_call` can run it on
+    whole leaves gathered from model shards."""
+
+    def __init__(self, adapter: Adapter):
+        super().__init__()
+        self.adapter = adapter
+
+    def forward(self, cfg, feats, valid, train, generator):
+        return apply_adapter(self.adapter, cfg, feats, valid, train=train,
+                             generator=generator)
 
 
 def _aggregate_head(params: ClassifierParams, cfg: ClassifierConfig,
                     feats: torch.Tensor, valid: torch.Tensor,
                     train: bool = False,
-                    generator: Optional[torch.Generator] = None
-                    ) -> Dict[str, torch.Tensor]:
+                    generator: Optional[torch.Generator] = None,
+                    tp=None) -> Dict[str, torch.Tensor]:
     """Post-encoder half: FS adapts the features (zeros in padded slots
     are masked out of its attention), FS and FT normalize then mask them
     (ZS uses them raw, clip_cls.py:148), then logits against the text
-    features, masked, aggregated."""
+    features, masked, aggregated. Under `tp` the adapter's stacked blocks
+    are model shards (the JAX rule shards every `blocks` path) on
+    replicated features: they are gathered whole for its forward, and
+    each rank keeps its piece of their (replicated) gradient."""
     if cfg.model == "FSCLIP":
         with record_function("adapter"):
-            feats = apply_adapter(params.adapter, cfg.adapter, feats, valid,
-                                  train=train, generator=generator)
+            call = _AdapterCall(params.adapter)
+            whole = {}
+            if tp is not None and params.adapter is not None:
+                from ..parallel.sharding import gather_model
+
+                whole = gather_model(call.named_parameters(), "adapter.",
+                                     params.placements, tp)
+            args = (cfg.adapter, feats, valid, train, generator)
+            feats = (torch.func.functional_call(call, whole, args,
+                                                strict=False)
+                     if whole else call(*args))
     if cfg.model != "ZSCLIP":
         # FT bypasses the adapter (clip_cls_ft.py:228)
         feats = normalize(feats) * valid[..., None]

@@ -24,7 +24,21 @@ sequence to its highest-variance patches before the tower; a tower whose
 weights were quantized by ops/quant.py runs its products through `qdense`
 (`dense` dispatches on the `QWeight`); a calibration copy holding
 `AmaxRecorder`s in their place notes the max-abs of those products'
-inputs. Tensor parallelism is ROADMAP item 7.
+inputs.
+
+Tensor parallelism (`tp=`, a parallel/sharding.py `TPContext`, on
+weights cut by its `shard_params`): Megatron's pair of operators, as the
+JAX package's GSPMD program computes them. The column-parallel products
+(`wqkv`, `w1`) take the replicated input and give this rank's output
+features (local f32 bias, one rounding); their backward sums the f32
+input-gradient partials over the model group before rounding. The
+row-parallel products (`wo`, `w2`) sum their f32 partial products over
+the model group, then add the replicated f32 bias and round once (the
+JAX `dense` reduces the f32 einsum before `+ b`). Attention runs the
+fused kernels on the rank's heads (`tp_fused_qkv_attention`). LoRA
+factors stay replicated and each rank uses its rows of q/k/v's B and its
+columns of o's A; o's delta joins the row-parallel partial sum. int8
+weights and token pruning are single-card inference paths.
 """
 
 from __future__ import annotations
@@ -36,8 +50,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ...ops.attention import fused_qkv_attention
+from ...ops.attention import fused_qkv_attention, tp_fused_qkv_attention
 from ...ops.quant import AmaxRecorder, QWeight, qdense
+from ...parallel.distributed import model_all_reduce_sum_
 from .config import CLIPConfig, ResNetVisionConfig, TextConfig, VisionConfig
 from .resnet import ResNetVisionTower, init_resnet_visual_
 
@@ -122,6 +137,115 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
     return y.reshape(*x.shape[:-1], w.shape[0])
 
 
+# -- tensor parallelism: Megatron's column- and row-parallel products -------
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b accumulated and returned in f32 (operands in a's dtype): the
+    card's GEMM writes its f32 accumulator; the CPU takes the f32 product
+    of the rounded operands, the same sum."""
+    if a.dtype == torch.float32:
+        return torch.mm(a, b.float())
+    if a.is_cuda:
+        return torch.mm(a, b.to(a.dtype), out_dtype=torch.float32)
+    return torch.mm(a.float(), b.to(a.dtype).float())
+
+
+class _ColumnParallel(torch.autograd.Function):
+    """x [N, in] (replicated) @ w_r.T (+ f32 b_r): this rank's output
+    features, the f32 accumulator plus the bias rounded once (`dense`).
+    Backward: the f32 partial input gradient summed over the model group,
+    then rounded; the weight gradient in x's dtype, the bias gradient the
+    f32 column sum."""
+
+    @staticmethod
+    def forward(ctx, x2, w, b, tp):
+        ctx.save_for_backward(x2, w)
+        ctx.tp = tp
+        y = _mm_f32(x2, w.t())
+        if b is not None:
+            y = y + b.float()
+        return y.to(x2.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        gx = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            gx = model_all_reduce_sum_(_mm_f32(g, w), ctx.tp).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = _mm_f32(g.t(), x2).to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            gb = g.float().sum(0)
+        return gx, gw, gb, None
+
+
+class _RowParallel(torch.autograd.Function):
+    """x_r [N, in/n] @ w_r.T [in/n, out]: the f32 partial product (plus an
+    f32 `extra` partial, o's LoRA delta), summed over the model group in
+    f32, then the replicated f32 bias added and the sum rounded once.
+    Backward: the output gradient is replicated, so the local input,
+    weight and bias gradients need no sum."""
+
+    @staticmethod
+    def forward(ctx, x2, w, b, tp, extra):
+        ctx.save_for_backward(x2, w)
+        y = _mm_f32(x2, w.t())
+        if extra is not None:
+            y = y + extra
+        model_all_reduce_sum_(y, tp)
+        if b is not None:
+            y = y + b.float()
+        return y.to(x2.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        gx = gw = gb = ge = None
+        if ctx.needs_input_grad[0]:
+            gx = _mm_f32(g, w).to(x2.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = _mm_f32(g.t(), x2).to(w.dtype)
+        if ctx.needs_input_grad[2]:
+            gb = g.float().sum(0)
+        if ctx.needs_input_grad[4]:
+            ge = g.float()
+        return gx, gw, gb, None, ge
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward on a replicated input; backward sums the
+    gradient's f32 partials over the model group (the q/k/v LoRA deltas,
+    whose B each rank uses in part)."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return model_all_reduce_sum_(g.float(), ctx.tp).to(g.dtype), None
+
+
+def column_parallel(x: torch.Tensor, w: torch.Tensor,
+                    b: Optional[torch.Tensor], tp) -> torch.Tensor:
+    """[..., in] replicated -> [..., out/n] this rank's features (`tp`
+    the layout whose model group sums the input gradient)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    y = _ColumnParallel.apply(x2, w.to(x.dtype), b, tp)
+    return y.reshape(*x.shape[:-1], w.shape[0])
+
+
+def row_parallel(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                 tp, extra: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[..., in/n] this rank's features -> [..., out] replicated (summed
+    over `tp`'s model group)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    y = _RowParallel.apply(x2, w.to(x.dtype), b, tp, extra)
+    return y.reshape(*x.shape[:-1], w.shape[0])
+
+
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     """LayerNorm computed in float32 (f32 statistics, f32 weight and bias)
     regardless of activation dtype, rounded once to x's dtype. The up-cast
@@ -190,7 +314,9 @@ class Attention(nn.Module):
         self.bo = _param(width, zeros=True, device=device)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                lora: Optional[LayerLoRA] = None) -> torch.Tensor:
+                lora: Optional[LayerLoRA] = None, tp=None) -> torch.Tensor:
+        if tp is not None:
+            return self._tp_forward(x, mask, lora, tp)
         qkv = dense(x, self.wqkv, self.bqkv)  # [B, T, 3D]
         if lora is not None:
             zeros = torch.zeros_like(x)
@@ -203,6 +329,31 @@ class Attention(nn.Module):
             out = out + lora_delta(o, *lora["o"])
         return out
 
+    def _tp_forward(self, x, mask, lora, tp):
+        """One model rank: its heads of q, k and v (column-parallel), the
+        fused kernel on them, the row-parallel out-projection."""
+        if isinstance(self.wqkv, (QWeight, AmaxRecorder)):
+            raise AssertionError("int8 quantization is a single-chip "
+                                 "inference path (no TP)")
+        qkv = column_parallel(x, self.wqkv, self.bqkv, tp)  # [B, T, 3D/n]
+        Dl = qkv.shape[-1] // 3
+        lo, hi = tp.model_index * Dl, (tp.model_index + 1) * Dl
+        if lora is not None:
+            xr = _CopyToModel.apply(x, tp)
+            zeros = x.new_zeros(x.shape[:-1] + (Dl,))
+            qkv = qkv + torch.cat([
+                dense(dense(xr, lora[t][0]), lora[t][1][lo:hi])
+                if t in lora else zeros for t in ("q", "k", "v")], dim=-1)
+        o = tp_fused_qkv_attention(qkv, self.heads, tp, mask)
+        extra = None
+        if lora is not None and "o" in lora:
+            a, b = lora["o"]
+            o2 = o.reshape(-1, Dl).float()
+            # this rank's f32 partial of (o A^T) B^T over its columns of A
+            extra = (o2 @ a[:, lo:hi].to(o.dtype).float().t()) \
+                @ b.to(o.dtype).float().t()
+        return row_parallel(o, self.wo, self.bo, tp, extra)
+
 
 class MLP(nn.Module):
     def __init__(self, width: int, device=None):
@@ -212,7 +363,10 @@ class MLP(nn.Module):
         self.w2 = _param(width, 4 * width, device=device)
         self.b2 = _param(width, zeros=True, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, tp=None) -> torch.Tensor:
+        if tp is not None:
+            h = quick_gelu(column_parallel(x, self.w1, self.b1, tp))
+            return row_parallel(h, self.w2, self.b2, tp)
         return dense(quick_gelu(dense(x, self.w1, self.b1)), self.w2, self.b2)
 
 
@@ -227,9 +381,9 @@ class Block(nn.Module):
         self.mlp = MLP(width, device=device)
 
     def forward(self, h: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                lora: Optional[LayerLoRA] = None) -> torch.Tensor:
-        h = h + self.attn(layer_norm(h, self.ln_1), mask, lora)
-        return h + self.mlp(layer_norm(h, self.ln_2))
+                lora: Optional[LayerLoRA] = None, tp=None) -> torch.Tensor:
+        h = h + self.attn(layer_norm(h, self.ln_1), mask, lora, tp)
+        return h + self.mlp(layer_norm(h, self.ln_2), tp)
 
 
 class Transformer(nn.Module):
@@ -240,17 +394,19 @@ class Transformer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 lora: Optional["LoRA"] = None,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False, tp=None) -> torch.Tensor:
         """remat=True keeps only each block's input for the backward pass
         and recomputes the block there (activation memory O(1) in depth,
-        about a third more FLOPs), when a gradient is being recorded."""
+        about a third more FLOPs), when a gradient is being recorded.
+        Under `tp` the recomputation repeats the block's model-group
+        sums, in the same order on every rank."""
         remat = remat and torch.is_grad_enabled()
         for i, block in enumerate(self.layers):
             li = None if lora is None else lora.layer(i)
             if remat:
-                x = checkpoint(block, x, mask, li, use_reentrant=False)
+                x = checkpoint(block, x, mask, li, tp, use_reentrant=False)
             else:
-                x = block(x, mask, li)
+                x = block(x, mask, li, tp)
         return x
 
 
@@ -315,12 +471,14 @@ def encode_image(visual: VisionTower, images: torch.Tensor, *,
                  dtype: torch.dtype = torch.float32,
                  lora: Optional[LoRA] = None,
                  remat: bool = False,
-                 keep_tokens: Optional[int] = None) -> torch.Tensor:
+                 keep_tokens: Optional[int] = None,
+                 tp=None) -> torch.Tensor:
     """[B, 3, H, W] CLIP-normalized images -> [B, output_dim] f32 features.
 
     keep_tokens=K (eval-time, opt-in) keeps the K highest-variance patches
     (`prune_patches`), each with its own positional embedding, in raster
-    order; K = grid² reproduces the full forward."""
+    order; K = grid² reproduces the full forward. `tp` runs the blocks
+    tensor-parallel (on weights cut by parallel/sharding.py)."""
     cfg = visual.cfg
     B = images.shape[0]
     ps, g, D = cfg.patch_size, cfg.grid, cfg.width
@@ -330,6 +488,9 @@ def encode_image(visual: VisionTower, images: torch.Tensor, *,
     x = x.reshape(B, g * g, 3 * ps * ps)
     pos = visual.positional_embedding.to(dtype)
     if keep_tokens is not None and keep_tokens < g * g:
+        if tp is not None:
+            raise AssertionError("token pruning is a single-chip inference "
+                                 "path")
         idx = prune_patches(x, keep_tokens)
         x = torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
         pos_tok = pos[1:][idx]  # [B, K, D]: embeddings follow their patches
@@ -339,20 +500,21 @@ def encode_image(visual: VisionTower, images: torch.Tensor, *,
     cls = (visual.class_embedding.to(dtype) + pos[0]).expand(B, 1, D)
     x = torch.cat([cls, x], dim=1)
     x = layer_norm(x, visual.ln_pre)
-    x = visual.blocks(x, lora=lora, remat=remat)
+    x = visual.blocks(x, lora=lora, remat=remat, tp=tp)
     x = layer_norm(x[:, 0], visual.ln_post)
     # the f32 product of dtype-rounded operands = f32 accumulation
     return torch.matmul(x.float(), visual.proj.to(dtype).float())
 
 
 def encode_text(text: TextTower, tokens: torch.Tensor, *,
-                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                dtype: torch.dtype = torch.float32, tp=None) -> torch.Tensor:
     """[B, context] int token ids -> [B, output_dim] f32 features, pooled at
-    the EOT token (the highest id, so `argmax` finds it)."""
+    the EOT token (the highest id, so `argmax` finds it). `tp` runs the
+    blocks tensor-parallel, the causal mask on each rank's heads."""
     T = tokens.shape[-1]
     x = text.token_embedding[tokens].to(dtype)
     x = x + text.positional_embedding[:T].to(dtype)
-    x = text.blocks(x, causal_mask(T, device=x.device))
+    x = text.blocks(x, causal_mask(T, device=x.device), tp=tp)
     x = layer_norm(x, text.ln_final)
     eot = tokens.argmax(-1)
     x = x[torch.arange(x.shape[0], device=x.device), eot]

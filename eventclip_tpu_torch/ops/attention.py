@@ -6,7 +6,10 @@ Port of eventclip_tpu/ops/attention.py:
   (the towers' layout; TPU kernels K2 `_qkv_attention_forward` and, for its
   gradient, K3 `_bwd_kernel` via `_qkv_attention_bwd`);
 - `multi_head_attention(q, k, v, mask)`: [B, H, S, dh] each (TPU kernel K4
-  `_attention_forward`, gradient K3 via `_attention_bwd`).
+  `_attention_forward`, gradient K3 via `_attention_bwd`);
+- `tp_fused_qkv_attention(qkv, heads, tp, mask)`: one tensor-parallel
+  rank's [B, S, 3D/n] (its whole heads of q, k and v) -> [B, S, D/n],
+  the fused kernels on heads / n heads; q, k and v are never gathered.
 
 Both go through `torch.library` custom ops (ops/custom_ops.py:
 `eventclip::qkv_attention`, `eventclip::attention`, whose registered
@@ -282,6 +285,23 @@ def fused_qkv_attention(qkv: torch.Tensor, heads: int,
     versions."""
     _check_qkv(qkv, heads, mask)
     return torch.ops.eventclip.qkv_attention(qkv, heads, mask)
+
+
+def tp_fused_qkv_attention(qkv: torch.Tensor, heads: int, tp,
+                           mask: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Tensor-parallel attention on one rank (the JAX package's
+    `tp_fused_qkv_attention`): `qkv` is this rank's [B, S, 3·D/n] of the
+    fused projection, [q_r | k_r | v_r] (parallel/sharding.py cuts `wqkv`
+    so), and the fused kernel runs on its heads / n heads; the output
+    [B, S, D/n] stays sharded for the row-parallel out-projection. The
+    additive [S, S] mask is per position, so it applies unchanged to the
+    local heads."""
+    n = tp.n_model
+    if heads % n:
+        raise AssertionError(f"({heads}, {n}): {heads} heads do not split "
+                             f"over a model axis of {n}")
+    return fused_qkv_attention(qkv, heads // n, mask)
 
 
 # -- [B, H, S, dh] layout (K4 forward, K3 backward) ---------------------------

@@ -17,6 +17,15 @@ at the same program point, and one process passes through. Under NCCL
 they run on a gloo group made beside the NCCL one: NCCL cannot reduce CPU
 tensors, and a host collective must not cost a device sync.
 
+Under tensor parallelism the ranks form a ('data', 'model') layout, and
+the functions that follow it take its `tp` (parallel/sharding.py's
+TPContext, None without tensor parallelism): `host_shard_info(tp)` is
+then (data_index, n_data), since the ranks of one model group load the
+same rows and draw the same numbers; `all_reduce_mean_(..., tp)` averages
+over the data group, and `model_all_reduce_sum_(..., tp)` sums over the
+model group. The host collectives stay world-wide, and rank 0 of the
+world (`process_index`) alone writes files.
+
 Single-process runs are the common case and everything degrades to no-ops.
 """
 
@@ -96,11 +105,26 @@ def is_distributed() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def host_shard_info() -> Tuple[int, int]:
-    """(shard_index, num_shards) for the PrefetchLoader on this rank."""
+def host_shard_info(tp=None) -> Tuple[int, int]:
+    """(shard_index, num_shards) for the PrefetchLoader on this rank: the
+    data index and n_data under tensor parallelism (`tp`), else the rank
+    and the world size."""
     if not is_distributed():
         return 0, 1
+    if tp is not None:
+        return tp.data_index, tp.n_data
     return dist.get_rank(), dist.get_world_size()
+
+
+def process_index() -> int:
+    """This process's rank in the world (0 when single): rank 0 alone
+    writes shared files."""
+    return dist.get_rank() if is_distributed() else 0
+
+
+def process_count() -> int:
+    """The number of processes of the run (1 when single)."""
+    return dist.get_world_size() if is_distributed() else 1
 
 
 def any_process_flag(flag: bool) -> bool:
@@ -110,7 +134,7 @@ def any_process_flag(flag: bool) -> bool:
     program point. The trainer uses it at epoch boundaries to agree on a
     graceful preemption exit (signal delivery skews across ranks).
     Single process: plain passthrough."""
-    if host_shard_info()[1] == 1:
+    if process_count() == 1:
         return bool(flag)
     t = torch.tensor([int(bool(flag))], dtype=torch.int32)
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_HOST_GROUP)
@@ -125,7 +149,7 @@ def allreduce_max_array(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
     arr = np.asarray(x)
-    if host_shard_info()[1] == 1:
+    if process_count() == 1:
         return arr
     t = torch.from_numpy(np.ascontiguousarray(arr).copy())
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_HOST_GROUP)
@@ -135,7 +159,7 @@ def allreduce_max_array(x) -> np.ndarray:
 def gather_objects(obj) -> List:
     """Every process's `obj` (small, picklable), as a list indexed by
     rank. Deterministic collective. Single process: `[obj]`."""
-    world = host_shard_info()[1]
+    world = process_count()
     if world == 1:
         return [obj]
     out: List = [None] * world
@@ -145,32 +169,67 @@ def gather_objects(obj) -> List:
 
 def barrier() -> None:
     """Wait for every rank (host-side; no-op when single)."""
-    if host_shard_info()[1] > 1:
+    if process_count() > 1:
         dist.barrier(group=_HOST_GROUP)
 
 
-def _all_reduce_sum_(buf: torch.Tensor) -> None:
-    """In-place sum over ranks on the default group; a CUDA tensor under
-    gloo is staged through the host."""
-    if buf.is_cuda and dist.get_backend() != "nccl":
+def _staged(buf: torch.Tensor) -> bool:
+    """A CUDA tensor under gloo goes through the host."""
+    return buf.is_cuda and dist.get_backend() != "nccl"
+
+
+def _all_reduce_sum_(buf: torch.Tensor, group=None) -> None:
+    """In-place sum over the ranks of `group` (default: the world)."""
+    if _staged(buf):
         host = buf.cpu()
-        dist.all_reduce(host)
+        dist.all_reduce(host, group=group)
         buf.copy_(host)
     else:
-        dist.all_reduce(buf)
+        dist.all_reduce(buf, group=group)
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Replace every tensor by its mean over ranks, in place, through one
-    flat buffer, summed and divided by the world size (with one rank a
-    copy, bit for bit). No-op without a process group."""
-    if not is_distributed() or not tensors:
+def all_gather(t: torch.Tensor, group=None) -> List[torch.Tensor]:
+    """Every rank of `group`'s `t` (one shape on every rank), in the
+    group's rank order; [t] without a process group."""
+    if not is_distributed():
+        return [t]
+    n = dist.get_world_size(group)
+    src = t.cpu() if _staged(t) else t
+    out = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(out, src.contiguous(), group=group)
+    return [o.to(t.device) for o in out]
+
+
+def data_group(tp=None):
+    """The group of ranks that share this rank's model index under `tp`
+    (None: the world)."""
+    return tp.data_group if tp is not None else None
+
+
+def model_all_reduce_sum_(buf: torch.Tensor, tp) -> torch.Tensor:
+    """In-place sum over this rank's model group of `tp` (the
+    tensor-parallel partial sums); a no-op without tensor parallelism,
+    and for a context made without a process group (no model group).
+    Returns `buf`."""
+    if tp is not None and tp.n_model > 1 and tp.model_group is not None:
+        _all_reduce_sum_(buf, tp.model_group)
+    return buf
+
+
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], tp=None) -> None:
+    """Replace every tensor by its mean over the data group of `tp` (the
+    world without tensor parallelism), in place, through one flat buffer,
+    summed and divided by n_data (with one rank a copy, bit for bit).
+    No-op without a process group, and for a tensor-parallel layout of
+    one data group (its data groups are single ranks)."""
+    if not is_distributed() or not tensors or (
+            tp is not None and tp.n_data == 1):
         return
-    world = dist.get_world_size()
+    n_data = host_shard_info(tp)[1]
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    _all_reduce_sum_(flat)
-    if world > 1:
-        flat.div_(world)
+    _all_reduce_sum_(flat, data_group(tp))
+    if n_data > 1:
+        flat.div_(n_data)
     offset = 0
     for t in tensors:
         t.copy_(flat[offset:offset + t.numel()].view_as(t))
@@ -180,7 +239,7 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
 def all_reduce_sum(values: Dict[str, float]) -> Dict[str, float]:
     """{name: number} summed over ranks, host-side in float64 (one
     reduction); passthrough when single."""
-    if host_shard_info()[1] == 1:
+    if process_count() == 1:
         return values
     keys = list(values)
     t = torch.tensor([float(values[k]) for k in keys], dtype=torch.float64)

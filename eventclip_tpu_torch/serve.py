@@ -31,9 +31,10 @@ Released CLIP weights load from `clip_ckpt` (an OpenAI `.pt` or a
 converted `.npz`); without `text_feats`, the config's prompt goes through
 the BPE tokenizer and the text tower. Offline batch inference over files:
 `python -m eventclip_tpu_torch.serve --help` (`--from_export` serves a
-frozen bundle of export.py); the HTTP endpoint is server.py. Data
-parallelism over several cards is ROADMAP item 7d: it is refused, never
-ignored.
+frozen bundle of export.py); the HTTP endpoint is server.py.
+`data_parallel=True` replicates the model on every local card (or on an
+explicit `devices` list) and splits each batch over them
+(parallel/local.py), as the JAX package shards it over its local mesh.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ from .models.clip.config import clip_arch_config
 from .ops.preprocess import ClipPreprocess
 from .ops.quant import calibrate_visual_amax, quantize_classifier_params
 from .ops.rasterize import RasterSpec, rasterize_for_clip
+from .parallel.local import LocalSplit, local_devices
 from .utils.config import load_params
 
 
@@ -80,6 +82,10 @@ class Predictor:
     text_feats: optional numpy/tensor [n_cls, C] L2-normalized class
         features; without it, the config's prompt through the tokenizer
         (random features for random towers when the vocab is missing).
+    data_parallel: replicate the model on every visible card (`devices`,
+        when given, names them: `["cpu", "cpu"]`, `[cuda:0, cuda:0]`) and
+        split each batch into equal parts over them; `batch_size` is
+        rounded down to a multiple of the part count.
     """
 
     def __init__(
@@ -101,11 +107,8 @@ class Predictor:
         tta: bool = False,
         embed: bool = False,
         device="cuda",
+        devices: Optional[Sequence] = None,
     ):
-        if data_parallel:
-            raise NotImplementedError(
-                "data_parallel=True (batches sharded over several cards) is "
-                "not ported yet (ROADMAP item 7d)")
         # trainable models served without a checkpoint would classify with
         # random adapter/LoRA/prompt weights (the eval CLI's rule too)
         if params.model != "ZSCLIP" and not weight:
@@ -176,9 +179,19 @@ class Predictor:
             model_params = quantize_classifier_params(model_params,
                                                       act_amax=act_amax)
         self._params = model_params
+        # the device step runs through a split of one part on the
+        # predictor's device; data_parallel: the model once on each local
+        # card, each batch split over them (the eval CLI's DP layout)
+        self.data_parallel = bool(data_parallel)
+        self._split = LocalSplit(model_params, (
+            devices or local_devices(self.device)) if data_parallel
+            else [self.device])
+        n_data = self._split.n
+        self.batch_size = max(self.batch_size - self.batch_size % n_data,
+                              n_data)
         self._embed = bool(embed)
-        self._buckets = (eval_pack_buckets(self.batch_size, self.views, 1)
-                         if pack_views else None)
+        self._buckets = (eval_pack_buckets(self.batch_size, self.views,
+                                           n_data) if pack_views else None)
 
     # -- host half -----------------------------------------------------------
 
@@ -302,16 +315,21 @@ class Predictor:
         batch = {"windows": wins, "valid_mask": valids}
         if pack and self._buckets:
             batch = pack_view_batch(batch, self._buckets)
-        return {k: torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        # a split places each part of the windows on its own card
+        host = ("windows",) if self.data_parallel and self._split.n > 1 \
+            else ()
+        return {k: torch.from_numpy(np.ascontiguousarray(x)) if k in host
+                else torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
                 for k, x in batch.items()}
 
     @torch.inference_mode()
     def _forward(self, batch: Dict[str, torch.Tensor]
                  ) -> Dict[str, torch.Tensor]:
-        """The device step (`device_step`) on this predictor's weights."""
-        return device_step(self._params, self._cfg, self._spec, self._pp,
-                           batch["windows"], batch["valid_mask"],
-                           batch.get("view_src"))
+        """The device step on this predictor's weights, over its split
+        (one part unless data-parallel)."""
+        return self._split.forward(self._cfg, self._spec, self._pp,
+                                   batch["windows"], batch["valid_mask"],
+                                   batch.get("view_src"))
 
     def _dispatch_chunk(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         return self._forward(batch)["probs"]
@@ -420,10 +438,12 @@ class Predictor:
         feats = build_text_features(self._params.clip, self._cfg.clip, names,
                                     self._prompt, self._pretrained)
         # a copy: features made under inference_mode never become a
-        # parameter themselves
-        self._params.text_feats = nn.Parameter(
-            feats.to(self.device, torch.float32).clone(),
-            requires_grad=False)
+        # parameter themselves; every replica of a split takes them
+        def swap(params, device):
+            params.text_feats = nn.Parameter(
+                feats.to(device, torch.float32).clone(), requires_grad=False)
+
+        self._split.update(swap)
         self.class_names = names
 
     @classmethod
@@ -636,8 +656,8 @@ def main(argv=None) -> None:
     ap.add_argument("--int8", action="store_true")
     ap.add_argument("--prune_tokens", type=int, default=0)
     ap.add_argument("--data_parallel", action="store_true",
-                    help="shard batches over several cards (not ported: "
-                    "ROADMAP item 7d)")
+                    help="replicate the model on every visible card and "
+                    "split each batch over them")
     ap.add_argument("--tta", action="store_true",
                     help="4-variant event TTA (4x compute, averaged probs)")
     ap.add_argument("--embed_out", default="",
@@ -649,9 +669,6 @@ def main(argv=None) -> None:
                     help="run on the CPU (debug/smoke runs)")
     args = ap.parse_args(argv)
 
-    if args.data_parallel:
-        raise SystemExit("--data_parallel is not ported yet (ROADMAP item 7d, "
-                         "multi-GPU)")
     if bool(args.params) == bool(args.from_export):
         ap.error("pass exactly one of --params or --from_export")
     if args.from_export:
@@ -660,7 +677,8 @@ def main(argv=None) -> None:
         baked = {"--weight": args.weight, "--classes": args.classes,
                  "--data_root": args.data_root,
                  "--clip_ckpt": args.clip_ckpt, "--int8": args.int8,
-                 "--prune_tokens": args.prune_tokens, "--tta": args.tta,
+                 "--prune_tokens": args.prune_tokens,
+                 "--data_parallel": args.data_parallel, "--tta": args.tta,
                  "--embed_out": args.embed_out, "--smoke": args.smoke}
         offending = [k for k, v in baked.items() if v]
         if args.batch_size != ap.get_default("batch_size"):
@@ -684,7 +702,8 @@ def main(argv=None) -> None:
                          clip_ckpt=args.clip_ckpt or None, smoke=args.smoke,
                          int8=args.int8, prune_tokens=args.prune_tokens,
                          batch_size=args.batch_size, tta=args.tta,
-                         embed=bool(args.embed_out), device=device)
+                         embed=bool(args.embed_out), device=device,
+                         data_parallel=args.data_parallel)
 
     def load(p):
         # a bad file mid-glob must name itself

@@ -1049,8 +1049,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--prune_tokens", type=int, default=0,
                     help="keep K highest-variance ViT tokens (stacks w/ int8)")
     ap.add_argument("--data_parallel", action="store_true",
-                    help="shard each batch over all local cards (not "
-                    "ported: ROADMAP item 7d)")
+                    help="replicate the model on every visible card and "
+                    "split each batch over them")
     ap.add_argument("--tta", action="store_true",
                     help="4-variant event TTA (4x compute, averaged probs)")
     ap.add_argument("--embed", action="store_true",
@@ -1089,9 +1089,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     auth_token = args.auth_token or os.environ.get(
         "EVENTCLIP_AUTH_TOKEN", "")
 
-    if args.data_parallel:
-        raise SystemExit("--data_parallel is not ported yet (ROADMAP item 7d, "
-                         "multi-GPU)")
     device = "cpu" if args.cpu else "cuda"
     if bool(args.params) == bool(args.from_export):
         ap.error("pass exactly one of --params or --from_export")
@@ -1101,7 +1098,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         baked = {"--weight": args.weight, "--classes": args.classes,
                  "--data_root": args.data_root, "--clip_ckpt": args.clip_ckpt,
                  "--int8": args.int8, "--int8_calib": args.int8_calib,
-                 "--prune_tokens": args.prune_tokens, "--tta": args.tta,
+                 "--prune_tokens": args.prune_tokens,
+                 "--data_parallel": args.data_parallel, "--tta": args.tta,
                  "--embed": args.embed, "--smoke": args.smoke}
         offending = [k for k, v in baked.items() if v]
         if args.batch_size != ap.get_default("batch_size"):
@@ -1130,8 +1128,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             clip_ckpt=args.clip_ckpt or None, smoke=args.smoke,
             int8=args.int8, int8_calib_streams=calib_streams,
             prune_tokens=args.prune_tokens,
-            batch_size=args.batch_size, tta=args.tta, embed=args.embed,
-            device=device,
+            batch_size=args.batch_size, data_parallel=args.data_parallel,
+            tta=args.tta, embed=args.embed, device=device,
         )
         model_desc = f"{params.model} ({params.clip_dict['arch']})"
     _warm_up(predictor)

@@ -721,3 +721,62 @@ def test_viz_forward_launches_the_kernels_on_card(cuda, tmp_path):
     assert kernels.LAUNCHES["histogram"] == probs + inputs
     assert kernels.LAUNCHES["qkv_attention"] == \
         probs * t.clip_cfg.vision.layers
+
+
+# -- tensor parallelism and the local split -----------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tp_attention_matches_plain_on_card(cuda, dtype):
+    """One model rank of ViT-L/14 over two: its [B, 257, 3·1024/2] fused
+    qkv with 16 / 2 heads through `tp_fused_qkv_attention`, forward (K2)
+    and gradient (K3) against the plain versions at 8 heads."""
+    from eventclip_tpu_torch.ops.attention import tp_fused_qkv_attention
+    from eventclip_tpu_torch.parallel.sharding import TPContext
+
+    tp = TPContext(n_data=1, n_model=2, data_index=0, model_index=1)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn((4, 257, 1536), generator=gen, device=cuda).to(dtype)
+    g = torch.randn((4, 257, 512), generator=gen, device=cuda).to(dtype)
+    x = qkv.clone().requires_grad_()
+    kernels.reset_launches()
+    out = tp_fused_qkv_attention(x, 16, tp)
+    out.backward(g)
+    assert kernels.LAUNCHES["qkv_attention"] == 1
+    assert kernels.LAUNCHES["qkv_attention_bwd"] == 1
+    _assert_matches([out.detach()], [qkv_attention_plain(qkv, 8)], dtype)
+    _assert_matches(x.grad.split(512, -1),
+                    qkv_attention_bwd_plain(qkv, g, 8).split(512, -1), dtype)
+
+
+def test_local_split_on_one_card_twice(cuda):
+    """A LocalSplit over [cuda:0, cuda:0] (two parts, one replica) against
+    the unsplit forward on the card, f32 ViT-T/8@32: each part launches
+    K1 once and K2 once a layer."""
+    from eventclip_tpu_torch.models import classifier
+    from eventclip_tpu_torch.models.clip.config import clip_arch_config
+    from eventclip_tpu_torch.ops.preprocess import ClipPreprocess
+    from eventclip_tpu_torch.ops.rasterize import RasterSpec
+    from eventclip_tpu_torch.parallel.local import LocalSplit
+
+    cfg = classifier.ClassifierConfig(model="ZSCLIP",
+                                      clip=clip_arch_config("ViT-T/8@32"))
+    p = classifier.init_classifier_params(
+        cfg, torch.Generator(device=cuda).manual_seed(0), n_classes=4)
+    spec, pp = RasterSpec(height=24, width=32, window=64), \
+        ClipPreprocess(24, 32, 32)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    wins = torch.stack([torch.randint(0, 32, (4, 2, 64), generator=gen,
+                                      device=cuda),
+                        torch.randint(0, 24, (4, 2, 64), generator=gen,
+                                      device=cuda),
+                        torch.ones(4, 2, 64, dtype=torch.int64,
+                                   device=cuda)], -1).to(torch.int16)
+    valid = torch.ones(4, 2, dtype=torch.bool, device=cuda)
+    one = LocalSplit(p, [cuda]).forward(cfg, spec, pp, wins, valid)
+    kernels.reset_launches()
+    two = LocalSplit(p, [cuda, cuda]).forward(cfg, spec, pp, wins, valid)
+    assert kernels.LAUNCHES["histogram"] == 2
+    assert kernels.LAUNCHES["qkv_attention"] == 2 * 2
+    torch.testing.assert_close(two["view_feats"], one["view_feats"],
+                               rtol=1e-5, atol=1e-6)

@@ -272,19 +272,6 @@ def test_resnet_arch_eval_equals_root(files, capsys, monkeypatch,
     assert res["ctx"]["cls_cfg"].clip.name == "RN-T@32"
 
 
-@pytest.mark.parametrize("cli,flags,item", [
-    (cli_test, ["--n_model", "2"], "item 7e"),
-    (cli_train, ["--zero1"], "item 7d"),
-    # --profile is honoured now (test_train_overrides_equal_root[profile]);
-    # what refuses this line is --zero1
-    (cli_train, ["--profile", "3", "--zero1"], "item 7d"),
-    (cli_train, ["--n_model", "2"], "item 7e"),
-])
-def test_unported_flags_are_refused(cli, flags, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        cli.main(["--params", FS, "--cpu"] + flags)
-
-
 def launch_env(kind):
     """The coordination env of rank r: the JAX triple that
     scripts/submit_run.sh exports, or torchrun's."""

@@ -151,7 +151,8 @@ def _probs(stat, valid, n_cls, xp):
 
 @contextlib.contextmanager
 def shared_probabilities(monkeypatch, n_cls):
-    """Both packages' rasterizer -> `_stat`, classifier forward ->
+    """Both packages' rasterizer -> `_stat`, classifier forward (the
+    port's teacher: its LocalSplit's forward, rasterizer included) ->
     `_probs`; the towers are built and unused, and so are the text
     features, which both packages take as zeros."""
     import eventclip_tpu.engine.trainer as jt
@@ -170,9 +171,10 @@ def shared_probabilities(monkeypatch, n_cls):
                             "probs": _probs(s, v, n_cls, jnp)})
     monkeypatch.setattr(gen_data, "rasterize_for_clip",
                         lambda spec, pp, w: _stat(w, torch))
-    monkeypatch.setattr(gen_data, "classifier_forward",
-                        lambda p, cfg, s, v: {
-                            "probs": _probs(s, v, n_cls, torch)})
+    monkeypatch.setattr(gen_data.LocalSplit, "forward",
+                        lambda self, cfg, spec, pp, w, v: {
+                            "probs": _probs(_stat(w, torch), v, n_cls,
+                                            torch)})
     yield
 
 

@@ -241,8 +241,10 @@ def test_training_path_imports_no_jax():
     models.factory, tokenizes prompts, reads a split asset, converts
     towers (ViT and ResNet) through the OpenAI key layout, runs a ResNet
     tower and the pseudo-labelling filter, the data-parallel helpers, a
-    sharded loader, adaptive prefetch and the viz helpers, has neither
-    jax, nor regex, nor any eventclip_tpu module loaded."""
+    sharded loader, adaptive prefetch and the viz helpers, the sharding
+    rules, one tensor-parallel rank's forward, ZeRO-1's optimizer and the
+    local split, has neither jax, nor regex, nor any eventclip_tpu module
+    loaded."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import torch
@@ -343,6 +345,21 @@ def test_training_path_imports_no_jax():
         assert list(loader.adaptive_prefetch(range(3), lambda b: b)) == [
             0, 1, 2]
         assert viz.denormalize(np.zeros((3, 2, 2))).shape == (2, 2, 3)
+        # the twelfth slice: the sharding rules and the tensor-parallel
+        # forward (one rank of a 2-way model axis, no group: its sums are
+        # no-ops), ZeRO-1's optimizer and the local split
+        from eventclip_tpu_torch.models.clip.model import encode_image
+        from eventclip_tpu_torch.parallel import local, sharding
+        tp = sharding.TPContext(n_data=1, n_model=2, data_index=0,
+                                model_index=1)
+        sharding.shard_params(p, tp)
+        assert p.clip.visual.blocks.layers[0].attn.wqkv.shape == (96, 64)
+        assert encode_image(p.clip.visual, torch.randn(2, 3, 32, 32),
+                            tp=tp).shape == (2, 32)
+        assert sharding.zero1_pspecs({"a/w": (8, 6)}, 2) == {
+            "a/w": ("data", None)}
+        assert Optimizer(cfg, OptimConfig(), p, zero1=True).zero1 is False
+        assert local.LocalSplit(q, ["cpu", "cpu"]).n == 2
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "regex") or m.startswith("jax.")
                      or m == "eventclip_tpu" or m.startswith("eventclip_tpu."))

@@ -436,14 +436,6 @@ def test_serve_cli_embed_out_equals_jax(cli_files, tmp_path):
                                    1.0, atol=1e-5)
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--params", ZS, "--data_parallel"], "ROADMAP item 7"),
-])
-def test_unported_serve_flags_are_refused(flag, item):
-    with pytest.raises(SystemExit, match=item):
-        serve.main(["--inputs", "*.npy", "--cpu"] + flag)
-
-
 def test_serve_cli_from_export_equals_jax(cli_files, tmp_path):
     """`--from_export` is ported: the port's serve CLI over a bundle of
     the port's Predictor writes the JSONL the JAX CLI writes from the
@@ -467,11 +459,6 @@ def test_serve_cli_from_export_equals_jax(cli_files, tmp_path):
     assert [r["path"] for r in got] == [r["path"] for r in want]
     assert [r["topk_names"] for r in got] == [r["topk_names"]
                                               for r in want]
-
-
-def test_data_parallel_predictor_is_refused(towers):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        _port(towers, data_parallel=True)
 
 
 # -- ResNet towers --------------------------------------------------------------

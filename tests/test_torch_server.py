@@ -803,8 +803,6 @@ def test_warm_up_logs_and_covers_every_bucket(ref_pred, monkeypatch, capsys,
 
 
 def test_server_cli_refuses_data_parallel_and_baked_flags():
-    with pytest.raises(SystemExit, match="ROADMAP item 7"):
-        server.main(["--params", "x.py", "--data_parallel", "--cpu"])
     with pytest.raises(SystemExit):  # exactly one model source
         server.main(["--cpu"])
     with pytest.raises(SystemExit):

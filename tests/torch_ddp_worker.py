@@ -18,12 +18,23 @@ run on the global batch that tests/test_torch_parallel.py holds it to.
 
 The second form runs the port's train or gen_data CLI in-process, as a
 launcher's rank would (the coordination env comes from the caller), then
-prints `SHARD <rank> <world>` and, for train, `STEPS <updates>`.
+prints `SHARD <rank> <world>` and, for train, `STEPS <updates>`;
+`clis <json>` runs a list of [name, argv] CLIs (train, test) in turn,
+and its SHARD line is the test CLI's (data index, data groups).
+
+    python -m tests.torch_ddp_worker <rank> <world> <port> tp <dir>
+
+runs the tensor-parallel and ZeRO-1 cases of tests/test_torch_tp.py
+(`tp_cases`): their configs, trees and global batches come from
+`<dir>/cases.json` and `<dir>/inputs.npz`; rank 0 writes what the ranks
+computed to `<dir>/<case>.npz` and `<dir>/<case>.json`.
 """
 
+import gc
 import json
 import os
 import sys
+import weakref
 
 import numpy as np
 import torch
@@ -68,12 +79,14 @@ class Quadrants:
                 "label": label, "data_idx": idx}
 
 
-def build_trainer(kind, ckpt_dir, visualize=True, device="cpu", **overrides):
+def build_trainer(kind, ckpt_dir, visualize=True, device="cpu", n_model=1,
+                  **overrides):
     """The FS (dropout 0.1, RandAugment on) or FT (ViT-T/8@32 full
     fine-tune with prompt tuning, RandAugment on) trainer at global batch
     8, lr 1e-3 for every group, one epoch of STEPS[kind] steps, eval and
     save at its end; random towers and fixed random text features.
-    `overrides` set further config keys."""
+    `overrides` set further config keys; `n_model` > 1 runs it
+    tensor-parallel over the process group."""
     from eventclip_tpu_torch.data.event_windows import EventWindowDataset
     from eventclip_tpu_torch.engine.trainer import EventCLIPTrainer
     from eventclip_tpu_torch.models.classifier import normalize
@@ -111,7 +124,8 @@ def build_trainer(kind, ckpt_dir, visualize=True, device="cpu", **overrides):
                                   .manual_seed(3))).to(device)
     return EventCLIPTrainer(params, train, val, ckpt_dir,
                             log_file=os.path.join(ckpt_dir, "metrics.jsonl"),
-                            text_feats=feats, smoke=True, device=device)
+                            text_feats=feats, smoke=True, device=device,
+                            n_model=n_model)
 
 
 def evaluate_rows(trainer):
@@ -183,26 +197,178 @@ def main(rank, world, port, out):
     D.shutdown_distributed()
 
 
-def run_cli(name, argv):
+# the tiny towers of tests/test_torch_train.py
+TINY = dict(
+    vision=dict(image_size=32, patch_size=8, width=64, layers=2, heads=2,
+                output_dim=32),
+    text=dict(vocab_size=128, context_length=16, width=32, layers=2, heads=2,
+              output_dim=32))
+N_CLS = 5
+LR, CLIP_LR = 1e-3, 1e-4
+
+
+def tiny_cfg(dtype="float32", **kw):
+    """The port's FT ClassifierConfig on the TINY towers."""
+    from eventclip_tpu_torch.models import classifier
+    from eventclip_tpu_torch.models.clip import config
+
+    clip = config.CLIPConfig(name="tiny",
+                             vision=config.VisionConfig(**TINY["vision"]),
+                             text=config.TextConfig(**TINY["text"]))
+    kw = {"model": "FTCLIP", **kw}
+    if isinstance(kw.get("adapter"), dict):
+        kw["adapter"] = classifier.AdapterConfig(**kw["adapter"])
+    return classifier.ClassifierConfig(clip=clip, dtype=getattr(torch, dtype),
+                                       **kw)
+
+
+def tiny_run(case, tree, batches, ckpt_dir=None):
+    """One case on this rank's layout: the port's classifier from the JAX
+    `tree` ({JAX path: array}), cut by shard_params, `case['steps']`
+    updates on this data rank's rows of each global batch, the trained
+    state written to `ckpt_dir`'s resume.pt after the first when given.
+    Returns (whole leaves after each step, whole gradients of the first
+    step, metrics, eval rows of the first batch, moment bytes)."""
+    from eventclip_tpu_torch.engine.checkpoint import CheckpointManager
+    from eventclip_tpu_torch.engine.optim import OptimConfig, Optimizer
+    from eventclip_tpu_torch.engine.train import make_train_step
+    from eventclip_tpu_torch.models import classifier
+    from eventclip_tpu_torch.models.clip.convert import (port_leaves,
+                                                         to_jax_flat)
+    from eventclip_tpu_torch.parallel import distributed as D
+    from eventclip_tpu_torch.parallel.sharding import (full_tensors,
+                                                       make_mesh,
+                                                       model_placements,
+                                                       shard_params)
+
+    cfg = tiny_cfg(**case["cfg"])
+    mesh = make_mesh(case["n_model"])
+    tp = mesh if mesh.n_model > 1 else None
+    params = classifier.init_classifier_params(
+        cfg, torch.Generator().manual_seed(0), n_classes=N_CLS)
+    params.load_state_dict({n: torch.from_numpy(np.array(a)) for k, v in
+                            tree.items() for n, a in port_leaves(k, v)},
+                           strict=True)
+    shard_params(params, tp)
+    opt = Optimizer(cfg, OptimConfig(
+        lr=LR, clip_lr=CLIP_LR, total_steps=10, warmup_steps_pct=0.0,
+        grad_clip=case.get("grad_clip", 0.0)), params,
+        zero1=case.get("zero1", False))
+    step = make_train_step(cfg, params, opt, loss_weights={"ce_loss": 1.0},
+                           accum_steps=case.get("accum", 1))
+    d, n_data = D.host_shard_info(tp)
+    pls = model_placements(params)
+
+    def local(b):
+        rows = b["label"].shape[0] // n_data
+        return {k: torch.from_numpy(v[d * rows:(d + 1) * rows])
+                for k, v in b.items()}
+
+    def whole(named):  # copies: a CPU leaf's numpy shares its storage
+        return {k: np.array(v) for k, v in
+                to_jax_flat(full_tensors(list(named), pls, tp)).items()}
+
+    with torch.inference_mode():
+        out = classifier.classifier_forward(
+            params, cfg, local(batches[0])["img"],
+            local(batches[0])["valid_mask"], tp=tp)
+        rows = {k: out[k].numpy().copy()
+                for k in ("view_feats", "logits", "probs")}
+    leaves, grads, metrics = [], None, []
+    for i in range(case["steps"]):
+        m = step(local(batches[i]))
+        metrics.append({k: float(v) for k, v in m.items()})
+        if grads is None:
+            grads = whole((n, p.grad) for n, p in params.named_parameters()
+                          if p.grad is not None)
+        leaves.append(whole(params.named_parameters()))
+        if i == 0 and ckpt_dir:
+            CheckpointManager(ckpt_dir, cfg).save_resume_state(params, opt,
+                                                               1)
+    # zero_grad frees every gradient: nothing the optimizer keeps (a
+    # ZeRO-1 slice's view) holds one alive into the next step
+    refs = [weakref.ref(p.grad) for p in params.parameters()
+            if p.grad is not None]
+    opt.zero_grad()
+    gc.collect()
+    held = sum(r() is not None for r in refs)
+    assert not held, f"{held} gradients outlived zero_grad"
+    return leaves, grads, metrics, rows, opt.moment_bytes()
+
+
+def tp_cases(rank, world, port, out):
+    """Every case of `<out>/cases.json` on this rank (see the module
+    docstring); a case's `bucket_bytes` sets the all-gathers' bucket."""
+    from eventclip_tpu_torch.parallel import distributed as D
+    from eventclip_tpu_torch.parallel import sharding
+
+    torch.set_num_threads(1)
+    D.initialize_distributed(f"localhost:{port}", world, rank,
+                             backend="gloo", device="cpu")
+    with open(os.path.join(out, "cases.json")) as f:
+        cases = json.load(f)
+    with np.load(os.path.join(out, "inputs.npz")) as z:
+        inputs = dict(z)
+    for name, case in cases.items():
+        tree = {k[len(case["tree"]) + 1:]: v for k, v in inputs.items()
+                if k.startswith(case["tree"] + "/")}
+        batches = [{k: inputs[f"batch{i}/{k}"]
+                    for k in ("img", "valid_mask", "label")}
+                   for i in range(case["steps"])]
+        ckpt = os.path.join(out, name) if case.get("resume") else None
+        bucket = sharding.GATHER_BUCKET_BYTES
+        sharding.GATHER_BUCKET_BYTES = case.get("bucket_bytes", bucket)
+        try:
+            leaves, grads, metrics, rows, mbytes = tiny_run(case, tree,
+                                                            batches, ckpt)
+        finally:
+            sharding.GATHER_BUCKET_BYTES = bucket
+        every = D.gather_objects((rows, mbytes))
+        if rank == 0:
+            arrays = {f"step{i}/{k}": v for i, lv in enumerate(leaves)
+                      for k, v in lv.items()}
+            arrays.update({f"grad/{k}": v for k, v in grads.items()})
+            n_model = case["n_model"]
+            for key in ("view_feats", "logits", "probs"):
+                # model rank 0 of each data group, in data order
+                arrays[f"rows/{key}"] = np.concatenate(
+                    [every[r][0][key] for r in range(0, world, n_model)])
+            np.savez(os.path.join(out, f"{name}.npz"), **arrays)
+            with open(os.path.join(out, f"{name}.json"), "w") as f:
+                json.dump({"metrics": metrics,
+                           "moment_bytes": [e[1] for e in every]}, f)
+    D.shutdown_distributed()
+
+
+def run_clis(seq):
+    """[[name, argv], ...]: each CLI (train, test, gen_data) in turn in
+    this rank; train prints its updates."""
+    import importlib
+
     from eventclip_tpu_torch.parallel import distributed as D
 
     torch.set_num_threads(2)
-    if name == "train":
-        from eventclip_tpu_torch.cli import train
-
-        trainer = train.main(argv)
-        print(f"STEPS {trainer.optimizer.count}")
-    else:
-        from eventclip_tpu_torch.cli import gen_data
-
-        gen_data.main(argv)
-    print("SHARD {} {}".format(*D.host_shard_info()), flush=True)
+    shard = None
+    for name, argv in seq:
+        out = importlib.import_module(f"eventclip_tpu_torch.cli.{name}")\
+            .main(argv)
+        if name == "train":
+            print(f"STEPS {out.optimizer.count}", flush=True)
+        if name == "test":  # its data shard (the data group under TP)
+            shard = out["ctx"]["shard"]
+    print("SHARD {} {}".format(*(shard or D.host_shard_info())),
+          flush=True)
     D.shutdown_distributed()
 
 
 if __name__ == "__main__":
     if sys.argv[4] in ("train", "gen_data"):
-        run_cli(sys.argv[4], sys.argv[5:])
+        run_clis([[sys.argv[4], sys.argv[5:]]])
+    elif sys.argv[4] == "clis":
+        run_clis(json.loads(sys.argv[5]))
+    elif sys.argv[4] == "tp":
+        tp_cases(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
+                 sys.argv[5])
     else:
         main(int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
              sys.argv[4])
