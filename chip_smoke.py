@@ -2,8 +2,10 @@
 """Drive the PyTorch port on one card: serving and its options, FT and FS
 training, the train / test CLIs and the serve CLI from a dataset tree and
 checkpoint files on disk, the ResNet towers, pseudo-labelling with
-self-training, the HTTP server and its client, frozen export bundles,
-data-parallel training and pseudo-labelling, and the trainer's extras.
+self-training, the HTTP server and its client, frozen export bundles
+(one graph set for the card, one for the CPU), data-parallel training and
+pseudo-labelling, the trainer's extras, ZeRO-1, tensor parallelism, and
+the converters and real-asset parity harness.
 
     python3 chip_smoke.py
 
@@ -144,15 +146,23 @@ non-zero):
    with micro-batching on (300 ms cap, 100 ms idle gap) and off
    (streams/s, fused batches, batch_log phases, launches a fused batch),
    a session of 4 appends with predict (ms each; the last equals
-   predict on the buffer), /statz. (b) export_predictor (padded, 4
-   packed, text with phase 9's merge table, embed; the graphs keep the
-   `eventclip::` ops): export and load s, MB of weights and of programs,
+   predict on the buffer), /statz. (b) export_predictor with platforms
+   cuda and cpu: a graph set traced on the card and one on the CPU
+   (padded, 4 packed, text with phase 9's merge table, embed; the graphs
+   keep the `eventclip::` ops), the weights once: export s, MB of
+   weights and of each set's programs; loaded on the card: load s,
    request ms beside the live one, max prob delta vs live (<= 1e-4),
    launches (K1 1 / K2 24), the embeddings vs the live predictor's
-   (<= 1e-4), K1 and K2 device ms a launch inside two of the bundle's
-   requests (torch.profiler), the offline set_classes (reversed names) vs the
-   live swap (<= 1e-4). (c) `python -m eventclip_tpu_torch.export
-   --check` in a subprocess (padded programs).
+   (<= 1e-4), K1 and K2 device ms a launch inside TRACED_REQUESTS of the
+   bundle's requests after a warm-up (torch.profiler; the launches the
+   trace holds beside those made), K1 on the request's windows by CUDA
+   events, the offline set_classes (reversed names) vs the live swap (<=
+   1e-4); loaded on the CPU: load s, one 10-view request (the 80-view
+   bucket) against a live CPU predictor on the same leaves (<= 1e-5, no
+   launch), the offline swap's text features against the live swap's
+   (<= 1e-5), and no graph of the set holding `aten.mm.dtype` or a
+   tensor on the card. (c) `python -m eventclip_tpu_torch.export
+   --check` in a subprocess (padded programs, the card's set only).
 13. data parallelism and the trainer extras at ViT-L/14 (after phase 11,
    in its temp dir): K1, K2 and K3 held to their plain versions at the
    FT shapes of (a). (a) ft_text_fsclip_nin_params.py (bf16, RandAugment,
@@ -194,14 +204,23 @@ non-zero):
    equal to phase 3, and split over [cuda:0, cuda:0] (`dp_serve` path: K1
    once a part) within DP_SERVE_REL of one part's view features; ms a
    request.
+15. the port's real-asset parity harness (after phase 14, in its temp
+   dir, EVENTCLIP_BPE_PATH unset): cli.parity_check in process on phase
+   9's fp16 ViT-L/14 `.pt`, tree and best.pth with the FS config, a
+   2-shot run of one epoch and the `.pth` round trip: it returns 0, both
+   towers (f32 on the card, TF32 off) within 2e-3 of tests/torch_oracle.py,
+   the tokenizer and zero-shot stages skipped with their notes, the method
+   eval ok, the round trip bit-equal; each stage's wall s; counters
+   zeroed just before and read just after (`parity` path: K1 and K2 run).
 
 Then one JSON line with every kernel's numbers (by_path adds the eval
 CLI's `cli` rows, the pruned request's `serve_pruned` K2 row, RN50's
 text-tower `rn50` K2 row and the bundle's `export` rows, timed by the
-profiler inside its request, phase 13(a)'s `ddp` rows and phase 14's
-`tp`, `zero1` and `dp_serve` rows; `eval_cli`, `train_cli` and
-`trained_eval` hold phase 9, `serve_options` phase 10, `pseudo_labels`
-phase 11, `server_export` phase 12, `ddp` phase 13, `parallel` phase 14),
+profiler inside its request, phase 13(a)'s `ddp` rows, phase 14's
+`tp`, `zero1` and `dp_serve` rows and phase 15's `parity` rows (the eval
+CLI's shapes); `eval_cli`, `train_cli` and `trained_eval` hold phase 9,
+`serve_options` phase 10, `pseudo_labels` phase 11, `server_export`
+phase 12, `ddp` phase 13, `parallel` phase 14, `parity` phase 15),
 the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Imports nothing
@@ -603,13 +622,19 @@ def synth_prompts(rng, n_cls, context):
 # models/classifier.py); on the card each also shows as a row of its own,
 # the span of its kernels, which is not kernel time
 RANGES = ("randaugment", "adapter", "text_feats")
+# 12(b): the bundle's requests traced for its kernel rows, after one
+# untraced warm-up request, each in a range of this name (a span on the
+# device, not kernel time)
+TRACED_REQUESTS = 6
+REQUEST_RANGE = "bundle request"
 
 
-def profile_call(tag, label, fn):
+def profile_call(tag, label, fn, keep=False):
     """Device time by kernel over one call of fn() (torch.profiler), and
     the device's busy share of the call's wall time; returns the wall and
     busy ms, every (ms, count, name) kernel row, and for each RANGES range
-    in the call its kernels' ms and its span on the device."""
+    in the call its kernels' ms and its span on the device (with `keep`,
+    also the profiler itself, under "prof")."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -626,7 +651,7 @@ def profile_call(tag, label, fn):
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
-        if evt.key in RANGES:
+        if evt.key in RANGES or evt.key.startswith(REQUEST_RANGE):
             spans[evt.key] = us / 1e3
         else:
             rows.append((us / 1e3, evt.count, evt.key))
@@ -652,7 +677,10 @@ def profile_call(tag, label, fn):
             f"({100 * ms / busy:.1f}% of busy) over a device span of "
             + ("not measured" if name not in spans else
                f"{spans[name]:.3f} ms"))
-    return dict(wall_ms=wall_ms, busy_ms=busy, rows=rows, ranges=ranges)
+    out = dict(wall_ms=wall_ms, busy_ms=busy, rows=rows, ranges=ranges)
+    if keep:
+        out["prof"] = prof
+    return out
 
 
 def check_probs(out, n, n_cls):
@@ -2490,15 +2518,36 @@ def dispatch_cost(dev, tag="12 dispatch"):
     return dict(ms=out, host_us=host)
 
 
+def graph_targets(module):
+    """(op names, device types of the tensors held) of a loaded program
+    (an `ExportedProgram.module()`)."""
+    targets = {str(n.target) for n in module.graph.nodes}
+    held = {t.device.type for t in [*module.parameters(), *module.buffers()]}
+    for n in module.graph.nodes:
+        if n.op == "get_attr":
+            t = module
+            for part in str(n.target).split("."):
+                t = getattr(t, part)
+            if hasattr(t, "device"):
+                held.add(t.device.type)
+    return targets, held
+
+
 def export_phase(dev, pred, streams, tmp, tag="12 export"):
-    """Phase 12(b): phase 3's predictor frozen into a bundle (embeddings
-    on, phase 9's merge table shipped for offline label swaps): export and
-    load seconds, weights vs programs, request ms, launches and prob delta
-    vs the live predictor, the embeddings vs the live ones, K1 and K2
-    device ms a launch inside the bundle's requests (torch.profiler), and
-    the offline set_classes vs the live swap."""
+    """Phase 12(b): phase 3's predictor frozen into a bundle of two graph
+    sets, the card's and the CPU's (embeddings on, phase 9's merge table
+    shipped for offline label swaps): export and load seconds, weights vs
+    programs, request ms, launches and prob delta vs the live predictor,
+    the embeddings vs the live ones, K1 and K2 device ms a launch inside
+    the bundle's requests (torch.profiler, after a warm-up, each kernel's
+    traced launches counted against kernels.LAUNCHES), and the offline
+    set_classes vs the live swap; then the CPU's set: its load, one short
+    packed request and the offline swap against a live CPU predictor on
+    the same leaves, no launch, and its graphs free of card ops and
+    constants."""
     import torch
 
+    from eventclip_tpu_torch import kernels
     from eventclip_tpu_torch.export import ExportedPredictor, export_predictor
 
     live_ms, _, live = timed_requests(pred, streams)
@@ -2507,27 +2556,31 @@ def export_phase(dev, pred, streams, tmp, tag="12 export"):
     pred._embed = True
     path = os.path.join(tmp, "model.eclip")
     t0 = time.perf_counter()
-    meta = export_predictor(pred, path)
+    meta = export_predictor(pred, path, platforms=["cuda", "cpu"])
     export_s = time.perf_counter() - t0
+    if {p: s["set"] for p, s in meta["sets"].items()} != {"cuda": "cuda",
+                                                         "cpu": "cpu"}:
+        raise AssertionError(f"bundle sets {meta['sets']}")
     t0 = time.perf_counter()
     ex = ExportedPredictor(path, device=dev)
     load_s = time.perf_counter() - t0
     file_mb = os.path.getsize(path) / 1e6
-    os.remove(path)  # 1.7 GB
     ms, launches, got = timed_requests(ex, streams)
     delta = float(np.abs(got["probs"] - live["probs"]).max())
-    prog_mb = sum(meta["program_bytes"].values()) / 1e6
+    by_set = {s: sum(v for k, v in meta["program_bytes"].items()
+                     if k.startswith(s + "/")) / 1e6 for s in ("cuda", "cpu")}
     out = dict(export_s=export_s, load_s=load_s, file_mb=file_mb,
-               weights_mb=meta["weight_bytes"] / 1e6, programs_mb=prog_mb,
+               weights_mb=meta["weight_bytes"] / 1e6, programs_mb=by_set,
                programs={k: v / 1e6 for k, v in
                          meta["program_bytes"].items()},
                ms=ms, live_ms=live_ms, prob_delta=delta, launches=launches)
     log(f"[{tag}] (b) bundle: exported in {export_s:.1f} s "
-        f"({len(meta['program_bytes'])} programs): {file_mb:.1f} MB on "
-        f"disk, of which weights {out['weights_mb']:.1f} MB (stored) and "
-        f"programs {prog_mb:.2f} MB before deflate; loaded in {load_s:.1f} "
-        f"s; request {ms:.1f} ms vs live {live_ms:.1f} ms; max prob delta "
-        f"vs live {delta:.2e}; launches {launches}")
+        f"({len(meta['program_bytes'])} programs, two sets): {file_mb:.1f} "
+        f"MB on disk, of which weights {out['weights_mb']:.1f} MB (stored "
+        f"once) and programs {by_set['cuda']:.2f} MB (card) + "
+        f"{by_set['cpu']:.2f} MB (CPU) before deflate; loaded on the card "
+        f"in {load_s:.1f} s; request {ms:.1f} ms vs live {live_ms:.1f} ms; "
+        f"max prob delta vs live {delta:.2e}; launches {launches}")
     want = {"histogram": 1, "qkv_attention": pred._cfg.clip.vision.layers}
     if launches != want:
         raise AssertionError(f"bundle launches {launches}, want {want}")
@@ -2543,24 +2596,58 @@ def export_phase(dev, pred, streams, tmp, tag="12 export"):
         raise AssertionError(f"bundle embed delta {d} > 1e-4")
     out["embed_delta"] = d
     # K1 and K2 inside the bundle's requests: device ms a launch, over
-    # the launches the trace holds (the trace of one full-size request has
-    # been seen to hold no K1 row)
-    prof = profile_call(tag, "2 exported requests",
-                        lambda: [ex.predict(streams) for _ in range(2)])
-    out["kernel_ms"], seen = {}, {}
+    # the launches the trace holds, counted against the launches made in
+    # the traced window (after one untraced warm-up request), and for
+    # each request its K1 and K2 rows on the device
+    ex.predict(streams)
+
+    def requests():
+        for i in range(TRACED_REQUESTS):
+            with torch.profiler.record_function(f"{REQUEST_RANGE} {i}"):
+                ex.predict(streams)
+
+    kernels.reset_launches()
+    prof = profile_call(tag, f"{TRACED_REQUESTS} exported requests",
+                        requests, keep=True)
+    made = dict(kernels.LAUNCHES)
+    out["kernel_ms"], out["traced_launches"] = {}, {}
     for name, sym in (("histogram", "hist_kernel"),
                       ("qkv_attention", "attention_tc_kernel")):
         rows = [r for r in (prof or {}).get("rows", []) if sym in r[2]]
-        seen[name] = n = sum(r[1] for r in rows)
+        n = sum(r[1] for r in rows)
+        out["traced_launches"][name] = dict(traced=n, made=made.get(name, 0),
+                                            rows=[r[2][:80] for r in rows])
         out["kernel_ms"][name] = (sum(r[0] for r in rows) / n if n
                                   else None)
     if prof is not None:
+        out["k1_by_request"] = k1_by_request(prof.pop("prof"))
         out["profile"] = dict(wall_ms=prof["wall_ms"],
                               busy_ms=prof["busy_ms"])
     log(f"[{tag}] (b) in the bundle's requests, device ms a launch: "
-        + ", ".join(f"{k} " + ("not measured" if v is None else
-                               f"{v:.4f} ({seen[k]} launches traced)")
+        + ", ".join(f"{k} " + ("not measured" if v is None else f"{v:.4f}")
+                    + " ({traced} launches traced of {made} made; rows "
+                    "{rows})".format(**out["traced_launches"][k])
                     for k, v in out["kernel_ms"].items()))
+    if "k1_by_request" in out:
+        log(f"[{tag}] (b) each traced request: (K1 rows, K2 rows, K1 "
+            f"device ms): {out['k1_by_request']}")
+    # the same kernel timed back to back by CUDA events, through the op,
+    # on the request's windows and on phase 2's synthetic windows of the
+    # same shape (uniform pixels; the request's events pile on a blob)
+    wins, _ = ex.gather_windows(streams)
+    flat = torch.from_numpy(wins.reshape((-1,) + wins.shape[-2:])).to(dev)
+    h, w = pred.resolution
+    synth = synth_windows(torch.Generator(device=dev).manual_seed(0),
+                          *flat.shape[:2], h, w, dev)
+    out["histogram_events_ms"] = {
+        label: cuda_ms(lambda x=x: torch.ops.eventclip.event_histogram(
+            x, h, w)) for label, x in (("request", flat), ("synth", synth))}
+    log(f"[{tag}] (b) K1 at {tuple(flat.shape)}, CUDA events back to back: "
+        f"{out['histogram_events_ms']['request']:.4f} ms on the request's "
+        f"windows, {out['histogram_events_ms']['synth']:.4f} ms on phase "
+        "2's synthetic ones")
+    # the live CPU predictor on the same leaves, copied before any swap
+    live_cpu = pred.on_device("cpu")
     # offline label swap vs the live one (reversed names, phase 9's table)
     rev = list(reversed(pred.class_names))
     ex.set_classes(rev)
@@ -2572,9 +2659,93 @@ def export_phase(dev, pred, streams, tmp, tag="12 export"):
     if d > 1e-4:
         raise AssertionError(f"offline set_classes delta {d} > 1e-4")
     out["set_classes_delta"] = d
-    pred._embed = False
     del ex
     torch.cuda.empty_cache()
+    out["cpu"] = bundle_on_cpu(live_cpu, path, streams[:1], tag)
+    os.remove(path)  # 1.7 GB
+    pred._embed = False
+    return out
+
+
+def k1_by_request(prof):
+    """For each "bundle request i" range of a profile: (K1 rows, K2 rows
+    on the device inside it, the device ms of its K1 rows). A request's
+    kernels run inside its range: each request ends by copying its
+    probabilities to the host."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    ranges = sorted((e.time_range.start, e.time_range.end)
+                    for e in events if e.name.startswith(REQUEST_RANGE)
+                    and e.device_type != cuda)
+    kernel = [(e.time_range.start, e.name, e.time_range.elapsed_us())
+              for e in events if e.device_type == cuda]
+    out = []
+    for start, end in ranges:
+        inside = [(name, us) for t, name, us in kernel if start <= t <= end]
+        k1 = [round(us / 1e3, 4) for name, us in inside
+              if "hist_kernel" in name]
+        k2 = sum(1 for name, _ in inside if "attention_tc_kernel" in name)
+        out.append((len(k1), k2, k1))
+    return out
+
+
+def bundle_on_cpu(live, path, streams, tag):
+    """Phase 12(b), the CPU's graph set of the bundle at `path`: load
+    seconds, one short packed request and the offline swap against the
+    live CPU predictor `live` on the same leaves, no kernel launched, and
+    its graphs free of the card's GEMMs (`aten.mm.dtype`) and of tensors
+    on the card."""
+    from eventclip_tpu_torch import kernels
+    from eventclip_tpu_torch.export import ExportedPredictor
+
+    t0 = time.perf_counter()
+    ex = ExportedPredictor(path, device="cpu")
+    load_s = time.perf_counter() - t0
+    programs = [ex._step, *ex._step_packed.values(), ex._embed_step,
+                ex._text_step]
+    for prog in programs:
+        targets, held = graph_targets(prog)
+        if "aten.mm.dtype" in targets or held - {"cpu"}:
+            raise AssertionError(f"the CPU set holds card ops or tensors: "
+                                 f"mm.dtype {'aten.mm.dtype' in targets}, "
+                                 f"devices {held}")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = ex.predict(streams)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if launches:
+        raise AssertionError(f"the CPU set launched kernels {launches}")
+    t0 = time.perf_counter()
+    want = live.predict(streams)
+    live_ms = (time.perf_counter() - t0) * 1e3
+    delta = float(np.abs(got["probs"] - want["probs"]).max())
+    if delta > 1e-5 or not np.array_equal(got["label"], want["label"]):
+        raise AssertionError(f"CPU set vs live CPU: prob delta {delta}")
+    # the offline swap: the text program's features against the live
+    # text tower's, both on the CPU (a request after it would add two
+    # more 80-view ViT-L/14 forwards on the host)
+    rev = list(reversed(live.class_names))
+    t0 = time.perf_counter()
+    ex.set_classes(rev)
+    swap_s = time.perf_counter() - t0
+    live.set_classes(rev)
+    feats = ex._params[ex._tf_idx]
+    swap = float((feats - live._params.text_feats).abs().max())
+    if swap > 1e-5:
+        raise AssertionError(f"CPU set's offline swap vs live: {swap}")
+    out = dict(load_s=load_s, request_ms=ms, live_ms=live_ms,
+               views=int(sum(ex.gather_windows(streams)[1].sum(-1))),
+               prob_delta=delta, swap_feature_delta=swap, swap_s=swap_s,
+               programs=len(programs), launches=launches)
+    log(f"[{tag}] (b) the CPU's set: loaded in {load_s:.1f} s; one "
+        f"request of {out['views']} views (packed into the smallest bucket, "
+        f"{min(ex._buckets)} views) in {ms:.0f} ms vs live CPU {live_ms:.0f}"
+        f" ms; max prob delta {delta:.2e}; no launch; offline swap in "
+        f"{swap_s:.1f} s, text features vs the live swap {swap:.2e}; "
+        f"{len(programs)} graphs hold no aten.mm.dtype and no card tensor")
     return out
 
 
@@ -3637,6 +3808,85 @@ def parallel_phase(dev, gen, tmp, params, names, text_feats, ref):
     return out, rows, launches
 
 
+# -- phase 15: the port's converters and real-asset parity harness ---------
+
+
+def parity_phase(dev, files, tmp, tag="15 parity"):
+    """Phase 15: the port's parity harness (cli.parity_check, in process)
+    on the card at ViT-L/14, on phase 9's fp16 `.pt`, tree and exported
+    best.pth, with no BPE vocab to be found (EVENTCLIP_BPE_PATH unset): it
+    must return 0 with both towers within 2e-3 of the torch oracle, the
+    method eval ok and the few-shot `.pth` round trip bit-equal, the
+    asset-gated stages (tokenizer, zero-shot) skipped with their notes.
+    The counts are zeroed just before and read just after: K1 and K2 must
+    have run (the towers in f32, the evals; the K-shot training is a
+    subprocess of its own). Returns the phase's record and its launches."""
+    import torch
+
+    from eventclip_tpu_torch import kernels
+    from eventclip_tpu_torch.cli import parity_check
+
+    out_json = os.path.join(tmp, "PARITY_RESULT.json")
+    argv = ["--clip_ckpt", files["pt"], "--data_root", files["tree"],
+            "--npz_out", os.path.join(tmp, "parity.npz"), "--out", out_json,
+            "--method_ckpt", files["pth"], "--method_params", files["fs"],
+            "--fs_shots", "2", "--fs_epochs", "1", "--fs_roundtrip",
+            "--fs_params", files["fs"],
+            "--workdir", os.path.join(tmp, "parity_fs")]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = parity_check.main(argv)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    # set by the harness for the prompt-tuned config (its text features
+    # load from the checkpoint)
+    os.environ.pop("EVENTCLIP_ALLOW_RANDOM_TEXT", None)
+    with open(out_json) as f:
+        res = json.load(f)
+    stages = {"tower_parity": res["tower_parity"],
+              "tokenizer": res["tokenizer"], "zero_shot": res["zero_shot"],
+              "method_eval": res["method_evals"][0],
+              "few_shot": res["few_shot"]}
+    walls = {k: v.get("wall_s", 0.0) for k, v in stages.items()}
+    for k, v in stages.items():
+        log(f"[{tag}] {k}: ok {v['ok']} in {walls[k]:.1f} s"
+            + (f" ({v['note']})" if v.get("note") else "")
+            + (f"; error {v['error'][:300]}" if v.get("error") else ""))
+    towers, fs = res["tower_parity"], res["few_shot"]
+    out = dict(rc=rc, wall_s=wall, convert_s=wall - sum(walls.values()),
+               stage_s=walls, launches=launches,
+               image_max_abs_diff=towers.get("image_max_abs_diff"),
+               text_max_abs_diff=towers.get("text_max_abs_diff"),
+               method_probs_top1=stages["method_eval"].get("probs_top1"),
+               few_shot_probs_top1=fs.get("probs_top1"),
+               roundtrip=fs.get("roundtrip"))
+    log(f"[{tag}] cli.parity_check returned {rc} in {wall:.1f} s "
+        f"(conversion {out['convert_s']:.1f} s); towers vs the oracle "
+        f"image {out['image_max_abs_diff']}, text "
+        f"{out['text_max_abs_diff']} (tol 2e-3, f32 on the card); method "
+        f"eval probs top-1 {out['method_probs_top1']}; 2-shot run probs "
+        f"top-1 {out['few_shot_probs_top1']}, .pth round trip "
+        f"{(fs.get('roundtrip') or {}).get('bit_equal')}; launches "
+        f"{launches}")
+    if rc != 0 or res["ok"] is not True:
+        raise AssertionError(f"parity harness failed ({rc}): {res}")
+    if not (towers["ok"] is True and towers["image_max_abs_diff"] < 2e-3
+            and towers["text_max_abs_diff"] < 2e-3):
+        raise AssertionError(f"tower parity {towers}")
+    if res["tokenizer"]["ok"] is not None or res["zero_shot"]["ok"] \
+            is not None:
+        raise AssertionError("an asset-gated stage ran without the vocab")
+    if stages["method_eval"]["ok"] is not True:
+        raise AssertionError(f"method eval {stages['method_eval']}")
+    if not (fs["ok"] is True and fs["roundtrip"]["bit_equal"] is True):
+        raise AssertionError(f"few-shot leg {fs}")
+    for k in ("histogram", "qkv_attention"):
+        if launches.get(k, 0) <= 0:
+            raise AssertionError(f"the parity harness never launched {k}")
+    return out, launches
+
+
 def main() -> int:
     import torch
 
@@ -3894,8 +4144,13 @@ def main() -> int:
         parallel, rows14, launches14 = parallel_phase(
             dev, gen, tmp, params, names, text_feats, dp_ref)
         rec.update(rows14)
-    os.environ.pop("EVENTCLIP_BPE_PATH")
+        # -- 15 -----------------------------------------------------------
+        # the harness on phase 9's files, with no vocab on its paths
+        os.environ.pop("EVENTCLIP_BPE_PATH")
+        parity, parity_launches = parity_phase(dev, files, tmp)
     rec["serve_pruned"] = {"qkv_attention": pruned_row}
+    # the harness's evals run the eval CLI's shapes
+    rec["parity"] = rec["cli"]
     # the bundle's request: K1 and K2 at phase 3's serving shapes, their
     # device ms a launch from its profile; the bound is the shape's
     rec["export"] = {
@@ -3923,7 +4178,7 @@ def main() -> int:
               "cli": data["eval_cli"]["launches"],
               "serve_pruned": pruned_launches, "rn50": rn50_launches,
               "export": served["export"]["launches"], "ddp": ddp_launches,
-              **launches14}
+              "parity": parity_launches, **launches14}
     by_path = {p: {k: dict(launches=counts[p].get(k, 0), **r)
                    for k, r in recs.items()}
                for p, recs in rec.items() if p in counts}
@@ -3938,7 +4193,8 @@ def main() -> int:
         "requests": per_request, "train": train, "update_card_vs_cpu": update,
         "train_f32": train32, "train_fs": train_fs, "randaugment": augment,
         "serve_options": options, "pseudo_labels": pseudo,
-        "server_export": served, "ddp": ddp, "parallel": parallel, **data}
+        "server_export": served, "ddp": ddp, "parallel": parallel,
+        "parity": parity, **data}
     log(json.dumps(line))
     log(card)
     print(json.dumps({"ok": True, "device": {

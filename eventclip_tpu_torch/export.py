@@ -6,13 +6,14 @@ import, CLIP construction, checkpoint load, text-tower prompting); this
 module freezes its device programs into one bundle, so a serving host
 needs no model-building code and no checkpoint or config files:
 
-    # build host (has config + weights):
+    # build host (has config + weights; on the card, one graph set for
+    # the card and one for the CPU):
     python -m eventclip_tpu_torch.export --params configs/zsclip/... \\
-        --classes names.txt --out model.eclip
+        --classes names.txt --out model.eclip --platforms cuda,cpu
 
     # serving host (has only the bundle and this package):
     from eventclip_tpu_torch.export import ExportedPredictor
-    pred = ExportedPredictor("model.eclip")
+    pred = ExportedPredictor("model.eclip")  # or device="cpu"
     out = pred.predict(list_of_event_arrays)
 
 What the bundle pins, as the JAX package's does:
@@ -36,13 +37,18 @@ custom ops of ops/custom_ops.py, so loading needs this package. Each op
 dispatches on its inputs' device when the graph runs: on the card it
 launches its CUDA kernel, on the CPU it runs its plain version.
 
-The graphs are traced on the exporting predictor's device, with no_grad.
 `platforms` lists the device types a bundle may load on (by default the
-exporting one); a load on a listed type other than the traced device moves
-the graph there (`torch.export.passes.move_to_device_pass`). A bundle
-traced on the card lists the card only: its bf16 products are the card's
-f32-accumulating GEMMs (`mm` with `out_dtype`), which the CPU lacks. A
-bundle traced on the CPU may also list "cuda". Scope: single-card
+exporting predictor's). The bundle holds one graph set (every program)
+for each listed type this host can trace: the CPU always, the card when
+one is present. Each set is traced with its weights and example inputs
+on its own device, so every trace-time device branch takes that device's
+arm: the card's set holds its f32-accumulating bf16 GEMMs (`mm` with
+`out_dtype`), which the CPU lacks, and the CPU's set the f32 products of
+the rounded operands. A type with no set of its own (the card, listed on
+a host without one) loads the CPU's set and moves the graph there
+(`torch.export.passes.move_to_device_pass`): torch cannot trace a graph
+for a device it does not have. The weights are stored once, whatever the
+number of sets, and a loader reads only its own set. Scope: single-card
 programs.
 """
 
@@ -66,7 +72,7 @@ from .serve import Predictor, device_step, embed_features
 _FORMAT = "eventclip_tpu_torch"
 # a string, so the JAX package's loader, which expects its own integer,
 # names this format in its refusal
-_FORMAT_VERSION = f"{_FORMAT}/1"
+_FORMAT_VERSION = f"{_FORMAT}/2"
 _META_NAME = "meta.json"
 _STEP_NAME = "step.pt2"
 _TEXT_NAME = "text.pt2"
@@ -152,44 +158,23 @@ def _text_skip(pred: Predictor):
     return None, src
 
 
-def export_predictor(pred: Predictor, path: str, *,
-                     platforms: Optional[Sequence[str]] = None) -> dict:
-    """Freeze `pred`'s device programs + weights into `path`.
+def _member(graph_set: str, name: str) -> str:
+    """A program's zip member within a graph set, e.g. 'cuda/step.pt2'."""
+    return f"{graph_set}/{name}"
 
-    platforms: the device types ("cpu", "cuda") the bundle may load on;
-        default: the exporting predictor's. A bundle traced on the card
-        lists "cuda" only.
 
-    Returns the metadata dict written into the bundle. The weights are
-    written once as raw leaf bytes, so the file is about the size of the
-    weights however many bucket programs freeze."""
-    if getattr(pred, "data_parallel", False):
-        raise ValueError(
-            "export_predictor freezes single-device programs; build the "
-            "Predictor with data_parallel=False (a multi-chip deployment "
-            "re-shards at load time and should serve live)")
-    dev = pred.device
-    platforms = list(platforms or [dev.type])
-    bad = [p for p in platforms if p not in _DEVICE_TYPES]
-    if bad:
-        raise ValueError(f"platforms {bad}: a bundle loads on "
-                         f"{list(_DEVICE_TYPES)}")
-    if dev.type == "cuda" and set(platforms) != {"cuda"}:
-        raise ValueError(
-            f"platforms {platforms}: a bundle traced on the card loads on "
-            "the card only (its bf16 products are the card's "
-            "f32-accumulating GEMMs); export on the CPU for a bundle that "
-            "loads on both")
+def _trace_set(pred: Predictor, device: torch.device,
+               text: bool) -> dict:
+    """{member name: saved ExportedProgram} of every program of `pred`,
+    traced on `device` from copies of the weights and example inputs made
+    there (the predictor's own when it lives there)."""
     params = pred._params
     names, leaves = _leaves(params)
-    tf_idx = names.index("text_feats")
+    leaves = [t.to(device) for t in leaves]
     cfg, spec, pp = pred._cfg, pred._spec, pred._pp
     bs, V, N = pred.batch_size, pred.views, pred.window
-    buckets = list(pred._buckets or [])
-    text_skip, bpe_src = _text_skip(pred)
-
-    wins = torch.zeros((bs, V, N, 3), dtype=torch.int16, device=dev)
-    valid = torch.ones((bs, V), dtype=torch.bool, device=dev)
+    wins = torch.zeros((bs, V, N, 3), dtype=torch.int16, device=device)
+    valid = torch.ones((bs, V), dtype=torch.bool, device=device)
 
     def step(p, w, v):
         return device_step(p, cfg, spec, pp, w, v)["probs"]
@@ -200,26 +185,69 @@ def export_predictor(pred: Predictor, path: str, *,
     def embed(p, w, v):
         return embed_features(device_step(p, cfg, spec, pp, w, v), v)
 
-    def text(p, tokens):
+    def text_fn(p, tokens):
         return normalize(encode_text(p.clip.text, tokens))
 
     def freeze(fn, *args):
         return _export(fn, params, names, leaves, args)
 
     programs = {_STEP_NAME: freeze(step, wins, valid)}
-    for k in buckets:
+    for k in pred._buckets or []:
         programs[_packed_name(k)] = freeze(
             step_packed, torch.zeros((k, N, 3), dtype=torch.int16,
-                                     device=dev),
-            torch.full((k,), bs * V, dtype=torch.int32, device=dev), valid)
-    if text_skip is None:
+                                     device=device),
+            torch.full((k,), bs * V, dtype=torch.int32, device=device),
+            valid)
+    if text:
         # one n_cls: the classification programs bake the class count into
         # their logits shape, so only same-count swaps can reuse them
-        programs[_TEXT_NAME] = freeze(text, torch.zeros(
+        programs[_TEXT_NAME] = freeze(text_fn, torch.zeros(
             (len(pred.class_names), cfg.clip.text.context_length),
-            dtype=torch.int32, device=dev))
+            dtype=torch.int32, device=device))
     if pred._embed:
         programs[_EMBED_NAME] = freeze(embed, wins, valid)
+    return programs
+
+
+def export_predictor(pred: Predictor, path: str, *,
+                     platforms: Optional[Sequence[str]] = None) -> dict:
+    """Freeze `pred`'s device programs + weights into `path`.
+
+    platforms: the device types ("cpu", "cuda") the bundle may load on;
+        default: the exporting predictor's. Each listed type this host can
+        trace gets a graph set of its own (the module docstring).
+
+    Returns the metadata dict written into the bundle. The weights are
+    written once as raw leaf bytes, so the file is about the size of the
+    weights however many programs and sets freeze."""
+    if getattr(pred, "data_parallel", False):
+        raise ValueError(
+            "export_predictor freezes single-device programs; build the "
+            "Predictor with data_parallel=False (a multi-chip deployment "
+            "re-shards at load time and should serve live)")
+    platforms = list(platforms or [pred.device.type])
+    bad = [p for p in platforms if p not in _DEVICE_TYPES]
+    if bad:
+        raise ValueError(f"platforms {bad}: a bundle loads on "
+                         f"{list(_DEVICE_TYPES)}")
+    # the graph set each platform loads: its own where this host can
+    # trace for it, else the CPU's
+    set_of = {p: p if p == "cpu" or torch.cuda.is_available() else "cpu"
+              for p in platforms}
+    # each set on the exporting predictor's device where it is of the
+    # set's type, else on the CPU or the current card
+    traced_on = {s: pred.device if pred.device.type == s
+                 else torch.device(s) for s in set_of.values()}
+    names, leaves = _leaves(pred._params)
+    tf_idx = names.index("text_feats")
+    cfg = pred._cfg
+    text_skip, bpe_src = _text_skip(pred)
+
+    programs = {}
+    for graph_set, device in traced_on.items():
+        for name, blob in _trace_set(pred, device,
+                                     text_skip is None).items():
+            programs[_member(graph_set, name)] = blob
 
     bpe_text = None
     if text_skip is None:
@@ -251,18 +279,21 @@ def export_predictor(pred: Predictor, path: str, *,
             "n_cls": len(pred.class_names),
         }),
         "embed": bool(pred._embed),
-        "batch_size": int(bs),
-        "views": int(V),
-        "window": int(N),
+        "batch_size": int(pred.batch_size),
+        "views": int(pred.views),
+        "window": int(pred.window),
         "resolution": [int(pred.resolution[0]), int(pred.resolution[1])],
         "tta": bool(pred.tta),
-        "buckets": [int(k) for k in buckets],
+        "buckets": [int(k) for k in pred._buckets or []],
         "params_manifest": manifest,
         # the leaves are raw native-order bytes (bf16 included): a host of
         # the other byte order refuses them instead of viewing garbage
         "byteorder": sys.byteorder,
         "platforms": platforms,
-        "traced_on": str(dev),
+        # for each platform: the graph set it loads and where that set
+        # was traced (a load elsewhere moves the graph)
+        "sets": {p: {"set": s, "traced_on": str(traced_on[s])}
+                 for p, s in set_of.items()},
         "program_bytes": {k: len(v) for k, v in programs.items()},
         "weight_bytes": offset,
         "torch_version": torch.__version__,
@@ -331,8 +362,14 @@ class ExportedPredictor(Predictor):
                     f"{path} was lowered for {meta['platforms']}, but this "
                     f"process runs on '{backend}' — re-export with "
                     f"platforms=('{backend}',) or a multi-platform list")
+            # this platform's graph set only: a bundle holds one set a
+            # device type, and the others are never read
+            graph_set = meta["sets"][backend]
+            prefix = _member(graph_set["set"], "")
+            traced_on = torch.device(graph_set["traced_on"])
             members = set(z.namelist())
-            blobs = {n: z.read(n) for n in members if n.endswith(".pt2")}
+            blobs = {n[len(prefix):]: z.read(n) for n in members
+                     if n.startswith(prefix)}
             bpe_text = (z.read(_BPE_NAME).decode("utf-8")
                         if _BPE_NAME in members else None)
             # leaf by leaf out of the STORED member: loading never holds a
@@ -363,7 +400,7 @@ class ExportedPredictor(Predictor):
             from torch.export.passes import move_to_device_pass
 
             ep = torch.export.load(io.BytesIO(blobs[name]))
-            if torch.device(meta["traced_on"]) != self.device:
+            if traced_on != self.device:
                 ep = move_to_device_pass(ep, self.device)
             return ep.module()
 
@@ -476,12 +513,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     "stream, the retrieval use case)")
     ap.add_argument("--platforms", default="",
                     help="comma list of device types the bundle may load "
-                    "on, e.g. cpu,cuda (default: the exporting one)")
+                    "on, e.g. cuda,cpu (default: the exporting one); each "
+                    "type this host can trace gets a graph set of its own")
     ap.add_argument("--cpu", action="store_true",
                     help="build and export on the CPU; default: the card")
     ap.add_argument("--check", action="store_true",
-                    help="reload the bundle and verify it reproduces the "
-                    "live predictor on random streams")
+                    help="reload the bundle on every listed platform this "
+                    "host has and verify it reproduces the live predictor "
+                    "there on random streams")
     args = ap.parse_args(argv)
 
     device = "cpu" if args.cpu else "cuda"
@@ -522,34 +561,49 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                       rng.choice([-1.0, 1.0], n)], axis=1).astype(np.float32)
             for n in (pred.window // 2, pred.window * pred.views)
         ]
-        loaded = ExportedPredictor(args.out, device=device)
-        live = pred.predict(streams)["probs"]
-        frozen = loaded.predict(streams)["probs"]
-        delta = float(np.abs(live - frozen).max())
-        # both sides route the same bucket policy, so the only daylight is
-        # float reduction order between the live and the traced program
-        print(f"check: max |live - exported| prob delta = {delta:.2e}")
-        if delta > 1e-4:
-            raise SystemExit("check FAILED: exported bundle diverges")
-        if loaded._text_step is not None:
-            # the offline swap must track the live one: reversed labels
-            # permute text features, both sides re-predict identically
-            rev = list(reversed(pred.class_names))
-            pred.set_classes(rev)
-            loaded.set_classes(rev)
-            d = float(np.abs(pred.predict(streams)["probs"]
-                             - loaded.predict(streams)["probs"]).max())
-            print(f"check: set_classes prob delta = {d:.2e}")
-            if d > 1e-4:
-                raise SystemExit("check FAILED: offline set_classes "
-                                 "diverges from the live swap")
-        if args.embed:
-            d = float(np.abs(pred.embed(streams)
-                             - loaded.embed(streams)).max())
-            print(f"check: embed delta = {d:.2e}")
-            if d > 1e-4:
-                raise SystemExit("check FAILED: exported embed diverges")
+        # every listed platform this host has, each against a live
+        # predictor on the same weights on that device (made before any
+        # label swap)
+        lives = {p: pred if p == pred.device.type else pred.on_device(p)
+                 for p in meta["platforms"]
+                 if p == "cpu" or torch.cuda.is_available()}
+        for p, live in lives.items():
+            _check(args.out, p, live, streams, args.embed)
         print("check OK")
+
+
+def _check(path: str, device: str, live: Predictor, streams,
+           embed: bool) -> None:
+    """The bundle loaded on `device` against `live` (on that device):
+    probabilities, the offline label swap and embeddings within 1e-4."""
+    loaded = ExportedPredictor(path, device=device)
+    delta = float(np.abs(live.predict(streams)["probs"]
+                         - loaded.predict(streams)["probs"]).max())
+    # both sides route the same bucket policy, so the only daylight is
+    # float reduction order between the live and the traced program
+    print(f"check [{device}]: max |live - exported| prob delta = "
+          f"{delta:.2e}")
+    if delta > 1e-4:
+        raise SystemExit(f"check FAILED [{device}]: exported bundle "
+                         "diverges")
+    if loaded._text_step is not None:
+        # the offline swap must track the live one: reversed labels
+        # permute text features, both sides re-predict identically
+        rev = list(reversed(live.class_names))
+        live.set_classes(rev)
+        loaded.set_classes(rev)
+        d = float(np.abs(live.predict(streams)["probs"]
+                         - loaded.predict(streams)["probs"]).max())
+        print(f"check [{device}]: set_classes prob delta = {d:.2e}")
+        if d > 1e-4:
+            raise SystemExit(f"check FAILED [{device}]: offline "
+                             "set_classes diverges from the live swap")
+    if embed:
+        d = float(np.abs(live.embed(streams) - loaded.embed(streams)).max())
+        print(f"check [{device}]: embed delta = {d:.2e}")
+        if d > 1e-4:
+            raise SystemExit(f"check FAILED [{device}]: exported embed "
+                             "diverges")
 
 
 if __name__ == "__main__":

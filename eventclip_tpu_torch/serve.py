@@ -40,6 +40,7 @@ explicit `devices` list) and splits each batch over them
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import threading
 import zlib
@@ -445,6 +446,17 @@ class Predictor:
 
         self._split.update(swap)
         self.class_names = names
+
+    def on_device(self, device) -> "Predictor":
+        """A copy of this predictor serving a copy of its weights on
+        `device`, in one part: what a bundle's graph set for that device
+        type is held to (export.py's --check)."""
+        out = copy.copy(self)
+        out.device = torch.device(device)
+        out._params = copy.deepcopy(self._params).to(out.device)
+        out.data_parallel = False
+        out._split = LocalSplit(out._params, [out.device])
+        return out
 
     @classmethod
     def from_config(cls, config_path: str, class_names: Sequence[str],

@@ -606,18 +606,31 @@ def test_grad_through_k3_registered_formula_on_card(cuda, dtype, masked):
 # -- export bundles on the card (export.py) -----------------------------------
 
 
-@pytest.mark.parametrize("traced_on", ["cuda", "cpu"])
+@pytest.mark.parametrize("loaded_on", ["cuda", "cpu"])
+@pytest.mark.parametrize("exported_on", ["cuda", "cpu"])
 def test_exported_bundle_launches_the_kernels_on_card(cuda, tmp_path,
-                                                      traced_on):
-    """A bundle serves on the card through K1 and K2, the `eventclip::`
-    nodes of its graphs: one traced on the card (bf16, so its graphs hold
-    the card's f32-accumulating GEMMs) against the live card predictor,
-    probabilities atol 1e-5; one traced on the CPU in f32 and listing both
-    device types (moved to the card at load) against the live CPU
-    predictor, atol 1e-4 (the export CLI's --check limit: the f32 kernels
-    and the plain versions sum in different orders)."""
+                                                      monkeypatch,
+                                                      exported_on,
+                                                      loaded_on):
+    """A bundle listing both device types, exported on the card (bf16: a
+    graph set traced on the card, whose bf16 products are the card's
+    f32-accumulating GEMMs, and one traced on the CPU) or on a host
+    without a card (f32, `torch.cuda.is_available` patched off: the CPU's
+    set alone, moved to the card at load), loaded on the card or on the
+    CPU. On the card it launches K1 and K2, the `eventclip::` nodes of its
+    graphs, and answers as the live card predictor on the same leaves:
+    probabilities atol 1e-5, or 1e-4 for the moved f32 graph (the export
+    CLI's --check limit: other graph, other summation order). On the CPU
+    it launches nothing and answers as the live CPU predictor on the same
+    leaves, atol 1e-5 (the same ops). The CPU's set holds no `mm.dtype`
+    and no constant off the CPU; the card's set holds the f32-accumulating
+    GEMMs."""
+    import io
+    import zipfile
+
     import numpy as np
 
+    from eventclip_tpu_torch import export
     from eventclip_tpu_torch.export import ExportedPredictor, export_predictor
     from eventclip_tpu_torch.serve import Predictor
     from eventclip_tpu_torch.utils.config import Params
@@ -636,14 +649,33 @@ def test_exported_bundle_launches_the_kernels_on_card(cuda, tmp_path,
         clip_dict = dict(arch="ViT-T/8@32",
                          prompt="a point cloud image of a {}",
                          agg_func="mean")
-        bf16 = traced_on == "cuda"
+        bf16 = exported_on == "cuda"
 
     live = Predictor(TinyZS(), ["a", "b", "c"], smoke=True, batch_size=4,
-                     device=traced_on)
+                     device=exported_on)
     path = str(tmp_path / "b.eclip")
-    export_predictor(live, path, platforms=(
-        ["cuda"] if traced_on == "cuda" else ["cpu", "cuda"]))
-    frozen = ExportedPredictor(path, device="cuda")
+    with monkeypatch.context() as m:
+        if exported_on == "cpu":
+            m.setattr(export.torch.cuda, "is_available", lambda: False)
+        meta = export_predictor(live, path, platforms=["cuda", "cpu"])
+    sets = {p: s["set"] for p, s in meta["sets"].items()}
+    assert sets == ({"cuda": "cuda", "cpu": "cpu"} if exported_on == "cuda"
+                    else {"cuda": "cpu", "cpu": "cpu"})
+    with zipfile.ZipFile(path) as z:
+        for name in z.namelist():
+            if not name.endswith(".pt2"):
+                continue
+            ep = torch.export.load(io.BytesIO(z.read(name)))
+            targets = {str(n.target) for n in ep.graph.nodes}
+            if name.startswith("cpu/"):
+                assert "aten.mm.dtype" not in targets, name
+                assert {t.device.type for t in ep.constants.values()
+                        if isinstance(t, torch.Tensor)} <= {"cpu"}, name
+            elif name == "cuda/step.pt2":
+                assert "aten.mm.dtype" in targets
+    frozen = ExportedPredictor(path, device=loaded_on)
+    want_pred = live if loaded_on == exported_on else live.on_device(
+        loaded_on)
     rng = np.random.default_rng(5)
     streams = [np.stack([rng.integers(0, 240, n), rng.integers(0, 180, n),
                          np.sort(rng.random(n)), rng.choice([-1.0, 1.0], n)],
@@ -653,14 +685,18 @@ def test_exported_bundle_launches_the_kernels_on_card(cuda, tmp_path,
     got = frozen.predict(streams)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    layers = live._cfg.clip.vision.layers
-    assert launches["histogram"] >= 1
-    assert launches["qkv_attention"] >= layers
-    assert launches["qkv_attention"] % layers == 0
-    want = live.predict(streams)
+    if loaded_on == "cuda":
+        layers = live._cfg.clip.vision.layers
+        assert launches["histogram"] >= 1
+        assert launches["qkv_attention"] >= layers
+        assert launches["qkv_attention"] % layers == 0
+    else:
+        assert not any(launches.values()), launches
+    want = want_pred.predict(streams)
     np.testing.assert_array_equal(got["label"], want["label"])
+    moved = exported_on == "cpu" and loaded_on == "cuda"
     np.testing.assert_allclose(got["probs"], want["probs"], rtol=0,
-                               atol=1e-5 if traced_on == "cuda" else 1e-4)
+                               atol=1e-4 if moved else 1e-5)
 
 
 # -- data-parallel training and the trainer extras (parallel/, utils/viz) ---

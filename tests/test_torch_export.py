@@ -16,11 +16,11 @@ tests' layout, host-contract, format and byte-order cases run against the
 port, and each package's loader refuses the other's bundle.
 """
 
+import copy
 import gzip
 import io
 import json
 import zipfile
-from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -30,6 +30,7 @@ import torch
 from eventclip_tpu.export import ExportedPredictor as RefExported
 from eventclip_tpu.export import export_predictor as ref_export
 from eventclip_tpu.serve import Predictor as RefPredictor
+from eventclip_tpu_torch import export as export_mod
 from eventclip_tpu_torch import serve
 from eventclip_tpu_torch.export import ExportedPredictor, export_predictor
 
@@ -127,15 +128,20 @@ def test_bundle_layout(bundles):
         programs = {n: z.read(n) for n in names if n.endswith(".pt2")}
     buckets = list(port._buckets or [])
     assert stored == meta and stored["buckets"] == buckets
-    assert names == ({"meta.json", "params.bin", "step.pt2",
-                      "text.pt2", "embed.pt2", "bpe_vocab.bin"}
-                     | {f"packed_{k}.pt2" for k in buckets})
+    # one graph set, the CPU's, its programs under its prefix
+    assert names == ({"meta.json", "params.bin", "bpe_vocab.bin",
+                      "cpu/step.pt2", "cpu/text.pt2", "cpu/embed.pt2"}
+                     | {f"cpu/packed_{k}.pt2" for k in buckets})
     assert stored["format"] == "eventclip_tpu_torch"
+    assert stored["format_version"] == "eventclip_tpu_torch/2"
     assert stored["text"]["n_cls"] == len(NAMES) and stored["embed"]
     assert (stored["class_names"], stored["batch_size"],
             stored["window"], stored["views"], stored["tta"]) == (
                 NAMES, 4, 1000, 10, False)
     assert stored["platforms"] == ["cpu"]
+    assert stored["sets"] == {"cpu": {"set": "cpu", "traced_on": "cpu"}}
+    assert set(stored["program_bytes"]) == names - {
+        "meta.json", "params.bin", "bpe_vocab.bin"}
     # the weights once, STORED, as raw bytes of every leaf in order
     assert weights.compress_type == zipfile.ZIP_STORED
     want = sum(p.numel() * p.element_size() for p in
@@ -145,7 +151,7 @@ def test_bundle_layout(bundles):
     # are the rasterizer's and preprocess's small tables (the padded
     # and text programs are loaded; the packed and embed ones are
     # traced the same way)
-    for name in ("step.pt2", "text.pt2"):
+    for name in ("cpu/step.pt2", "cpu/text.pt2"):
         ep = torch.export.load(io.BytesIO(programs[name]))
         assert not ep.state_dict, name
         const = sum(t.numel() * t.element_size()
@@ -154,7 +160,7 @@ def test_bundle_layout(bundles):
         assert const < 64 * 1024, (name, const)
         kept = {str(n.target) for n in ep.graph.nodes
                 if str(n.target).startswith("eventclip.")}
-        if name != "text.pt2":
+        if name != "cpu/text.pt2":
             assert kept == {"eventclip.event_histogram.default",
                             "eventclip.qkv_attention.default"}, name
         else:
@@ -292,6 +298,7 @@ def test_exported_int8_bundle(bundles, tmp_path, monkeypatch):
     assert "int8" in {m["dtype"] for m in meta["params_manifest"]}
     jax_path = str(tmp_path / "jax_int8.eclip")
     ref_export(ref, jax_path)
+    _assert_cpu_set_clean(path)
     frozen = ExportedPredictor(path, device="cpu")
     streams = _streams(np.random.default_rng(9), n=3)
     got = frozen.predict(streams)
@@ -328,13 +335,18 @@ def test_format_and_byteorder_gates(bundles, tmp_path):
         ExportedPredictor(path, device="cpu")
 
 
-def test_platform_gate_and_multi_platform_bundle(small, tmp_path):
+def test_platform_gate_and_multi_platform_bundle(small, tmp_path,
+                                                 monkeypatch):
     """A bundle lists the device types it loads on: a load elsewhere is
-    refused with JAX's message. A bundle traced on the CPU may list both
-    types (a load on the card moves the graph there: tests/test_torch_card.py);
-    one traced on the card lists the card only."""
+    refused with JAX's message. A host without a card that lists both
+    types traces the CPU's graph set only, and the card loads it moved
+    (tests/test_torch_card.py). A card-side export listing both traces
+    the card's set on the card and the CPU's on the CPU (the trace is
+    recorded here: this host has no card)."""
     port, both, meta = small
     assert meta["platforms"] == ["cpu", "cuda"]
+    assert meta["sets"] == {p: {"set": "cpu", "traced_on": "cpu"}
+                            for p in ("cpu", "cuda")}
     streams = _streams(np.random.default_rng(4), n=2)
     _same(ExportedPredictor(both, device="cpu").predict(streams),
           port.predict(streams))
@@ -344,10 +356,97 @@ def test_platform_gate_and_multi_platform_bundle(small, tmp_path):
         ExportedPredictor(path, device="cpu")
     with pytest.raises(ValueError, match="platforms"):
         export_predictor(port, path, platforms=["tpu"])
-    # the device rule is checked before anything is traced
-    on_card = SimpleNamespace(device=torch.device("cuda"))
-    with pytest.raises(ValueError, match="loads on the card only"):
-        export_predictor(on_card, path, platforms=["cuda", "cpu"])
+    # the card side: each set traced on its own device type
+    traced = []
+    real = export_mod._trace_set
+
+    def record(pred, device, text):
+        traced.append(device)
+        return real(pred, torch.device("cpu"), text)
+
+    monkeypatch.setattr(export_mod, "_trace_set", record)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    on_card = copy.copy(port)
+    on_card.device = torch.device("cuda")
+    path = str(tmp_path / "two_sets.eclip")
+    meta = export_predictor(on_card, path, platforms=["cuda", "cpu"])
+    assert traced == [torch.device("cuda"), torch.device("cpu")]
+    assert meta["sets"] == {"cuda": {"set": "cuda", "traced_on": "cuda"},
+                            "cpu": {"set": "cpu", "traced_on": "cpu"}}
+    with zipfile.ZipFile(path) as z:
+        programs = [n.split("/") for n in z.namelist() if n.endswith(".pt2")]
+    assert "step.pt2" in {n for _, n in programs}
+    assert (sorted(n for s, n in programs if s == "cuda")
+            == sorted(n for s, n in programs if s == "cpu"))
+    assert {s for s, _ in programs} == {"cuda", "cpu"}
+    _same(ExportedPredictor(path, device="cpu").predict(streams),
+          port.predict(streams))
+
+
+def _two_sets(src, dst):
+    """`src` (one CPU set serving both types) rewritten with a card set of
+    its own whose members are garbage: a loader that read or deserialized
+    them would fail."""
+    def edit(meta):
+        meta["sets"]["cuda"] = {"set": "cuda", "traced_on": "cuda"}
+
+    _rewrite_meta(src, dst, edit)
+    with zipfile.ZipFile(src) as a, zipfile.ZipFile(dst, "a") as b:
+        for name in a.namelist():
+            if name.startswith("cpu/"):
+                b.writestr("cuda/" + name[len("cpu/"):], b"not a graph")
+
+
+def test_loader_reads_only_its_own_set(small, tmp_path, monkeypatch):
+    """A two-set bundle loads on the CPU from the CPU's members alone: the
+    card's set is corrupt, and no member of it is read."""
+    port, both, _ = small
+    path = str(tmp_path / "two.eclip")
+    _two_sets(both, path)
+    read = []
+    real = zipfile.ZipFile.read
+
+    def spy(self, name, *a, **k):
+        read.append(name)
+        return real(self, name, *a, **k)
+
+    monkeypatch.setattr(zipfile.ZipFile, "read", spy)
+    frozen = ExportedPredictor(path, device="cpu")
+    assert not [n for n in read if n.startswith("cuda/")]
+    assert "cpu/step.pt2" in read
+    streams = _streams(np.random.default_rng(6), n=2)
+    _same(frozen.predict(streams), port.predict(streams))
+
+
+def test_version_1_bundle_is_refused(small, tmp_path):
+    """A bundle of the one-set layout (`eventclip_tpu_torch/1`) is refused
+    with the re-export message."""
+    path = str(tmp_path / "v1.eclip")
+    _rewrite_meta(small[1], path, lambda m: m.update(
+        format_version="eventclip_tpu_torch/1"))
+    with pytest.raises(ValueError, match="eventclip_tpu_torch/1 != "
+                       "supported eventclip_tpu_torch/2 — re-export"):
+        ExportedPredictor(path, device="cpu")
+
+
+def _assert_cpu_set_clean(path):
+    """Every graph of the bundle's CPU set: no f32-accumulating bf16 GEMM
+    (`aten.mm.dtype`, a card-only op) and no constant off the CPU."""
+    with zipfile.ZipFile(path) as z:
+        names = [n for n in z.namelist()
+                 if n.startswith("cpu/") and n.endswith(".pt2")]
+        assert names
+        for name in names:
+            ep = torch.export.load(io.BytesIO(z.read(name)))
+            targets = {str(n.target) for n in ep.graph.nodes}
+            assert "aten.mm.dtype" not in targets, name
+            devices = {t.device.type for t in ep.constants.values()
+                       if isinstance(t, torch.Tensor)}
+            assert devices <= {"cpu"}, (name, devices)
+
+
+def test_cpu_set_holds_no_card_op_or_constant(bundles):
+    _assert_cpu_set_clean(bundles["bundle"][0])
 
 
 def test_each_loader_refuses_the_other_bundle(bundles):

@@ -180,7 +180,8 @@ def test_serving_path_imports_no_jax():
     host half through the native library (eventclip_tpu_torch.native),
     serves it over HTTP (server, client) and freezes a bundle of it
     (export, the custom ops of ops.custom_ops) that it loads and serves,
-    has neither jax nor any eventclip_tpu module loaded."""
+    also as a bundle of two graph sets, has neither jax nor any
+    eventclip_tpu module loaded."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -221,6 +222,24 @@ def test_serving_path_imports_no_jax():
             frozen = ExportedPredictor(d + "/b.eclip", device="cpu")
             assert (frozen.predict([ev])["probs"]
                     == one.predict([ev])["probs"]).all()
+            # a bundle of two graph sets (the CPU's copied as the card's)
+            import json, zipfile
+            with zipfile.ZipFile(d + "/b.eclip") as a, \
+                    zipfile.ZipFile(d + "/two.eclip", "w") as b:
+                for n in a.namelist():
+                    data = a.read(n)
+                    if n == "meta.json":
+                        m = json.loads(data)
+                        m["platforms"] = ["cpu", "cuda"]
+                        m["sets"]["cuda"] = {"set": "cuda",
+                                             "traced_on": "cuda"}
+                        data = json.dumps(m)
+                    elif n.startswith("cpu/"):
+                        b.writestr("cuda/" + n[4:], data)
+                    b.writestr(n, data)
+            two = ExportedPredictor(d + "/two.eclip", device="cpu")
+            assert (two.predict([ev])["probs"]
+                    == one.predict([ev])["probs"]).all()
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
                      or m == "eventclip_tpu" or m.startswith("eventclip_tpu."))
@@ -243,8 +262,10 @@ def test_training_path_imports_no_jax():
     tower and the pseudo-labelling filter, the data-parallel helpers, a
     sharded loader, adaptive prefetch and the viz helpers, the sharding
     rules, one tensor-parallel rank's forward, ZeRO-1's optimizer and the
-    local split, has neither jax, nor regex, nor any eventclip_tpu module
-    loaded."""
+    local split, converts a `.pt` and a trainable checkpoint both ways
+    (cli.convert_clip, cli.convert_checkpoint) and runs the parity
+    harness's tower stage (cli.parity_check), has neither jax, nor regex,
+    nor any eventclip_tpu module loaded."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import torch
@@ -360,6 +381,23 @@ def test_training_path_imports_no_jax():
             "a/w": ("data", None)}
         assert Optimizer(cfg, OptimConfig(), p, zero1=True).zero1 is False
         assert local.LocalSplit(q, ["cpu", "cpu"]).n == 2
+        # the thirteenth slice: the converters and the parity harness
+        import tempfile
+        from eventclip_tpu_torch.cli import (convert_checkpoint,
+                                             convert_clip, parity_check)
+        from eventclip_tpu_torch.engine.checkpoint import save_trainable
+        from tests.torch_oracle import random_clip_state_dict
+        with tempfile.TemporaryDirectory() as d:
+            torch.save(random_clip_state_dict(np.random.default_rng(0)),
+                       d + "/c.pt")
+            convert_clip.main([d + "/c.pt", d + "/c.npz"])
+            save_trainable(d + "/fs.npz", fs, q)
+            convert_checkpoint.main([d + "/fs.npz", d + "/fs.pth"])
+            convert_checkpoint.main([d + "/fs.pth", d + "/back.npz"])
+            assert sorted(np.load(d + "/back.npz").files) == sorted(
+                np.load(d + "/fs.npz").files)
+            assert parity_check.main(["--clip_ckpt", d + "/c.pt", "--out",
+                                      d + "/r.json", "--cpu"]) == 0
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "regex") or m.startswith("jax.")
                      or m == "eventclip_tpu" or m.startswith("eventclip_tpu."))
