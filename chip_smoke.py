@@ -27,8 +27,10 @@ non-zero):
    [64, 257, 3072] and at ViT-L/14@336's S = 577; bf16 K2 / K3 with the
    causal mask at S = 77 and
    at S = 577; K4, the [B, H, S, dh] attention, forward and backward.
-   bf16 attention runs on the tensor-core kernels, f32 on the
-   CUDA-core ones. Each attention check holds the max |kernel - plain| and,
+   bf16 attention runs on the wgmma kernels (TMA copies; each bf16 line
+   also prints the tensor maps' box and swizzle and whether each kernel
+   holds the head resident or streams it), f32 on the CUDA-core ones.
+   Each attention check holds the max |kernel - plain| and,
    for each output apart, ||kernel - plain|| / ||plain|| to their limits;
    at one shape the bf16 kernels' relative error is printed beside that of
    three other rounding orders, which must miss the limit. Each prints
@@ -155,8 +157,8 @@ non-zero):
    launches (K1 1 / K2 24), the embeddings vs the live predictor's
    (<= 1e-4), K1 and K2 device ms a launch inside TRACED_REQUESTS of the
    bundle's requests after a warm-up (torch.profiler; the launches the
-   trace holds beside those made), K1 on the request's windows by CUDA
-   events, the offline set_classes (reversed names) vs the live swap (<=
+   trace holds beside those made), K1 and torch.bincount on the request's
+   windows by CUDA events, the offline set_classes (reversed names) vs the live swap (<=
    1e-4); loaded on the CPU: load s, one 10-view request (the 80-view
    bucket) against a live CPU predictor on the same leaves (<= 1e-5, no
    launch), the offline swap's text features against the live swap's
@@ -177,7 +179,8 @@ non-zero):
    DDP_FS_SHARE apart), the eval counters summed over the ranks equal
    its eval, rank 1 wrote no file; ms a step a rank. (c) profile_steps 2
    on (a)'s trainer: the trace names K1, K2 and K3's CUDA kernels (MiB,
-   write s); run_id on every metrics line; a child process of (b)'s
+   write s) and the device busy ms of a traced step with K1's, K2's
+   and K3's shares; run_id on every metrics line; a child process of (b)'s
    trainer sends itself a SIGTERM mid-epoch, ends by it with a
    `preempt` line and a resume.pt (the forced save's s), and the run
    resumed here equals the uninterrupted one bit for bit; the GIFs and
@@ -332,14 +335,9 @@ def check_histogram(gen, name, M, N, H, W, dev, pile=False):
     if not torch.equal(histograms(w4, H, W), got):
         raise AssertionError(f"histogram {name}: f32 layout != packed")
 
-    # yardstick: one bincount over the precomputed flat indices of live events
-    x, y, p = (wins[..., i].long() for i in range(3))
-    live = (x >= 0) & (x < W) & (y >= 0) & (y < H) & (p != 0)
-    m = torch.arange(M, device=dev)[:, None]
-    flat = ((m * 2 * H + y + H * (p < 0).long()) * W + x)[live]
     ms = cuda_ms(lambda: histograms(wins, H, W))
     plain_ms = cuda_ms(lambda: histograms_plain(wins, H, W))
-    library_ms = cuda_ms(lambda: torch.bincount(flat, minlength=M * 2 * H * W))
+    library_ms = bincount_ms(wins, H, W)
     nbytes = wins.numel() * 2 + M * 2 * H * W * 4
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     plan = device_histogram_plan(dev, H, W)  # the plan `histograms` ran
@@ -353,10 +351,41 @@ def check_histogram(gen, name, M, N, H, W, dev, pile=False):
                 bound_ms=bound_ms, bound_by="bytes", library_ms=library_ms)
 
 
+def bincount_ms(wins, H, W):
+    """K1's yardstick: one torch.bincount over the precomputed flat
+    indices of the live events of packed [M, N, 3] windows."""
+    import torch
+
+    M = wins.shape[0]
+    x, y, p = (wins[..., i].long() for i in range(3))
+    live = (x >= 0) & (x < W) & (y >= 0) & (y < H) & (p != 0)
+    m = torch.arange(M, device=wins.device)[:, None]
+    flat = ((m * 2 * H + y + H * (p < 0).long()) * W + x)[live]
+    return cuda_ms(lambda: torch.bincount(flat, minlength=M * 2 * H * W))
+
+
 def attention_bound(nbytes, flops, tname):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[tname] * 1e3
     return max((t_bytes, "bytes"), (t_ops, "operations"))
+
+
+def tma_note(B, S, heads, dh, strides, dtype, dev, kinds=("fwd",)):
+    """For bf16: the wgmma kernels' tensor-map geometry at one shape (box,
+    swizzle) and how each kernel of `kinds` holds the head (resident or
+    streamed through its ring), as a phrase for the check's line."""
+    import torch
+
+    from eventclip_tpu_torch.ops.attention import ring_plan, tma_map
+
+    if dtype != torch.bfloat16:
+        return ""
+    tm = tma_map(B, S, heads, dh, strides)
+    plan = ring_plan(S, dh, dev)
+    return f"; TMA box {tm.box} swizzle {tm.swizzle} B, " + ", ".join(
+        f"{k} {'resident' if plan[k]['resident'] else 'streamed'} "
+        f"({plan[k]['slots']} slots of {plan[k]['chunks']} chunks, "
+        f"{plan[k]['smem']} B)" for k in kinds)
 
 
 def max_err(got, want):
@@ -455,7 +484,8 @@ def check_attention(gen, name, B, S, heads, dh, dtype, causal, dev):
         f" (atol {ATOL[tname]}), rel_err {fmt(rel)} (limit {REL[tname]}); "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
         f"{library_ms:.4f} ms (kernel / sdpa {ms / library_ms:.2f}x), bound"
-        f" {bound_ms:.4f} ms ({bound_by})")
+        f" {bound_ms:.4f} ms ({bound_by})"
+        + tma_note(B, S, heads, dh, (S * 3 * D, dh, 3 * D), dtype, dev))
     return dict(shape=shape, max_abs_err=err, rel_err=max(rel), ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms)
@@ -506,7 +536,9 @@ def check_attention_bwd(gen, name, B, S, heads, dh, dtype, causal, dev):
         f"(atol {ATOL[tname]}), rel_err dq/dk/dv {fmt(rel)} (limit "
         f"{REL[tname]}), two runs bit-equal; kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms (kernel / "
-        f"sdpa {ms / library_ms:.2f}x), bound {bound_ms:.4f} ms ({bound_by})")
+        f"sdpa {ms / library_ms:.2f}x), bound {bound_ms:.4f} ms ({bound_by})"
+        + tma_note(B, S, heads, dh, (S * 3 * D, dh, 3 * D), dtype, dev,
+                   ("dq", "dkdv")))
     return dict(shape=shape, max_abs_err=err, rel_err=max(rel), ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms)
@@ -552,7 +584,9 @@ def check_bhsd_attention(gen, name, B, S, heads, dh, dtype, causal, dev):
         f" limit {REL[tname]}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"sdpa {library_ms:.4f} ms (kernel / sdpa {ms / library_ms:.2f}x), "
         f"bound {bound_ms:.4f} ms ({bound_by}); K3 backward here "
-        f"{bwd_ms:.4f} ms")
+        f"{bwd_ms:.4f} ms"
+        + tma_note(B, S, heads, dh, (heads * S * dh, S * dh, dh), dtype, dev,
+                   ("fwd", "dq", "dkdv")))
     return dict(shape=shape, max_abs_err=err, rel_err=max(rel), ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms)
@@ -2612,7 +2646,7 @@ def export_phase(dev, pred, streams, tmp, tag="12 export"):
     made = dict(kernels.LAUNCHES)
     out["kernel_ms"], out["traced_launches"] = {}, {}
     for name, sym in (("histogram", "hist_kernel"),
-                      ("qkv_attention", "attention_tc_kernel")):
+                      ("qkv_attention", "attention_wgmma_kernel")):
         rows = [r for r in (prof or {}).get("rows", []) if sym in r[2]]
         n = sum(r[1] for r in rows)
         out["traced_launches"][name] = dict(traced=n, made=made.get(name, 0),
@@ -2642,10 +2676,15 @@ def export_phase(dev, pred, streams, tmp, tag="12 export"):
     out["histogram_events_ms"] = {
         label: cuda_ms(lambda x=x: torch.ops.eventclip.event_histogram(
             x, h, w)) for label, x in (("request", flat), ("synth", synth))}
+    # K1's yardstick on the same windows
+    out["bincount_events_ms"] = {label: bincount_ms(x, h, w) for label, x
+                                 in (("request", flat), ("synth", synth))}
     log(f"[{tag}] (b) K1 at {tuple(flat.shape)}, CUDA events back to back: "
         f"{out['histogram_events_ms']['request']:.4f} ms on the request's "
-        f"windows, {out['histogram_events_ms']['synth']:.4f} ms on phase "
-        "2's synthetic ones")
+        f"windows (bincount {out['bincount_events_ms']['request']:.4f} ms), "
+        f"{out['histogram_events_ms']['synth']:.4f} ms on phase 2's "
+        f"synthetic ones (bincount {out['bincount_events_ms']['synth']:.4f}"
+        " ms)")
     # the live CPU predictor on the same leaves, copied before any swap
     live_cpu = pred.on_device("cpu")
     # offline label swap vs the live one (reversed names, phase 9's table)
@@ -2686,7 +2725,7 @@ def k1_by_request(prof):
         inside = [(name, us) for t, name, us in kernel if start <= t <= end]
         k1 = [round(us / 1e3, 4) for name, us in inside
               if "hist_kernel" in name]
-        k2 = sum(1 for name, _ in inside if "attention_tc_kernel" in name)
+        k2 = sum(1 for name, _ in inside if "attention_wgmma_kernel" in name)
         out.append((len(k1), k2, k1))
     return out
 
@@ -3007,16 +3046,25 @@ def nccl_one_rank(dev, tmp, batch=32, tag="13 ddp"):
         with open(tr["path"]) as f:
             text = f.read()
         names = {k: n for k, n in (("K1", "hist_kernel"),
-                                   ("K2", "attention_tc_kernel"),
-                                   ("K3 dq", "dq_tc_kernel"),
-                                   ("K3 dkdv", "dkdv_tc_kernel"))}
+                                   ("K2", "attention_wgmma_kernel"),
+                                   ("K3 dq", "dq_wgmma_kernel"),
+                                   ("K3 dkdv", "dkdv_wgmma_kernel"))}
         missing = [k for k, n in names.items() if n not in text]
+        # the device busy time of one traced step: its kernels' durations
+        kern = [e for e in json.loads(text).get("traceEvents", [])
+                if e.get("cat") == "kernel"]
+        busy = sum(e.get("dur", 0) for e in kern) / 2 / 1e3
+        by_name = {k: sum(e.get("dur", 0) for e in kern if n in e["name"])
+                   / 2 / 1e3 for k, n in names.items()}
         log(f"[{tag}] (c) profile_steps 2: {os.path.relpath(tr['path'], tmp)}"
             f", {tr['bytes'] / 2 ** 20:.1f} MiB written in "
             f"{tr['write_s']:.2f} s; names {sorted(names.values())}: "
-            f"{'all present' if not missing else f'missing {missing}'}")
+            f"{'all present' if not missing else f'missing {missing}'}; "
+            f"device busy {busy:.1f} ms a step, of it "
+            + ", ".join(f"{k} {ms:.1f}" for k, ms in by_name.items()))
         if missing:
             raise AssertionError(f"the trace lacks {missing}")
+        out.update(step_busy_ms=busy, step_kernel_ms=by_name)
         lines = [json.loads(ln) for ln in open(trainer.log_file)]
         if not lines or any(ln.get("run_id") != trainer.run_id
                             for ln in lines):
@@ -3977,7 +4025,7 @@ def main() -> int:
         "qkv_attention_bwd": check_attention_bwd(
             gen, "ViT-L/14 f32 training", 64, 257, 16, 64, torch.float32,
             False, dev)}
-    # bf16 on the tensor-core kernels: the causal mask (the text tower's
+    # bf16 on the wgmma kernels: the causal mask (the text tower's
     # shape) and ViT-L/14@336's S = 577 (ragged 64-row tiles)
     for name, B, S, heads, causal in (("text ViT-L/14 bf16", 101, 77, 12, True),
                                       ("ViT-L/14@336", 32, 577, 16, False)):

@@ -25,28 +25,31 @@
 //
 // Two kernels, chosen by dtype (never one for the other's input):
 //
-// bf16: attention_tc_kernel, on the tensor cores. The TPU kernel's products
-// are bf16 x bf16 summed in f32, which is what mma.sync m16n8k16 computes,
-// and it rounds p to bf16 before p @ v, which is what an A operand takes.
-// One block per (batch, head, 64 query rows), 4 warps of 16 rows. The Q
-// tile is copied once (cp.async) and stays in shared memory, read as A
-// fragments by ldmatrix; K and V stream through a 2-stage cp.async ring of
-// 64-key tiles (rows padded to dh + 8, 46 KB of shared memory at dh 64),
-// so any S runs. Registers, not shared memory, bound how many warps share
-// an SM, so the kernel holds no fragment it can reload. Pass 1 forms the
-// scores with mma.sync and keeps each row's max and the sum of
-// exp(s - max), rescaled as the max grows; pass 2 recomputes the scores,
-// forms p = exp(s - max) / sum in f32 (as __expf times the sum's rounded
-// reciprocal: the approximation attention_common.cuh bounds), rounds it to
-// bf16 straight into A fragments (the accumulator-to-fragment register
-// trick: p never goes to shared memory) and accumulates o += p . v with V
-// read transposed by ldmatrix. Three products where two are the least; the kernel is bound by
-// bytes, so the recompute is cheap. Keys past S in the ragged last tile
-// are zeros in shared memory and -inf in the scores; whole 16-key steps
-// past S are skipped.
-// Time at [320, 257, 3072] bf16 (chip_smoke.py, H100 80GB HBM3, 700.00 W):
-// 1.2369 ms, against 6.5578 ms for the CUDA-core kernel below when it also
-// ran bf16, and 0.5657 ms for torch's scaled_dot_product_attention.
+// bf16: attention_wgmma_kernel, on Hopper's wgmma with TMA copies. The TPU
+// kernel's products are bf16 x bf16 summed in f32, which is what wgmma
+// computes, and it rounds p to bf16 before p @ v, which is what a register
+// A operand takes. One block per (batch, head), two warpgroups (two blocks
+// an SM). One thread copies the head's K and V by TMA (rank-4 tensor maps
+// from ops/attention.py tma_map, swizzled by the row's 32 / 64 / 128
+// bytes, rows past S read as zeros) in 64-row chunks into a ring of slots
+// with mbarriers: when the ring holds every chunk (resident: up to S = 832
+// at dh 64) each is copied once a block and both passes of every query
+// tile read K from shared memory; otherwise the chunks stream through the
+// ring. A warpgroup takes 64-row query tiles (Q by TMA); pass 1 forms s =
+// q . k^T (wgmma m64n64k16, both operands K-major in shared memory) and
+// each row's max and sum of exp(s - max); pass 2 forms s again, p = exp(s
+// - max) * rcp(sum) rounded to bf16 straight from the accumulator into
+// the A registers of o += p . v (V MN-major: wgmma transposes it through
+// its descriptor); o is rounded once, staged in the swizzled Q tile and
+// stored by TMA, which clips the rows past S. 3 products a (query tile,
+// key chunk) on 64-row tiles (S = 257 pads to 320 both ways) and 2
+// exponentials a score (the row is normalised before p is rounded, so the
+// statistics pass cannot be folded into the second): the MUFU unit's
+// exponentials and the warpgroups' issue, not bytes, hold it back.
+// Time at [320, 257, 3072] bf16 (kernel_variants.py, NVIDIA H100 80GB
+// HBM3, 700.00 W): 0.6347 ms, against 1.2198-1.2339 for the warp-level
+// tensor-core kernel it replaced and 0.5542 ms for torch's scaled_dot_product_attention
+// in the same run (PERF.md).
 //
 // f32 (the text tower, [101, 77, 2304] causal on the serving path):
 // attention_f32_kernel, on the CUDA cores, kept to 1e-5 / a norm-relative
@@ -349,122 +352,327 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: wgmma and TMA
 
-template <int DH>
-constexpr size_t tc_smem_bytes() {
-  return 5 * TcTile<DH>::kElems * sizeof(bf16);  // Q, 2 x K, 2 x V
-}
+// Variants for timing only (kernel_variants.py builds each with -D): the
+// consumer warpgroups a block, the query rows a warpgroup takes at once
+// (64 or 128: one or two m64 products a step), and a cap on the ring's
+// slots (0: as many as fit, so a head whose K and V fit is resident; a cap
+// below its chunks streams them through that many slots).
+#ifndef WGF_CONSUMERS
+#define WGF_CONSUMERS 2
+#endif
+#ifndef WGF_ROWS
+#define WGF_ROWS 64
+#endif
+#ifndef WGF_STAGES
+#define WGF_STAGES 0
+#endif
+static_assert(WGF_ROWS == 64 || WGF_ROWS == 128, "WGF_ROWS: 64 or 128");
+static_assert(WGF_CONSUMERS >= 1 && WGF_CONSUMERS <= 4,
+              "WGF_CONSUMERS: 1 to 4 warpgroups");
+constexpr int kConsumers = WGF_CONSUMERS;
+constexpr int kMt = WGF_ROWS / kRows;  // m64 tiles of one warpgroup
+// no producer warp: one thread of the first warpgroup issues the copies,
+// so two blocks of two warpgroups share an SM at 128 registers a thread (a
+// ninth warp cut them, with spills)
+constexpr int kFwdThreads = kConsumers * kWarpgroup;
+// two blocks an SM while the registers allow (a block's K and V at S =
+// 257 take 80 KB of shared memory at dh 64)
+constexpr int kFwdMinBlocks = kConsumers <= 2 && kMt == 1 ? 2 : 1;
 
-// At most 128 registers a thread, so 4 blocks (16 warps) share an SM: the
-// kernel is bound by how many warps hide each other's latency, and on the
-// card 4 blocks at 128 registers (a few bytes spilled) ran faster than 3 at
-// 148 or 2 at 212.
-template <int DH>
-__global__ void __launch_bounds__(kTcThreads, 4)
-attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const float* __restrict__ mask,
-                    bf16* __restrict__ out, Strides in, Strides os, int S,
-                    int heads, int tiles, float scale) {
-  constexpr int TILE = TcTile<DH>::kElems;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + TILE;      // 2 stages
-  bf16* Vs = Ks + 2 * TILE;  // 2 stages
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int tile = blockIdx.x % tiles;
-  const int h = (blockIdx.x / tiles) % heads;
-  const int b = blockIdx.x / (tiles * heads);
-  const int r0 = tile * kTcRows, w0 = warp * 16;
-  const int i_lo = r0 + w0 + lane / 4;  // this lane's rows: i_lo, i_lo + 8
-  const bool active = r0 + w0 < S;      // the warp has a row below S
-  const int chunks = (S + kTcRows - 1) / kTcRows;
-
-  // step st < chunks: pass 1 over K chunk st; then pass 2 over K and V
-  // chunk st - chunks; each step's tiles go to stage st % 2
-  auto issue = [&](int st) {
-    const int c = st < chunks ? st : st - chunks;
-    load_tile<DH>(Ks + (st & 1) * TILE, k, in, b, h, c * kTcRows, S);
-    if (st >= chunks) load_tile<DH>(Vs + (st & 1) * TILE, v, in, b, h, c * kTcRows, S);
-    cp_async_commit();
-  };
-  load_tile<DH>(Qs, q, in, b, h, r0, S);
-  issue(0);
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float o[DH / 8][4];
+// Pass 1 over one chunk of keys (K tile Kt): s = q . k^T for each m-tile,
+// then fl(s * scale) + mask and each row's max m and sum l of exp(s - m).
+// kTail: the ragged last chunk (keys past S are -inf).
+template <int DH, bool kMask, bool kTail>
+__device__ __forceinline__ void stats_step(const bf16* Qs, const bf16* Kt,
+                                           float (&m)[kMt][2],
+                                           float (&l)[kMt][2],
+                                           const int (&i_lo)[kMt],
+                                           const float* mask, float scale,
+                                           int j0, int S) {
+  constexpr int TILE = Tile<DH>::kElems;
+  float sc[kMt][8][4];
+  wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-
-  for (int st = 0; st < 2 * chunks; ++st) {
-    if (st + 1 < 2 * chunks) {
-      issue(st + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int c = st < chunks ? st : st - chunks, j0 = c * kTcRows;
-    if (active) {
-      float sc[8][4];
+  for (int mt = 0; mt < kMt; ++mt) issue_abt<DH>(sc[mt], Qs + mt * TILE, Kt);
+  wgmma_commit();
+  wgmma_wait<0>();
 #pragma unroll
-      for (int n = 0; n < 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-      mma_abt<DH>(sc, Qs, w0, Ks + (st & 1) * TILE, S - j0);
-      scores(sc, mask, scale, i_lo, j0, S);
-      if (st < chunks) {
-        // pass 1: the row max and sum of exp(s - max)
-        row_stats(sc, nullptr, m, l, nullptr);
-        if (st == chunks - 1) {
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            l[r] = __frcp_rn(quad_sum(l[r]));  // from here on, 1 / sum
-            if (m[r] == -INFINITY) m[r] = 0.f;
-          }
-        }
-      } else {
-        // pass 2: p = exp(s - max) / sum, rounded to bf16 as A fragments
-        uint32_t pf[4][4];
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            sc[n][e] = __expf(sc[n][e] - m[e >> 1]) * l[e >> 1];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) acc_to_a(pf[kk], sc[2 * kk], sc[2 * kk + 1]);
-        mma_ab<DH>(o, pf, Vs + (st & 1) * TILE, S - j0);
-      }
-    }
-    __syncthreads();  // stage st % 2 is refilled by the next issue
+  for (int mt = 0; mt < kMt; ++mt) {
+    fence_acc(sc[mt]);
+    scale_scores<kMask, kTail>(sc[mt], mask, scale, i_lo[mt], j0, S);
+    row_stats<kTail, false>(sc[mt], nullptr, m[mt], l[mt], nullptr,
+                            live_blocks(S, j0));
   }
-  if (active) store_rows<DH>(o, Qs, out, os, b, h, w0, r0, S);
+}
+
+// Pass 2 over one chunk (K and V tiles at KV): s again, p = exp(s - m) *
+// (1 / l) rounded to bf16 into the A registers of o += p . v (V
+// MN-major). rl = 1 / l.
+template <int DH, bool kMask, bool kTail>
+__device__ __forceinline__ void out_step(const bf16* Qs, const bf16* KV,
+                                         float (&o)[kMt][DH / 8][4],
+                                         const float (&m)[kMt][2],
+                                         const float (&rl)[kMt][2],
+                                         const int (&i_lo)[kMt],
+                                         const float* mask, float scale,
+                                         int j0, int S) {
+  constexpr int TILE = Tile<DH>::kElems;
+  float sc[kMt][8][4];
+  wgmma_fence();
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt) issue_abt<DH>(sc[mt], Qs + mt * TILE, KV);
+  wgmma_commit();
+  wgmma_wait<0>();
+  uint32_t pf[kMt][4][4];
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt) {
+    fence_acc(sc[mt]);
+    // keys past S have s = -inf, so p = 0; rows past S are never stored.
+    // No branch here: ptxas merged the A registers of a branch's two sides
+    // through local memory in the backward kernels.
+    scale_scores<kMask, kTail>(sc[mt], mask, scale, i_lo[mt], j0, S);
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[mt][n][e] = ex2((sc[mt][n][e] - m[mt][e >> 1]) * kLog2e) * rl[mt][e >> 1];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(pf[mt][kk], sc[mt][2 * kk], sc[mt][2 * kk + 1]);
+    fence_frag(pf[mt]);
+    fence_acc(o[mt]);
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt) issue_ab<DH>(o[mt], pf[mt], KV + TILE);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < kMt; ++mt) {
+    fence_acc(o[mt]);
+    fence_frag(pf[mt]);
+  }
+}
+
+// One block per (batch, head) of kConsumers warpgroups. One thread (the
+// first of warpgroup 0) copies the head's K and V in 64-row chunks by TMA
+// into a ring of slots (a K and a V tile each), each slot's arrival
+// counted on its full barrier. When the ring holds every chunk (resident)
+// each is copied once, at the start, and read by every query tile of the
+// head from shared memory; otherwise (streamed) the warpgroups walk the
+// chunks in step, a round of kConsumers query tiles at a time, release
+// each slot on its empty barrier, and the copying thread refills it with
+// the step `slots` ahead once every warpgroup has. A warpgroup takes the
+// query tiles wg, wg + kConsumers, ... (kMt x 64 rows each; its Q tile by
+// TMA on its own barrier) and for each:
+//   pass 1 (stats_step): s = q . k^T (wgmma, both K-major from shared
+//     memory), then fl(s * scale) + mask, and each row's max and sum of
+//     exp(s - max);
+//   pass 2 (out_step): s again, p = exp(s - max) * rcp(sum) rounded to
+//     bf16 straight from the accumulator into the A registers of o += p .
+//     v (wgmma, V MN-major: transposed by its descriptor);
+// o is rounded once to bf16 into the Q tile's shared memory and stored by
+// TMA, which clips the rows past S. kMask: the additive [S, S] mask.
+template <int DH, bool kMask>
+__global__ void __launch_bounds__(kFwdThreads, kFwdMinBlocks)
+attention_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                       const __grid_constant__ CUtensorMap mk,
+                       const __grid_constant__ CUtensorMap mv,
+                       const __grid_constant__ CUtensorMap mo,
+                       const float* __restrict__ mask, int S, int heads,
+                       int slots, float scale) {
+  constexpr int TILE = Tile<DH>::kElems;
+  constexpr unsigned kBytes = Tile<DH>::kBytes;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(wg_smem);   // slots x (K, V)
+  bf16* own = ring + (size_t)slots * 2 * TILE;  // kConsumers x kMt Q tiles
+  uint64_t* full = reinterpret_cast<uint64_t*>(own + kConsumers * kMt * TILE);
+  uint64_t* empty = full + slots;
+  uint64_t* qbar = empty + slots;  // one a warpgroup
+
+  // no split of a head over blocks, as the backward kernels have for small
+  // batches: its runtime tile mapping cost this kernel 7% at the serving
+  // shape (kernel_variants.py compare), and two warpgroups a head already
+  // fill the card at a tensor-parallel or ZeRO-1 rank's batch
+  const int h = blockIdx.x % heads, b = blockIdx.x / heads;
+  const int chunks = (S + kRows - 1) / kRows;
+  const int tiles = (S + kMt * kRows - 1) / (kMt * kRows);
+  const int rounds = (tiles + kConsumers - 1) / kConsumers;
+  const bool resident = slots >= chunks;
+  // streamed: each round, K chunks for pass 1, then K and V for pass 2
+  const int steps = resident ? chunks : rounds * 2 * chunks;
+  const int warp = warp_index(), lane = threadIdx.x % 32;
+  const int wg = warp / 4, wt = threadIdx.x % kWarpgroup, w16 = 16 * (warp % 4);
+  const bool copier = threadIdx.x == 0;
+
+  check_smem_base(wg_smem);
+  if (copier) {
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * kWarpgroup);
+    }
+    for (int w = 0; w < kConsumers; ++w) mbar_init(&qbar[w], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the copy of ring step `step` into slot step % slots
+  auto copy = [&](int step) {
+    const int slot = step % slots, within = step % (2 * chunks);
+    const int j = within % chunks;
+    const bool with_v = resident || within >= chunks;
+    bf16* kv = ring + (size_t)slot * 2 * TILE;
+    mbar_expect_tx(&full[slot], (with_v ? 2 : 1) * kBytes);
+    tma_load(kv, &mk, &full[slot], 0, j * kRows, h, b);
+    if (with_v) tma_load(kv + TILE, &mv, &full[slot], 0, j * kRows, h, b);
+  };
+  if (copier)
+    for (int step = 0; step < min(slots, steps); ++step) copy(step);
+
+  bf16* Qs = own + (size_t)wg * kMt * TILE;
+  int st = 0;  // ring steps taken (streamed)
+  unsigned qphase = 0;
+  // a streamed step done: release its slot; the copier refills it with
+  // the step `slots` ahead once every warpgroup has released it (its whole
+  // warp waits, so no wgmma follows a branch that splits a warp)
+  auto release = [&](int slot) {
+    mbar_arrive(&empty[slot]);
+    if (warp == 0 && st + slots < steps) {
+      mbar_wait(&empty[slot], (st / slots) & 1);
+      if (copier) copy(st + slots);
+    }
+    ++st;
+  };
+  for (int r = 0; r < rounds; ++r) {
+    const int t = r * kConsumers + wg;
+    if (t >= tiles) {
+      // no tile left for this warpgroup; a streamed ring still waits for
+      // its release of every slot
+      if (!resident)
+        for (int step = 0; step < 2 * chunks; ++step) {
+          mbar_wait(&full[st % slots], (st / slots) & 1);
+          release(st % slots);
+        }
+      continue;
+    }
+    const int r0 = t * kMt * kRows;
+    if (wt == 0) {
+      mbar_expect_tx(&qbar[wg], kMt * kBytes);
+      for (int mt = 0; mt < kMt; ++mt)
+        tma_load(Qs + mt * TILE, &mq, &qbar[wg], 0, r0 + mt * kRows, h, b);
+    }
+    mbar_wait(&qbar[wg], qphase);
+    qphase ^= 1;
+
+    // m-tile mt: this lane's rows i_lo(mt) and i_lo(mt) + 8
+    float m[kMt][2], l[kMt][2];
+    int i_lo[kMt];
+#pragma unroll
+    for (int mt = 0; mt < kMt; ++mt) {
+      i_lo[mt] = r0 + mt * kRows + w16 + lane / 4;
+      m[mt][0] = m[mt][1] = -INFINITY;
+      l[mt][0] = l[mt][1] = 0.f;
+    }
+
+    for (int j = 0; j < chunks; ++j) {  // pass 1
+      const int slot = resident ? j : st % slots, j0 = j * kRows;
+      mbar_wait(&full[slot], resident ? 0 : (st / slots) & 1);
+      const bf16* Kt = ring + (size_t)slot * 2 * TILE;
+      if (j0 + kRows <= S)
+        stats_step<DH, kMask, false>(Qs, Kt, m, l, i_lo, mask, scale, j0, S);
+      else
+        stats_step<DH, kMask, true>(Qs, Kt, m, l, i_lo, mask, scale, j0, S);
+      if (!resident) release(slot);
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        l[mt][e] = __frcp_rn(quad_sum(l[mt][e]));  // from here on, 1 / sum
+        if (m[mt][e] == -INFINITY) m[mt][e] = 0.f;
+      }
+
+    float o[kMt][DH / 8][4];
+#pragma unroll
+    for (int mt = 0; mt < kMt; ++mt)
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
+    for (int j = 0; j < chunks; ++j) {  // pass 2
+      const int slot = resident ? j : st % slots, j0 = j * kRows;
+      mbar_wait(&full[slot], resident ? 0 : (st / slots) & 1);
+      const bf16* KV = ring + (size_t)slot * 2 * TILE;
+      if (j0 + kRows <= S)
+        out_step<DH, kMask, false>(Qs, KV, o, m, l, i_lo, mask, scale, j0, S);
+      else
+        out_step<DH, kMask, true>(Qs, KV, o, m, l, i_lo, mask, scale, j0, S);
+      if (!resident) release(slot);
+    }
+
+    // o, rounded once, through the Q tiles' shared memory to a TMA store
+    warpgroup_sync(1 + wg);  // no product of this warpgroup reads Q now
+#pragma unroll
+    for (int mt = 0; mt < kMt; ++mt) stage_tile<DH>(o[mt], Qs + mt * TILE);
+    fence_async_smem();
+    warpgroup_sync(1 + wg);
+    if (wt == 0) {
+      for (int mt = 0; mt < kMt; ++mt)
+        tma_store(&mo, Qs + mt * TILE, 0, r0 + mt * kRows, h, b);
+      bulk_commit();
+      bulk_wait_read();  // before the next Q tile lands in the same place
+    }
+  }
+  if (wt == 0) bulk_wait();
+}
+
+// The ring's slots and the block's shared memory for one head of S rows
+template <int DH>
+int fwd_plan(int S, int limit, size_t* smem) {
+  const int chunks = (S + kRows - 1) / kRows;
+  const size_t slot = 2 * (size_t)Tile<DH>::kBytes;
+  const size_t own = (size_t)kConsumers * kMt * Tile<DH>::kBytes;
+  const int slots = ring_slots(chunks, slot, own, 0, limit, WGF_STAGES);
+  *smem = ring_smem(slots, slot, own, 0);
+  return slots;
 }
 
 template <int DH>
-cudaError_t launch_tc(const void* q, const void* k, const void* v,
-                      const float* mask, void* out, int B, int S, int heads,
-                      Strides in, Strides os, float scale,
-                      cudaStream_t stream) {
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const float* mask, void* out, int B, int S,
+                         int heads, Strides in, Strides os, float scale,
+                         cudaStream_t stream, const MapGeom* in_geom,
+                         const MapGeom* out_geom) {
   if (!rows_aligned16(q, in) || !rows_aligned16(k, in) ||
       !rows_aligned16(v, in) || !rows_aligned16(out, os))
     return cudaErrorMisalignedAddress;
-  const size_t smem = tc_smem_bytes<DH>();
-  auto kernel = attention_tc_kernel<DH>;
-  cudaError_t err = allow_smem(kernel, smem);
+  if (B == 0 || S == 0) return cudaSuccess;
+  if (in_geom == nullptr || out_geom == nullptr) return cudaErrorInvalidValue;
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
   if (err != cudaSuccess) return err;
-  const int tiles = (S + kTcRows - 1) / kTcRows;
-  const long long blocks = (long long)B * heads * tiles;
-  if (blocks == 0) return cudaSuccess;
-  kernel<<<(unsigned)blocks, kTcThreads, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, mask, (bf16*)out, in,
-      os, S, heads, tiles, scale);
+  size_t smem = 0;
+  const int slots = fwd_plan<DH>(S, limit, &smem);
+  if (slots == 0) return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mo;
+  if ((err = encode_map(&mq, q, *in_geom, true)) != cudaSuccess ||
+      (err = encode_map(&mk, k, *in_geom, true)) != cudaSuccess ||
+      (err = encode_map(&mv, v, *in_geom, true)) != cudaSuccess ||
+      (err = encode_map(&mo, out, *out_geom, true)) != cudaSuccess)
+    return err;
+  auto kernel = mask != nullptr ? attention_wgmma_kernel<DH, true>
+                                : attention_wgmma_kernel<DH, false>;
+  err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)((long long)B * heads), kFwdThreads, smem, stream>>>(
+      mq, mk, mv, mo, mask, S, heads, slots, scale);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch_dh(int dtype, const void* q, const void* k,
                         const void* v, const float* mask, void* out, int B,
                         int S, int heads, int dh, Strides in, Strides os,
-                        float scale, cudaStream_t s) {
+                        float scale, cudaStream_t s, const MapGeom* ig,
+                        const MapGeom* og) {
   if (dtype == 0) {
     switch (dh) {
       case 16: return launch<16>(q, k, v, mask, out, B, S, heads, in, os, scale, s);
@@ -473,9 +681,9 @@ cudaError_t dispatch_dh(int dtype, const void* q, const void* k,
     }
   } else if (dtype == 1) {
     switch (dh) {
-      case 16: return launch_tc<16>(q, k, v, mask, out, B, S, heads, in, os, scale, s);
-      case 32: return launch_tc<32>(q, k, v, mask, out, B, S, heads, in, os, scale, s);
-      case 64: return launch_tc<64>(q, k, v, mask, out, B, S, heads, in, os, scale, s);
+      case 16: return launch_wgmma<16>(q, k, v, mask, out, B, S, heads, in, os, scale, s, ig, og);
+      case 32: return launch_wgmma<32>(q, k, v, mask, out, B, S, heads, in, os, scale, s, ig, og);
+      case 64: return launch_wgmma<64>(q, k, v, mask, out, B, S, heads, in, os, scale, s, ig, og);
     }
   }
   return cudaErrorInvalidValue;
@@ -489,18 +697,41 @@ const char* kernel_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel);
-// both copy 16-byte pieces: every row start 16-byte aligned, else
-// cudaErrorMisalignedAddress. mask: f32 [S, S] or null. in_*: the strides
-// of q, k and v; out_*: those of out (see attn::Strides).
+// dtype: 0 = float32 (CUDA-core kernel), 1 = bfloat16 (wgmma kernel, its
+// tensor maps' geometry in in_geom / out_geom: attn::MapGeom, from
+// ops/attention.py tma_map); both need every row start 16-byte aligned,
+// else cudaErrorMisalignedAddress. mask: f32 [S, S] or null. in_*: the
+// element strides of q, k and v; out_*: those of out (see attn::Strides).
 int attention_fwd(const void* q, const void* k, const void* v,
                   const void* mask, void* out, int B, int S, int heads, int dh,
                   long long in_batch, long long in_head, long long in_row,
                   long long out_batch, long long out_head, long long out_row,
-                  int dtype, float scale, void* stream) {
+                  int dtype, float scale, void* stream, const void* in_geom,
+                  const void* out_geom) {
   const Strides in{in_batch, in_head, in_row}, os{out_batch, out_head, out_row};
   return (int)dispatch_dh(dtype, q, k, v, (const float*)mask, out, B, S, heads,
-                          dh, in, os, scale, (cudaStream_t)stream);
+                          dh, in, os, scale, (cudaStream_t)stream,
+                          (const MapGeom*)in_geom, (const MapGeom*)out_geom);
+}
+
+// The bf16 forward's plan for one head of S rows on this card: out[0] the
+// ring's slots (0: does not fit), out[1] the 64-row chunks of K and V
+// (resident when out[0] >= out[1], else streamed), out[2] the block's bytes
+// of shared memory.
+int attention_fwd_plan(int S, int dh, int* out) {
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return (int)err;
+  size_t smem = 0;
+  switch (dh) {
+    case 16: out[0] = fwd_plan<16>(S, limit, &smem); break;
+    case 32: out[0] = fwd_plan<32>(S, limit, &smem); break;
+    case 64: out[0] = fwd_plan<64>(S, limit, &smem); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  out[1] = (S + kRows - 1) / kRows;
+  out[2] = (int)smem;
+  return 0;
 }
 
 }  // extern "C"

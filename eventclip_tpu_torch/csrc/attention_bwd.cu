@@ -28,27 +28,32 @@
 // spread over 132 SMs. So the work is split by output into two kernels,
 // and no output is summed by atomics: every output element is written by
 // one thread, and two runs give the same bits. The first kernel of each
-// pair writes each query row's max, sum and rowsum(dp * p) (f32,
-// [3, B*H*S]) for the second. Two pairs, chosen by dtype (never one for the
+// pair writes each query row's max, sum (the bf16 pair: its reciprocal)
+// and rowsum(dp * p) (f32, [3, B*H*S]; the bf16 pair's rows padded to
+// whole 64-row boxes) for the second. Two pairs, chosen by dtype (never one for the
 // other's input):
 //
-// bf16: dq_tc_kernel and dkdv_tc_kernel (below), every product on the
-// tensor cores (mma.sync m16n8k16, bf16 in, f32 sums: the TPU kernel's
-// products; its exp and divide become __expf and a multiply by a rounded
-// reciprocal, the approximation attention_common.cuh bounds). The TPU
-// rounds p and ds to bf16 before the products that take them, which is what
-// an A operand is; the accumulator-to-fragment register trick turns a score
-// tile into that operand without a trip through shared memory. Operands stream through 2-stage cp.async rings of
-// 64-row tiles padded to dh + 8 (conflict-free ldmatrix). dq_tc_kernel
-// does 5 products (s and dp in a statistics pass, then s, dp and ds . k);
-// dkdv_tc_kernel 4, on transposed tiles (keys as rows: s^T = k . q^T,
-// dp^T = v . g^T), so p^T and ds^T are A fragments with no shuffle. The
-// two kernels' p may differ in the last bits (their sums run in other
-// orders); the tolerance against the plain version decides.
-// Time at [256, 257, 3072] bf16 + g (chip_smoke.py, H100 80GB HBM3,
-// 700.00 W): 3.2783 ms, against 20.4554 ms for an earlier CUDA-core design
-// when it also ran bf16, and 1.3481 ms for the backward of torch's
-// scaled_dot_product_attention.
+// bf16: dq_wgmma_kernel and dkdv_wgmma_kernel (below), every product on
+// Hopper's wgmma (bf16 in, f32 sums: the TPU kernel's products; its exp
+// and divide become ex2.approx of (s - m) log2 e and a multiply by a
+// rounded reciprocal, the approximation attention_common.cuh bounds). The
+// TPU rounds p and ds to bf16 before the products that take them, which is
+// what a register A operand is: a score accumulator becomes that operand
+// without a trip through shared memory. Each block owns one (batch, head):
+// a producer warp copies the operands the block reads whole by TMA into a
+// ring of 64-row slots (resident when they fit: K and V for dq, Q, G and
+// the statistics for dk/dv), one consumer warpgroup walks the head's own
+// 64-row tiles (two blocks an SM). dq_wgmma_kernel does 5 products a
+// (query tile, key chunk): s and dp in a statistics pass, then s, dp and
+// ds . k; dkdv_wgmma_kernel 4, on transposed tiles (keys as rows: s^T =
+// k . q^T, dp^T = v . g^T), so p^T and ds^T are A operands with no
+// shuffle. 9 products where the bound counts 5, and 3 exponentials a
+// score. The two kernels' p may differ in the last bits (their sums run in
+// other orders); the tolerance against the plain version decides.
+// Time at [256, 257, 3072] bf16 + g (kernel_variants.py, NVIDIA H100 80GB
+// HBM3, 700.00 W): 1.3533 ms, against 3.2767-3.3114 for the warp-level
+// tensor-core kernels it replaced and 1.3528 ms for the backward of torch's
+// scaled_dot_product_attention in the same run (PERF.md).
 //
 // f32: dq_f32_kernel and dkdv_f32_kernel on the CUDA cores (tensor cores
 // would mean TF32). They serve the f32 FT path (bf16=False: the visual
@@ -64,7 +69,7 @@
 //   - shared memory per block, hence blocks an SM: no S-long row is kept.
 //     The dq kernel takes online row statistics in a first pass (m, l = sum
 //     exp(s - m) and t = sum dp * exp(s - m), rescaled as m grows, as
-//     dq_tc_kernel) and forms ds tile by tile in a second, so any S runs
+//     dq_wgmma_kernel) and forms ds tile by tile in a second, so any S runs
 //     at two blocks an SM;
 //   - re-reading the streamed operands: a block takes up to 64 rows, so Q
 //     and G (or K and V) stream through the ring once a pass per 64 rows;
@@ -599,265 +604,498 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* g,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: wgmma and TMA
 
-template <int DH>
-constexpr size_t dq_tc_smem_bytes() {
-  return 6 * TcTile<DH>::kElems * sizeof(bf16);  // Q, G, 2 x K, 2 x V
+// Variants for timing only (kernel_variants.py builds each with -D): the
+// consumer warpgroups a block, and a cap on the ring's slots (0: as many
+// as fit, so a head's streamed operands are resident when they fit).
+#ifndef WGB_CONSUMERS
+#define WGB_CONSUMERS 1
+#endif
+#ifndef WGB_STAGES
+#define WGB_STAGES 0
+#endif
+static_assert(WGB_CONSUMERS >= 1 && WGB_CONSUMERS <= 4,
+              "WGB_CONSUMERS: 1 to 4 warpgroups");
+constexpr int kConsumers = WGB_CONSUMERS;
+// the consumers and a producer warp. One consumer warpgroup a block and
+// two blocks an SM give each thread about 200 registers, which the dk/dv
+// kernel's 4 accumulators need (ptxas gave two consumer warpgroups a block
+// 168, and setmaxnreg did not change its allocation); two blocks also
+// work on two heads, so their warpgroups do not wait for each other
+constexpr int kWgThreads = kConsumers * kWarpgroup + 32;
+constexpr int kBwdMinBlocks = kConsumers == 1 ? 2 : 1;
+constexpr int kStatBytes = 3 * kRows * 4;  // one chunk's m, 1 / l, delta
+
+// Both kernels: one block per (batch, head), the last warp the producer
+// (one thread of it issues the copies), the others kConsumers warpgroups
+// that each take one 64-row tile of the head's own rows at a time (its two own operands by TMA on its own barrier); the other two
+// operands come in 64-row chunks by TMA through a ring of slots as in
+// attention.cu's attention_wgmma_kernel: resident (each chunk copied once a
+// block) when the ring holds them all, else streamed in step, a round of
+// kConsumers tiles at a time. kTail in the steps: the ragged last chunk
+// (its rows past S are zeros, so the products need no other shape).
+// kMask: the additive [S, S] mask.
+
+// dq pass A over one chunk of keys (K and V tiles at KV): s = q . k^T and
+// dp = g . v^T into the row max m, l = sum exp(s - m) and t = sum dp *
+// exp(s - m)
+template <int DH, bool kMask, bool kTail>
+__device__ __forceinline__ void dq_stats_step(const bf16* Qs, const bf16* Gs,
+                                              const bf16* KV, float (&m)[2],
+                                              float (&l)[2], float (&tr)[2],
+                                              int i_lo,
+                                              const float* mask, float scale,
+                                              int j0, int S) {
+  constexpr int TILE = Tile<DH>::kElems;
+  float sc[8][4], dp[8][4];
+  wgmma_fence();
+  issue_abt<DH>(sc, Qs, KV);
+  issue_abt<DH>(dp, Gs, KV + TILE);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(sc);
+  fence_acc(dp);
+  scale_scores<kMask, kTail>(sc, mask, scale, i_lo, j0, S);
+  row_stats<kTail, true>(sc, dp, m, l, tr, live_blocks(S, j0));
 }
-template <int DH>
-constexpr size_t dkdv_tc_smem_bytes() {
-  // K, V, 2 x Q, 2 x G, 2 x the chunk's row statistics (m, l, delta)
-  return 6 * TcTile<DH>::kElems * sizeof(bf16) + 2 * 3 * kTcRows * sizeof(float);
-}
 
-// Both kernels run at most 168 registers a thread, so 3 blocks (12 warps)
-// share an SM: on the card, more warps hiding each other's latency beat
-// the few bytes spilled (2 blocks at 232-254 registers ran slower).
-// Their A operands are read from shared memory by ldmatrix at each use
-// rather than held in registers.
-//
-// dq, one block per (batch, head, 64 query rows), 4 warps of 16 rows. Q and
-// G stay in shared memory; K and V stream through a 2-stage cp.async ring
-// of 64-key tiles. Pass A: s = q . k^T and dp = g . v^T on mma.sync; the
-// row max m, l = sum exp(s - m) and t = sum dp * exp(s - m), both rescaled
-// as m grows; delta = t / l = rowsum(dp * p) with the unrounded p. Pass B
-// recomputes s and dp, forms ds = bf16(fl(p * (dp - delta)) * scale) in
-// registers as A fragments and accumulates dq += ds . k (K read
-// transposed). Writes m, l and delta for dkdv_tc_kernel.
-template <int DH>
-__global__ void __launch_bounds__(kTcThreads, 3)
-dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, const bf16* __restrict__ g,
-             const float* __restrict__ mask, bf16* __restrict__ dq,
-             float* __restrict__ stats, Strides in, Strides gs, int S,
-             int heads, int tiles, size_t bhs, float scale) {
-  constexpr int TILE = TcTile<DH>::kElems;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Gs = Qs + TILE;
-  bf16* Ks = Gs + TILE;      // 2 stages
-  bf16* Vs = Ks + 2 * TILE;  // 2 stages
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int tile = blockIdx.x % tiles;
-  const int h = (blockIdx.x / tiles) % heads;
-  const int b = blockIdx.x / (tiles * heads);
-  const size_t bh = (size_t)b * heads + h;
-  const int r0 = tile * kTcRows, w0 = warp * 16;
-  const int i_lo = r0 + w0 + lane / 4;  // this lane's rows: i_lo, i_lo + 8
-  const bool active = r0 + w0 < S;
-  const int chunks = (S + kTcRows - 1) / kTcRows;
-
-  // step st < chunks: pass A over chunk st; then pass B over st - chunks
-  auto issue = [&](int st) {
-    const int c = st < chunks ? st : st - chunks;
-    load_tile<DH>(Ks + (st & 1) * TILE, k, in, b, h, c * kTcRows, S);
-    load_tile<DH>(Vs + (st & 1) * TILE, v, in, b, h, c * kTcRows, S);
-    cp_async_commit();
-  };
-  load_tile<DH>(Qs, q, in, b, h, r0, S);
-  load_tile<DH>(Gs, g, gs, b, h, r0, S);
-  issue(0);
-
-  // m, then l (1 / l after pass A) and t (delta after pass A) of rows
-  // i_lo and i_lo + 8
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, t[2] = {0.f, 0.f};
-  float acc[DH / 8][4];
+// dq pass B over one chunk: s and dp again, ds = bf16(fl(p * (dp - delta))
+// * scale) in registers as A operands, dq += ds . k (K MN-major). rl = 1
+// / l.
+template <int DH, bool kMask, bool kTail>
+__device__ __forceinline__ void dq_step(const bf16* Qs, const bf16* Gs,
+                                        const bf16* KV, float (&acc)[DH / 8][4],
+                                        const float (&m)[2],
+                                        const float (&rl)[2],
+                                        const float (&delta)[2], int i_lo, const float* mask,
+                                        float scale, int j0, int S) {
+  constexpr int TILE = Tile<DH>::kElems;
+  float sc[8][4], dp[8][4];
+  wgmma_fence();
+  issue_abt<DH>(sc, Qs, KV);
+  issue_abt<DH>(dp, Gs, KV + TILE);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(sc);
+  fence_acc(dp);
+  // keys past S have s = -inf, so p = 0 and ds = 0 (and dp = 0: their V
+  // rows are zeros); rows past S are never stored. No branch here: ptxas
+  // merged the A registers of a branch's two sides through local memory.
+  scale_scores<kMask, kTail>(sc, mask, scale, i_lo, j0, S);
 #pragma unroll
-  for (int n = 0; n < DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int st = 0; st < 2 * chunks; ++st) {
-    if (st + 1 < 2 * chunks) {
-      issue(st + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2((sc[n][e] - m[e >> 1]) * kLog2e) * rl[e >> 1];
+      sc[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[n][e], delta[e >> 1])), scale);
     }
-    __syncthreads();
-    const int c = st < chunks ? st : st - chunks, j0 = c * kTcRows;
-    if (active) {
-      float sc[8][4], dp[8][4];
+  uint32_t df[4][4];
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
-      mma_abt<DH>(sc, Qs, w0, Ks + (st & 1) * TILE, S - j0);
-      mma_abt<DH>(dp, Gs, w0, Vs + (st & 1) * TILE, S - j0);
-      scores(sc, mask, scale, i_lo, j0, S);
-      if (st < chunks) {
-        row_stats(sc, dp, m, l, t);
-        if (st == chunks - 1) {
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const float sum = quad_sum(l[r]);
-            const float delta = quad_sum(t[r]) / sum;
-            if (m[r] == -INFINITY) m[r] = 0.f;
-            const int i = i_lo + 8 * r;
-            if (lane % 4 == 0 && i < S) {
-              stats[bh * S + i] = m[r];
-              stats[bhs + bh * S + i] = sum;
-              stats[2 * bhs + bh * S + i] = delta;
-            }
-            l[r] = __frcp_rn(sum);
-            t[r] = delta;
-          }
-        }
-      } else {
-        uint32_t df[4][4];
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float p = __expf(sc[n][e] - m[e >> 1]) * l[e >> 1];
-            sc[n][e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[n][e], t[e >> 1])), scale);
-          }
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) acc_to_a(df[kk], sc[2 * kk], sc[2 * kk + 1]);
-        mma_ab<DH>(acc, df, Ks + (st & 1) * TILE, S - j0);
+  for (int kk = 0; kk < 4; ++kk) acc_to_a(df[kk], sc[2 * kk], sc[2 * kk + 1]);
+  fence_frag(df);
+  fence_acc(acc);
+  wgmma_fence();
+  issue_ab<DH>(acc, df, KV);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+  fence_frag(df);
+}
+
+// dq: own Q and G tiles, K and V through the ring. Pass A (dq_stats_step):
+// m, l and t; then delta = t / l = rowsum(dp * p) with the unrounded p,
+// and m, 1 / l and delta go to the statistics scratch for
+// dkdv_wgmma_kernel. Pass B (dq_step) recomputes s and dp and accumulates
+// dq += ds . k. 5 products a (query tile, key chunk).
+template <int DH, bool kMask>
+__global__ void __launch_bounds__(kWgThreads, kBwdMinBlocks)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                const __grid_constant__ CUtensorMap mk,
+                const __grid_constant__ CUtensorMap mv,
+                const __grid_constant__ CUtensorMap mg,
+                const __grid_constant__ CUtensorMap mdq,
+                const float* __restrict__ mask, float* __restrict__ stats,
+                int S, int heads, int slots, int splits, size_t bhsp,
+                float scale) {
+  constexpr int TILE = Tile<DH>::kElems;
+  constexpr unsigned kBytes = Tile<DH>::kBytes;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(wg_smem);   // slots x (K, V)
+  bf16* own = ring + (size_t)slots * 2 * TILE;  // kConsumers x (Q, G)
+  uint64_t* full = reinterpret_cast<uint64_t*>(own + kConsumers * 2 * TILE);
+  uint64_t* empty = full + slots;
+  uint64_t* obar = empty + slots;  // one a warpgroup
+
+  // block = (head, part), as in attention_wgmma_kernel
+  const int part = blockIdx.x % splits;
+  const size_t bh = blockIdx.x / splits;
+  const int h = bh % heads, b = bh / heads;
+  const int chunks = (S + kRows - 1) / kRows, sp = chunks * kRows;
+  const int workers = kConsumers * splits;
+  const int rounds = (chunks + workers - 1) / workers;
+  const bool resident = slots >= chunks;
+  const int warp = warp_index(), lane = threadIdx.x % 32;
+
+  check_smem_base(wg_smem);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * kWarpgroup);
+    }
+    for (int w = 0; w < kConsumers; ++w) mbar_init(&obar[w], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * kConsumers) {  // the producer warp: K and V chunks
+    if (lane == 0) {
+      const int steps = resident ? chunks : rounds * 2 * chunks;
+      for (int st = 0; st < steps; ++st) {
+        const int slot = st % slots, j = st % chunks;
+        if (!resident) mbar_wait(&empty[slot], ((st / slots) & 1) ^ 1);
+        bf16* kv = ring + (size_t)slot * 2 * TILE;
+        mbar_expect_tx(&full[slot], 2 * kBytes);
+        tma_load(kv, &mk, &full[slot], 0, j * kRows, h, b);
+        tma_load(kv + TILE, &mv, &full[slot], 0, j * kRows, h, b);
       }
     }
-    __syncthreads();  // stage st % 2 is refilled by the next issue
-  }
-  if (active) store_rows<DH>(acc, Qs, dq, in, b, h, w0, r0, S);
-}
-
-// dk and dv, one block per (batch, head, 64 keys), 4 warps of 16 keys. K
-// and V stay in shared memory; Q, G and the three row statistics stream
-// in 64-query chunks. The tiles are computed transposed, keys as rows:
-// s^T = k . q^T and dp^T = v . g^T, so p^T and ds^T are A fragments with no
-// shuffle; dv += bf16(p^T) . g and dk += ds^T . q (G and Q read
-// transposed). Each output element is written by one lane: no atomics.
-template <int DH>
-__global__ void __launch_bounds__(kTcThreads, 3)
-dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ g,
-               const float* __restrict__ mask, bf16* __restrict__ dk,
-               bf16* __restrict__ dv, const float* __restrict__ stats,
-               Strides in, Strides gs, int S, int heads, int tiles,
-               size_t bhs, float scale) {
-  constexpr int TILE = TcTile<DH>::kElems;
-  constexpr int ST = 3 * kTcRows;  // one chunk's statistics
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + TILE;
-  bf16* Qs = Vs + TILE;      // 2 stages
-  bf16* Gs = Qs + 2 * TILE;  // 2 stages
-  float* Sts = reinterpret_cast<float*>(Gs + 2 * TILE);  // 2 stages
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int tile = blockIdx.x % tiles;
-  const int h = (blockIdx.x / tiles) % heads;
-  const int b = blockIdx.x / (tiles * heads);
-  const size_t bh = (size_t)b * heads + h;
-  const int r0 = tile * kTcRows, w0 = warp * 16;
-  const int j_lo = r0 + w0 + lane / 4;  // this lane's keys: j_lo, j_lo + 8
-  const bool active = r0 + w0 < S;
-  const int chunks = (S + kTcRows - 1) / kTcRows;
-
-  auto issue = [&](int c) {
-    load_tile<DH>(Qs + (c & 1) * TILE, q, in, b, h, c * kTcRows, S);
-    load_tile<DH>(Gs + (c & 1) * TILE, g, gs, b, h, c * kTcRows, S);
-    for (int idx = threadIdx.x; idx < ST; idx += kTcThreads) {
-      const int which = idx / kTcRows, i = c * kTcRows + idx % kTcRows;
-      cp_async4(Sts + (c & 1) * ST + idx,
-                stats + which * bhs + bh * S + min(i, S - 1), i < S);
-    }
-    cp_async_commit();
-  };
-  load_tile<DH>(Ks, k, in, b, h, r0, S);
-  load_tile<DH>(Vs, v, in, b, h, r0, S);
-  issue(0);
-
-  float dka[DH / 8][4], dva[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) {
-      issue(c + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (active) {
-      const int i0 = c * kTcRows;
-      const bf16* Qc = Qs + (c & 1) * TILE;
-      const bf16* Gc = Gs + (c & 1) * TILE;
-      const float* M = Sts + (c & 1) * ST;
-      const float* L = M + kTcRows;
-      const float* Dl = L + kTcRows;
-      float sc[8][4], dp[8][4];
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
-      mma_abt<DH>(dp, Vs, w0, Gc, S - i0);  // dp^T
-      mma_abt<DH>(sc, Ks, w0, Qc, S - i0);  // s^T
-      const int tq = lane % 4;
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ii = n * 8 + 2 * tq + (e & 1), i = i0 + ii;  // query
-          const int j = min(j_lo + (e >> 1) * 8, S - 1);            // key
-          float s = __fmul_rn(sc[n][e], scale);
-          if (mask != nullptr) s = __fadd_rn(s, mask[(size_t)min(i, S - 1) * S + j]);
-          float p = 0.f, ds = 0.f;
-          if (i < S) {
-            p = __expf(s - M[ii]) * __frcp_rn(L[ii]);
-            ds = __fmul_rn(__fmul_rn(p, __fsub_rn(dp[n][e], Dl[ii])), scale);
+  } else {  // the consumers
+    const int wg = warp / 4, wt = threadIdx.x % kWarpgroup, w16 = 16 * (warp % 4);
+    bf16* Qs = own + (size_t)wg * 2 * TILE;
+    bf16* Gs = Qs + TILE;
+    int st = 0;  // ring steps taken (streamed)
+    unsigned ophase = 0;
+    for (int r = 0; r < rounds; ++r) {
+      const int t = r * workers + wg * splits + part;
+      if (t >= chunks) {  // as in attention_wgmma_kernel
+        if (!resident)
+          for (int step = 0; step < 2 * chunks; ++step, ++st) {
+            mbar_wait(&full[st % slots], (st / slots) & 1);
+            mbar_arrive(&empty[st % slots]);
           }
-          sc[n][e] = p;
-          dp[n][e] = ds;
-        }
-      uint32_t pf[4][4], df[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        acc_to_a(pf[kk], sc[2 * kk], sc[2 * kk + 1]);
-        acc_to_a(df[kk], dp[2 * kk], dp[2 * kk + 1]);
+        continue;
       }
-      mma_ab<DH>(dva, pf, Gc, S - i0);
-      mma_ab<DH>(dka, df, Qc, S - i0);
+      const int r0 = t * kRows;
+      if (wt == 0) {
+        mbar_expect_tx(&obar[wg], 2 * kBytes);
+        tma_load(Qs, &mq, &obar[wg], 0, r0, h, b);
+        tma_load(Gs, &mg, &obar[wg], 0, r0, h, b);
+      }
+      mbar_wait(&obar[wg], ophase);
+      ophase ^= 1;
+      const int i_lo = r0 + w16 + lane / 4;  // this lane's rows: i_lo, i_lo + 8
+
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, tr[2] = {0.f, 0.f};
+      for (int j = 0; j < chunks; ++j) {  // pass A
+        const int slot = resident ? j : st % slots, j0 = j * kRows;
+        mbar_wait(&full[slot], resident ? 0 : (st / slots) & 1);
+        const bf16* KV = ring + (size_t)slot * 2 * TILE;
+        if (j0 + kRows <= S)
+          dq_stats_step<DH, kMask, false>(Qs, Gs, KV, m, l, tr, i_lo, mask, scale, j0, S);
+        else
+          dq_stats_step<DH, kMask, true>(Qs, Gs, KV, m, l, tr, i_lo, mask, scale, j0, S);
+        if (!resident) {
+          mbar_arrive(&empty[slot]);
+          ++st;
+        }
+      }
+      // from here on 1 / l and delta
+  #pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float sum = quad_sum(l[e]);
+        tr[e] = quad_sum(tr[e]) / sum;
+        if (m[e] == -INFINITY) m[e] = 0.f;
+        l[e] = __frcp_rn(sum);
+        const int i = i_lo + 8 * e;
+        if (lane % 4 == 0 && i < S) {
+          stats[bh * sp + i] = m[e];
+          stats[bhsp + bh * sp + i] = l[e];
+          stats[2 * bhsp + bh * sp + i] = tr[e];
+        }
+      }
+
+      float acc[DH / 8][4];
+  #pragma unroll
+      for (int n = 0; n < DH / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+      for (int j = 0; j < chunks; ++j) {  // pass B
+        const int slot = resident ? j : st % slots, j0 = j * kRows;
+        mbar_wait(&full[slot], resident ? 0 : (st / slots) & 1);
+        const bf16* KV = ring + (size_t)slot * 2 * TILE;
+        if (j0 + kRows <= S)
+          dq_step<DH, kMask, false>(Qs, Gs, KV, acc, m, l, tr, i_lo, mask, scale, j0, S);
+        else
+          dq_step<DH, kMask, true>(Qs, Gs, KV, acc, m, l, tr, i_lo, mask, scale, j0, S);
+        if (!resident) {
+          mbar_arrive(&empty[slot]);
+          ++st;
+        }
+      }
+
+      warpgroup_sync(1 + wg);  // no product of this warpgroup reads Q now
+      stage_tile<DH>(acc, Qs);
+      fence_async_smem();
+      warpgroup_sync(1 + wg);
+      if (wt == 0) {
+        tma_store(&mdq, Qs, 0, r0, h, b);
+        bulk_commit();
+        bulk_wait_read();  // before the next Q tile lands in the same place
+      }
     }
-    __syncthreads();  // stage c % 2 is refilled by the next issue
-  }
-  if (active) {
-    store_rows<DH>(dka, Ks, dk, in, b, h, w0, r0, S);
-    store_rows<DH>(dva, Vs, dv, in, b, h, w0, r0, S);
+    if (wt == 0) bulk_wait();
   }
 }
 
+// dk/dv over one chunk of queries (Q and G tiles at QG, their rows' m,
+// 1 / l and delta at St): s^T = k . q^T and dp^T = v . g^T, p^T and
+// ds^T as A operands straight from the accumulators, dv += bf16(p^T) . g
+// and dk += ds^T . q (G and Q MN-major)
+template <int DH, bool kMask, bool kTail>
+__device__ __forceinline__ void dkdv_step(const bf16* Ks, const bf16* Vs,
+                                          const bf16* QG, const float* St,
+                                          float (&dka)[DH / 8][4],
+                                          float (&dva)[DH / 8][4], int j_lo, const float* mask,
+                                          float scale, int i0, int S) {
+  constexpr int TILE = Tile<DH>::kElems;
+  float sc[8][4], dp[8][4];
+  wgmma_fence();
+  issue_abt<DH>(sc, Ks, QG);         // s^T
+  issue_abt<DH>(dp, Vs, QG + TILE);  // dp^T
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(sc);
+  fence_acc(dp);
+  {  // no branch on live keys (see dq_step); keys past S are never stored
+    const int tq = threadIdx.x % 4;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int ii = n * 8 + 2 * tq;  // this lane's queries i0 + ii (+1)
+      const float2 mx = *reinterpret_cast<const float2*>(St + ii);
+      const float2 rl = *reinterpret_cast<const float2*>(St + kRows + ii);
+      const float2 dl = *reinterpret_cast<const float2*>(St + 2 * kRows + ii);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = i0 + ii + (e & 1);  // query
+        float s = __fmul_rn(sc[n][e], scale);
+        if (kMask) {
+          const int j = min(j_lo + (e >> 1) * 8, S - 1);  // key
+          s = __fadd_rn(s, mask[(size_t)min(i, S - 1) * S + j]);
+        }
+        const float p = ex2((s - ((e & 1) ? mx.y : mx.x)) * kLog2e) *
+                        ((e & 1) ? rl.y : rl.x);
+        const float ds = __fmul_rn(
+            __fmul_rn(p, __fsub_rn(dp[n][e], (e & 1) ? dl.y : dl.x)), scale);
+        // queries past S add nothing (their statistics are not set)
+        const bool in = !kTail || i < S;
+        sc[n][e] = in ? p : 0.f;
+        dp[n][e] = in ? ds : 0.f;
+      }
+    }
+  }
+  uint32_t pf[4][4], df[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    acc_to_a(pf[kk], sc[2 * kk], sc[2 * kk + 1]);
+    acc_to_a(df[kk], dp[2 * kk], dp[2 * kk + 1]);
+  }
+  fence_frag(pf);
+  fence_frag(df);
+  fence_acc(dva);
+  fence_acc(dka);
+  wgmma_fence();
+  issue_ab<DH>(dva, pf, QG + TILE);
+  issue_ab<DH>(dka, df, QG);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(dva);
+  fence_acc(dka);
+  fence_frag(pf);
+  fence_frag(df);
+}
+
+// dk and dv: own K and V tiles (keys as rows), Q, G and their rows'
+// statistics through the ring (a slot: a Q and a G tile, and the chunk's
+// m, 1 / l and delta, [3, 64] f32, by TMA from the scratch
+// dq_wgmma_kernel wrote), one dkdv_step a chunk. The tiles are computed
+// transposed (keys as rows), so p^T and ds^T are A operands with no
+// shuffle. Each output element is summed by one thread in a fixed order:
+// no atomics, two runs give the same bits. 4 products a (key tile, query
+// chunk).
+template <int DH, bool kMask>
+__global__ void __launch_bounds__(kWgThreads, kBwdMinBlocks)
+dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap mq,
+                  const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv,
+                  const __grid_constant__ CUtensorMap mg,
+                  const __grid_constant__ CUtensorMap mst,
+                  const __grid_constant__ CUtensorMap mdk,
+                  const __grid_constant__ CUtensorMap mdv,
+                  const float* __restrict__ mask, int S, int heads, int slots,
+                  int splits, float scale) {
+  constexpr int TILE = Tile<DH>::kElems;
+  constexpr unsigned kBytes = Tile<DH>::kBytes;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(wg_smem);   // slots x (Q, G)
+  bf16* own = ring + (size_t)slots * 2 * TILE;  // kConsumers x (K, V)
+  float* sts = reinterpret_cast<float*>(own + kConsumers * 2 * TILE);  // slots x [3, 64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sts + (size_t)slots * 3 * kRows);
+  uint64_t* empty = full + slots;
+  uint64_t* obar = empty + slots;  // one a warpgroup
+
+  const int part = blockIdx.x % splits, bh = blockIdx.x / splits;
+  const int h = bh % heads, b = bh / heads;
+  const int chunks = (S + kRows - 1) / kRows;
+  const int workers = kConsumers * splits;
+  const int rounds = (chunks + workers - 1) / workers;
+  const bool resident = slots >= chunks;
+  const int warp = warp_index(), lane = threadIdx.x % 32;
+
+  check_smem_base(wg_smem);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < slots; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * kWarpgroup);
+    }
+    for (int w = 0; w < kConsumers; ++w) mbar_init(&obar[w], 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * kConsumers) {  // the producer warp: Q, G and statistics
+    if (lane == 0) {
+      const int steps = resident ? chunks : rounds * chunks;
+      for (int st = 0; st < steps; ++st) {
+        const int slot = st % slots, i = st % chunks;
+        if (!resident) mbar_wait(&empty[slot], ((st / slots) & 1) ^ 1);
+        bf16* qg = ring + (size_t)slot * 2 * TILE;
+        mbar_expect_tx(&full[slot], 2 * kBytes + kStatBytes);
+        tma_load(qg, &mq, &full[slot], 0, i * kRows, h, b);
+        tma_load(qg + TILE, &mg, &full[slot], 0, i * kRows, h, b);
+        tma_load(sts + (size_t)slot * 3 * kRows, &mst, &full[slot], i * kRows, bh, 0, 0);
+      }
+    }
+  } else {  // the consumers
+    const int wg = warp / 4, wt = threadIdx.x % kWarpgroup, w16 = 16 * (warp % 4);
+    bf16* Ks = own + (size_t)wg * 2 * TILE;
+    bf16* Vs = Ks + TILE;
+    int st = 0;
+    unsigned ophase = 0;
+    for (int r = 0; r < rounds; ++r) {
+      const int t = r * workers + wg * splits + part;
+      if (t >= chunks) {  // as in attention_wgmma_kernel
+        if (!resident)
+          for (int step = 0; step < chunks; ++step, ++st) {
+            mbar_wait(&full[st % slots], (st / slots) & 1);
+            mbar_arrive(&empty[st % slots]);
+          }
+        continue;
+      }
+      const int k0 = t * kRows;
+      if (wt == 0) {
+        mbar_expect_tx(&obar[wg], 2 * kBytes);
+        tma_load(Ks, &mk, &obar[wg], 0, k0, h, b);
+        tma_load(Vs, &mv, &obar[wg], 0, k0, h, b);
+      }
+      mbar_wait(&obar[wg], ophase);
+      ophase ^= 1;
+      const int j_lo = k0 + w16 + lane / 4;  // this lane's keys: j_lo, j_lo + 8
+
+      float dka[DH / 8][4], dva[DH / 8][4];
+  #pragma unroll
+      for (int n = 0; n < DH / 8; ++n)
+  #pragma unroll
+        for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+      for (int c = 0; c < chunks; ++c) {
+        const int slot = resident ? c : st % slots, i0 = c * kRows;
+        mbar_wait(&full[slot], resident ? 0 : (st / slots) & 1);
+        const bf16* QG = ring + (size_t)slot * 2 * TILE;
+        const float* St = sts + (size_t)slot * 3 * kRows;
+        if (i0 + kRows <= S)
+          dkdv_step<DH, kMask, false>(Ks, Vs, QG, St, dka, dva, j_lo, mask, scale, i0, S);
+        else
+          dkdv_step<DH, kMask, true>(Ks, Vs, QG, St, dka, dva, j_lo, mask, scale, i0, S);
+        if (!resident) {
+          mbar_arrive(&empty[slot]);
+          ++st;
+        }
+      }
+
+      warpgroup_sync(1 + wg);  // no product of this warpgroup reads K or V now
+      stage_tile<DH>(dka, Ks);
+      stage_tile<DH>(dva, Vs);
+      fence_async_smem();
+      warpgroup_sync(1 + wg);
+      if (wt == 0) {
+        tma_store(&mdk, Ks, 0, k0, h, b);
+        tma_store(&mdv, Vs, 0, k0, h, b);
+        bulk_commit();
+        bulk_wait_read();  // before the next K and V tiles land there
+      }
+    }
+    if (wt == 0) bulk_wait();
+  }
+}
+
+// The rings' slots (dq, dk/dv) and the blocks' shared memory for one head
+// of S rows
 template <int DH>
-cudaError_t launch_tc(const void* q, const void* k, const void* v,
-                      const void* g, const float* mask, void* dq, void* dk,
-                      void* dv, float* stats, int B, int S, int heads,
-                      Strides in, Strides gs, float scale,
-                      cudaStream_t stream) {
+void bwd_plan(int S, int limit, int slots[2], size_t smem[2]) {
+  const int chunks = (S + kRows - 1) / kRows;
+  const size_t slot = 2 * (size_t)Tile<DH>::kBytes;
+  const size_t own = (size_t)kConsumers * slot;
+  slots[0] = ring_slots(chunks, slot, own, 0, limit, WGB_STAGES);
+  slots[1] = ring_slots(chunks, slot, own, kStatBytes, limit, WGB_STAGES);
+  smem[0] = ring_smem(slots[0], slot, own, 0);
+  smem[1] = ring_smem(slots[1], slot, own, kStatBytes);
+}
+
+template <int DH>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const void* g, const float* mask, void* dq, void* dk,
+                         void* dv, float* stats, int B, int S, int heads,
+                         Strides in, Strides gs, float scale,
+                         cudaStream_t stream, const MapGeom* in_geom,
+                         const MapGeom* g_geom, const MapGeom* st_geom) {
   const void* same_layout[] = {q, k, v, dq, dk, dv};
   for (const void* p : same_layout)
     if (!rows_aligned16(p, in)) return cudaErrorMisalignedAddress;
   if (!rows_aligned16(g, gs)) return cudaErrorMisalignedAddress;
-  auto k1 = dq_tc_kernel<DH>;
-  auto k2 = dkdv_tc_kernel<DH>;
-  cudaError_t err = allow_smem(k1, dq_tc_smem_bytes<DH>());
-  if (err == cudaSuccess) err = allow_smem(k2, dkdv_tc_smem_bytes<DH>());
-  if (err != cudaSuccess) return err;
-  const int tiles = (S + kTcRows - 1) / kTcRows;
   const long long bh = (long long)B * heads;
   if (bh == 0 || S == 0) return cudaSuccess;
-  const size_t bhs = (size_t)bh * S;
-  k1<<<(unsigned)(bh * tiles), kTcThreads, dq_tc_smem_bytes<DH>(), stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, mask,
-      (bf16*)dq, stats, in, gs, S, heads, tiles, bhs, scale);
+  if (in_geom == nullptr || g_geom == nullptr || st_geom == nullptr)
+    return cudaErrorInvalidValue;
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return err;
+  int slots[2];
+  size_t smem[2];
+  bwd_plan<DH>(S, limit, slots, smem);
+  if (slots[0] == 0 || slots[1] == 0) return cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mg, mdq, mdk, mdv, mst;
+  if ((err = encode_map(&mq, q, *in_geom, true)) != cudaSuccess ||
+      (err = encode_map(&mk, k, *in_geom, true)) != cudaSuccess ||
+      (err = encode_map(&mv, v, *in_geom, true)) != cudaSuccess ||
+      (err = encode_map(&mg, g, *g_geom, true)) != cudaSuccess ||
+      (err = encode_map(&mdq, dq, *in_geom, true)) != cudaSuccess ||
+      (err = encode_map(&mdk, dk, *in_geom, true)) != cudaSuccess ||
+      (err = encode_map(&mdv, dv, *in_geom, true)) != cudaSuccess ||
+      (err = encode_map(&mst, stats, *st_geom, false)) != cudaSuccess)
+    return err;
+  auto k1 = mask != nullptr ? dq_wgmma_kernel<DH, true> : dq_wgmma_kernel<DH, false>;
+  auto k2 = mask != nullptr ? dkdv_wgmma_kernel<DH, true>
+                            : dkdv_wgmma_kernel<DH, false>;
+  err = allow_smem(k1, smem[0]);
+  if (err == cudaSuccess) err = allow_smem(k2, smem[1]);
+  if (err != cudaSuccess) return err;
+  const int chunks = (S + kRows - 1) / kRows;
+  const int splits = head_splits(bh, chunks, kConsumers, kBwdMinBlocks);
+  k1<<<(unsigned)(bh * splits), kWgThreads, smem[0], stream>>>(
+      mq, mk, mv, mg, mdq, mask, stats, S, heads, slots[0], splits,
+      (size_t)bh * chunks * kRows, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  k2<<<(unsigned)(bh * tiles), kTcThreads, dkdv_tc_smem_bytes<DH>(), stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)g, mask,
-      (bf16*)dk, (bf16*)dv, stats, in, gs, S, heads, tiles, bhs, scale);
+  k2<<<(unsigned)(bh * splits), kWgThreads, smem[1], stream>>>(
+      mq, mk, mv, mg, mst, mdk, mdv, mask, S, heads, slots[1], splits, scale);
   return cudaGetLastError();
 }
 
@@ -865,7 +1103,8 @@ cudaError_t dispatch_dh(int dtype, const void* q, const void* k,
                         const void* v, const void* g, const float* mask,
                         void* dq, void* dk, void* dv, float* stats, int B,
                         int S, int heads, int dh, Strides in, Strides gs,
-                        float scale, cudaStream_t s) {
+                        float scale, cudaStream_t s, const MapGeom* ig,
+                        const MapGeom* gg, const MapGeom* sg) {
   if (dtype == 0) {
     switch (dh) {
       case 16: return launch<16>(q, k, v, g, mask, dq, dk, dv, stats, B, S, heads, in, gs, scale, s);
@@ -874,9 +1113,9 @@ cudaError_t dispatch_dh(int dtype, const void* q, const void* k,
     }
   } else if (dtype == 1) {
     switch (dh) {
-      case 16: return launch_tc<16>(q, k, v, g, mask, dq, dk, dv, stats, B, S, heads, in, gs, scale, s);
-      case 32: return launch_tc<32>(q, k, v, g, mask, dq, dk, dv, stats, B, S, heads, in, gs, scale, s);
-      case 64: return launch_tc<64>(q, k, v, g, mask, dq, dk, dv, stats, B, S, heads, in, gs, scale, s);
+      case 16: return launch_wgmma<16>(q, k, v, g, mask, dq, dk, dv, stats, B, S, heads, in, gs, scale, s, ig, gg, sg);
+      case 32: return launch_wgmma<32>(q, k, v, g, mask, dq, dk, dv, stats, B, S, heads, in, gs, scale, s, ig, gg, sg);
+      case 64: return launch_wgmma<64>(q, k, v, g, mask, dq, dk, dv, stats, B, S, heads, in, gs, scale, s, ig, gg, sg);
     }
   }
   return cudaErrorInvalidValue;
@@ -890,21 +1129,49 @@ const char* kernel_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// dtype: 0 = float32 (CUDA-core kernels), 1 = bfloat16 (tensor-core
-// kernels; every row start 16-byte aligned, else
-// cudaErrorMisalignedAddress). mask: f32 [S, S] or null. in_*: the strides
-// of q, k, v and of dq, dk, dv; g_*: those of g (see attn::Strides).
-// stats: f32 scratch of 3*B*heads*S elements.
+// dtype: 0 = float32 (CUDA-core kernels), 1 = bfloat16 (wgmma kernels;
+// every row start 16-byte aligned, else cudaErrorMisalignedAddress; their
+// tensor maps' geometry in in_geom, g_geom and st_geom: attn::MapGeom, from
+// ops/attention.py tma_map / stats_map). mask: f32 [S, S] or null. in_*:
+// the element strides of q, k, v and of dq, dk, dv; g_*: those of g (see
+// attn::Strides). stats: f32 scratch of 3 * B * heads * Sp elements, Sp =
+// S rounded up to 64.
 int attention_bwd(const void* q, const void* k, const void* v, const void* g,
                   const void* mask, void* dq, void* dk, void* dv, void* stats,
                   int B, int S, int heads, int dh, long long in_batch,
                   long long in_head, long long in_row, long long g_batch,
                   long long g_head, long long g_row, int dtype, float scale,
-                  void* stream) {
+                  void* stream, const void* in_geom, const void* g_geom,
+                  const void* st_geom) {
   const Strides in{in_batch, in_head, in_row}, gs{g_batch, g_head, g_row};
   return (int)dispatch_dh(dtype, q, k, v, g, (const float*)mask, dq, dk, dv,
                           (float*)stats, B, S, heads, dh, in, gs, scale,
-                          (cudaStream_t)stream);
+                          (cudaStream_t)stream, (const MapGeom*)in_geom,
+                          (const MapGeom*)g_geom, (const MapGeom*)st_geom);
+}
+
+// The bf16 backward's plan for one head of S rows on this card: out[0] and
+// out[1] the dq and dk/dv kernels' ring slots (0: does not fit), out[2]
+// the 64-row chunks (resident when a kernel's slots >= out[2], else
+// streamed), out[3] and out[4] their bytes of shared memory.
+int attention_bwd_plan(int S, int dh, int* out) {
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return (int)err;
+  int slots[2];
+  size_t smem[2];
+  switch (dh) {
+    case 16: bwd_plan<16>(S, limit, slots, smem); break;
+    case 32: bwd_plan<32>(S, limit, slots, smem); break;
+    case 64: bwd_plan<64>(S, limit, slots, smem); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  out[0] = slots[0];
+  out[1] = slots[1];
+  out[2] = (S + kRows - 1) / kRows;
+  out[3] = (int)smem[0];
+  out[4] = (int)smem[1];
+  return 0;
 }
 
 }  // extern "C"

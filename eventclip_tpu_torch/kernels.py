@@ -48,10 +48,16 @@ _SIGNATURES = {
         "event_histogram": [_P] + [_I] * 9 + [_P, _P],
     },
     "attention": {
-        "attention_fwd": [_P] * 5 + [_I] * 4 + _STRIDES * 2 + [_I, _F, _P],
+        # ..., stream, then the bf16 tensor maps' geometry (in, out)
+        "attention_fwd": [_P] * 5 + [_I] * 4 + _STRIDES * 2 + [_I, _F, _P]
+        + [_P] * 2,
+        "attention_fwd_plan": [_I, _I, _P],
     },
     "attention_bwd": {
-        "attention_bwd": [_P] * 9 + [_I] * 4 + _STRIDES * 2 + [_I, _F, _P],
+        # ..., stream, then the bf16 tensor maps' geometry (in, g, stats)
+        "attention_bwd": [_P] * 9 + [_I] * 4 + _STRIDES * 2 + [_I, _F, _P]
+        + [_P] * 3,
+        "attention_bwd_plan": [_I, _I, _P],
     },
 }
 

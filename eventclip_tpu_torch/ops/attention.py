@@ -16,13 +16,13 @@ Both go through `torch.library` custom ops (ops/custom_ops.py:
 gradients are `eventclip::qkv_attention_bwd` / `eventclip::attention_bwd`).
 On CUDA tensors the forward launches csrc/attention.cu and the backward
 csrc/attention_bwd.cu, each given the layout as element strides, so both
-layouts run the same kernels (or raise): bf16 on the tensor-core kernels,
-f32 on the CUDA-core ones. The
-forward kernels copy 16-byte pieces and so need every row start 16-byte
-aligned (checked here for both dtypes; the f32 backward takes any). On CPU
-tensors they take `attention_plain` /
-`attention_bwd_plain`, the same arithmetic in plain PyTorch, in the TPU
-kernels' order.
+layouts run the same kernels (or raise): bf16 on the wgmma kernels, whose
+operands TMA copies through tensor maps (`tma_map`, `stats_map` give
+their geometry), f32 on the CUDA-core ones. TMA and the f32 forward's
+16-byte copies need every row start 16-byte aligned (checked here for
+both dtypes; the f32 backward takes any). On CPU tensors they take
+`attention_plain` / `attention_bwd_plain`, the same arithmetic in plain
+PyTorch, in the TPU kernels' order.
 
 The additive mask's cotangent is never computed by the kernels: when the
 mask needs a gradient it comes from `mask_cotangent` in plain torch, as the
@@ -31,7 +31,10 @@ JAX package's `_mask_cotangent` takes it from its XLA backward.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -158,18 +161,26 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _on_device(t: torch.Tensor):
+    """The CUDA device context of `t` for a launch (a no-op when it is the
+    current device already, which saves host time at small shapes)."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
 def _strides_bhsd(t: torch.Tensor):
     """(batch, head, row) element strides of a [B, H, S, dh] view."""
     return t.stride(0), t.stride(1), t.stride(2)
 
 
 def _check_rows_aligned(dtype, layouts):
-    """Both kernels' cp.async copies move 16 bytes: every row start of
-    every operand must be 16-byte aligned. The towers' fused [B, S, 3D]
+    """TMA (bf16) and the f32 forward's cp.async copies need every row
+    start of every operand 16-byte aligned. The towers' fused [B, S, 3D]
     tensors always are (3D * dh a multiple of 16 bytes at dh 16, 32, 64),
     as are contiguous [B, H, S, dh] ones. layouts: (data pointers, (batch,
     head, row) element strides) pairs."""
-    esize = torch.tensor([], dtype=dtype).element_size()
+    esize = dtype.itemsize
     for ptrs, strides in layouts:
         if any(p % 16 for p in ptrs) or any(s * esize % 16 for s in strides):
             raise ValueError(
@@ -178,34 +189,134 @@ def _check_rows_aligned(dtype, layouts):
                 f"{tuple(strides)}")
 
 
+# -- TMA tensor maps of the bf16 kernels --------------------------------------
+
+TILE_ROWS = 64  # rows of one TMA box: wgmma's m and the kernels' key step
+
+
+class TmaMap(NamedTuple):
+    """The geometry of one rank-4 TMA tensor map (csrc/attention_common.cuh
+    `MapGeom`): `dims` in elements, innermost first; `strides` in bytes of
+    dims 1-3; the `box` one copy moves; `swizzle` in bytes (0: none)."""
+    dims: Tuple[int, int, int, int]
+    strides: Tuple[int, int, int]
+    box: Tuple[int, int, int, int]
+    swizzle: int
+
+    def as_ctypes(self):
+        return (ctypes.c_longlong * 12)(*self.dims, *self.strides, *self.box,
+                                        self.swizzle)
+
+
+def tma_map(B: int, S: int, heads: int, dh: int,
+            strides: Tuple[int, int, int]) -> TmaMap:
+    """The tensor map of one bf16 operand of the wgmma kernels, in any
+    layout given as (batch, head, row) element strides: dims (dh, S, heads,
+    B), byte strides (row, head, batch), a box of one head's 64 rows, and
+    the swizzle of one row (dh * 2 bytes: 32, 64 or 128), which the
+    kernels' wgmma descriptors read. One map covers the fused [B, S, 3D]
+    layout (a column block and a head's columns), a tensor-parallel rank's
+    [B, S, 3D/n] and [B, H, S, dh]; TMA reads rows past S (and the ragged
+    last box) as zeros, never the next batch's rows."""
+    if dh not in _HEAD_DIMS:
+        raise ValueError(f"head dim {dh} not in {_HEAD_DIMS}")
+    batch, head, row = (2 * s for s in strides)
+    if any(s % 16 for s in (row, head, batch)):
+        raise ValueError(
+            f"TMA strides must be 16-byte multiples, got {row}, {head} and "
+            f"{batch} bytes (row, head, batch)")
+    return TmaMap(dims=(dh, S, heads, B), strides=(row, head, batch),
+                  box=(dh, TILE_ROWS, 1, 1), swizzle=2 * dh)
+
+
+def stats_rows(S: int) -> int:
+    """The rows of one head in the backward's statistics scratch: S rounded
+    up to a whole box."""
+    return -(-S // TILE_ROWS) * TILE_ROWS
+
+
+def stats_map(bh: int, S: int) -> TmaMap:
+    """The tensor map of the bf16 backward's f32 statistics scratch, [3,
+    bh, stats_rows(S)] (the row max, 1 / sum and delta of every query row,
+    written by the dq kernel): a box is one head's 64 rows of all three."""
+    sp = stats_rows(S)
+    return TmaMap(dims=(sp, bh, 3, 1), strides=(4 * sp, 4 * bh * sp,
+                                                12 * bh * sp),
+                  box=(TILE_ROWS, 1, 3, 1), swizzle=0)
+
+
+def ring_plan(S: int, dh: int, device=None) -> dict:
+    """How the bf16 kernels hold one head of S rows on the card: each
+    kernel's ring slots, the 64-row chunks of its streamed operands, and
+    whether they are resident (every chunk in shared memory, copied once a
+    block) or streamed through the ring; the forward's plan first, then
+    the backward's dq and dk/dv kernels'. Asks the built libraries (the
+    rule reads the card's shared memory and the build's warpgroups)."""
+    out = (ctypes.c_int * 5)()
+    plans = {}
+    for name, fn, kinds in (("attention", "attention_fwd_plan", ("fwd",)),
+                            ("attention_bwd", "attention_bwd_plan",
+                             ("dq", "dkdv"))):
+        lib = kernels.library(name)
+        with torch.cuda.device(device):
+            kernels.check(lib, getattr(lib, fn)(S, dh, out), fn)
+        chunks = out[1] if name == "attention" else out[2]
+        for i, kind in enumerate(kinds):
+            slots = out[0] if name == "attention" else out[i]
+            smem = out[2] if name == "attention" else out[3 + i]
+            plans[kind] = dict(slots=slots, chunks=chunks, smem=smem,
+                               resident=slots >= chunks)
+    return plans
+
+
+@functools.lru_cache(maxsize=256)
+def _map_arg(B, S, heads, dh, strides):
+    """tma_map's geometry as the launchers' ctypes argument, built once a
+    shape (a launch costs host time that the small shapes feel)."""
+    return tma_map(B, S, heads, dh, strides).as_ctypes()
+
+
+@functools.lru_cache(maxsize=256)
+def _stats_arg(bh, S):
+    return stats_map(bh, S).as_ctypes()
+
+
 def _launch_fwd(ptrs, mask, out, B, S, heads, dh, in_strides,
                 out_strides):
     """ptrs: data pointers of q, k, v."""
     _check_rows_aligned(out.dtype, [(ptrs, in_strides),
                                     ((out.data_ptr(),), out_strides)])
+    geoms = (None, None)
+    if out.dtype == torch.bfloat16:
+        geoms = (_map_arg(B, S, heads, dh, tuple(in_strides)),
+                 _map_arg(B, S, heads, dh, tuple(out_strides)))
     lib = kernels.library("attention")
-    with torch.cuda.device(out.device):
+    with _on_device(out):
         rc = lib.attention_fwd(
             *ptrs, None if mask is None else mask.data_ptr(), out.data_ptr(),
             B, S, heads, dh, *in_strides, *out_strides,
-            _DTYPE_CODE[out.dtype], dh ** -0.5, _stream(out))
+            _DTYPE_CODE[out.dtype], dh ** -0.5, _stream(out), *geoms)
     kernels.check(lib, rc, "attention_fwd")
 
 
 def _launch_bwd(ptrs, mask, g, B, S, heads, dh, in_strides, g_strides):
     """ptrs: data pointers of q, k, v, dq, dk, dv."""
+    geoms = (None, None, None)
     if g.dtype == torch.bfloat16:  # the f32 backward copies 4 bytes at a time
         _check_rows_aligned(g.dtype, [(ptrs, in_strides),
                                       ((g.data_ptr(),), g_strides)])
-    stats = torch.empty(3 * B * heads * S, dtype=torch.float32,
+        geoms = (_map_arg(B, S, heads, dh, tuple(in_strides)),
+                 _map_arg(B, S, heads, dh, tuple(g_strides)),
+                 _stats_arg(B * heads, S))
+    stats = torch.empty(3 * B * heads * stats_rows(S), dtype=torch.float32,
                         device=g.device)
     q, k, v, dq, dk, dv = ptrs
     lib = kernels.library("attention_bwd")
-    with torch.cuda.device(g.device):
+    with _on_device(g):
         rc = lib.attention_bwd(
             q, k, v, g.data_ptr(), None if mask is None else mask.data_ptr(),
             dq, dk, dv, stats.data_ptr(), B, S, heads, dh, *in_strides,
-            *g_strides, _DTYPE_CODE[g.dtype], dh ** -0.5, _stream(g))
+            *g_strides, _DTYPE_CODE[g.dtype], dh ** -0.5, _stream(g), *geoms)
     kernels.check(lib, rc, "attention_bwd")
 
 

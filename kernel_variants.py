@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the shape choices of three CUDA kernels on one card.
+"""Time the shape choices of the CUDA kernels on one card.
 
-    python3 kernel_variants.py [forward] [backward] [histogram]
+    python3 kernel_variants.py [forward] [backward] [wgmma] [histogram]
+    python3 kernel_variants.py compare DIR
 
-(no argument: all three)
+(no argument: the first four)
 
 - The f32 attention forward (csrc/attention.cu, attention_f32_kernel):
   builds of the source with -DF32_ROWS (query rows a block, 16 .. 96),
@@ -19,9 +20,29 @@
   every variant is held to the plain version (dq, dk and dv apart) and to
   two bit-equal runs, beside the backward of torch's
   scaled_dot_product_attention and the bound.
+- The bf16 wgmma kernels (attention_wgmma_kernel; dq_wgmma_kernel +
+  dkdv_wgmma_kernel): builds with -DWGF_CONSUMERS / -DWGB_CONSUMERS
+  (consumer warpgroups a block), -DWGF_ROWS=128 (query rows a warpgroup
+  takes at once: two m64 products a step) and -DWGF_STAGES / -DWGB_STAGES
+  (a cap on the ring's slots: below a head's chunks its K and V, or Q and
+  G, stream through that many slots instead of staying resident), against
+  the default build, the forward at the serving [320, 257, 3072] and FT
+  [256, 257, 3072] shapes, the backward at the FT shape and [64, 257,
+  3072]; each held to the plain version (the backward also to two
+  bit-equal runs), beside torch's scaled_dot_product_attention (its
+  backward for K3) and the bound.
 - The event histogram (csrc/histogram.cu): clusters of 1 .. 16 CTAs in 1 to
   4 row bands at [320, 20000, 3] @ 180x240 and [256, 70000, 3] @ 480x640,
   each exact; the plan `histograms` launches is marked.
+- compare DIR: the bf16 K2 and K3 of this checkout against those of the
+  checkout at DIR (another commit of this repository, its kernels built
+  there), through the public wrappers `fused_qkv_attention` and
+  `qkv_attention_bwd`, at every bf16 shape the port's paths give them
+  (SHAPES), each held to its plain version; four processes in turn (DIR,
+  this, this, DIR), so both are timed on one card in one call. Every time
+  is the host's view of 20 launches back to back (CUDA events), which at
+  the small shapes is the launch's host cost: the device time of each
+  launch (torch.profiler) is printed beside it.
 
 Prints the card's name and power limit first, then the registers and
 spills of every kernel of every build as `nvcc -Xptxas -v` reports them.
@@ -38,19 +59,28 @@ import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# f32 attention builds: source -> (the kernels the defines change, {name ->
-# nvcc defines}); "default" is the library the wrappers load
+# builds: (part, source) -> (the kernels the defines change, {name -> nvcc
+# defines}); "default" is the library the wrappers load
 VARIANTS = {
-    "attention.cu": ("attention_f32_kernel", {
+    ("forward", "attention.cu"): ("attention_f32_kernel", {
         "default": [], "min_blocks=1": ["-DF32_MIN_BLOCKS=1"],
         "unroll=1": ["-DF32_UNROLL=1"],
         **{f"rows={r}": [f"-DF32_ROWS={r}"]
            for r in (16, 32, 48, 64, 80, 96)}}),
-    "attention_bwd.cu": ("_f32_kernel", {
+    ("backward", "attention_bwd.cu"): ("_f32_kernel", {
         "default": [], "min_blocks=1": ["-DF32B_MIN_BLOCKS=1"],
         "unroll=1": ["-DF32B_UNROLL=1"], "unroll=2": ["-DF32B_UNROLL=2"],
         **{f"rows={r}": [f"-DF32B_ROWS={r}"] for r in (32, 48, 64, 80)},
         **{f"keys={r}": [f"-DF32B_KEYS={r}"] for r in (32, 48, 64, 80)}}),
+    ("wgmma", "attention.cu"): ("attention_wgmma_kernel", {
+        "default": [],
+        **{f"consumers={c}": [f"-DWGF_CONSUMERS={c}"] for c in (1, 3, 4)},
+        "rows=128": ["-DWGF_ROWS=128"],
+        **{f"stages={n}": [f"-DWGF_STAGES={n}"] for n in (2, 3)}}),
+    ("wgmma", "attention_bwd.cu"): ("_wgmma_kernel", {
+        "default": [],
+        **{f"consumers={c}": [f"-DWGB_CONSUMERS={c}"] for c in (2, 3)},
+        **{f"stages={n}": [f"-DWGB_STAGES={n}"] for n in (2, 3)}}),
 }
 
 
@@ -65,8 +95,11 @@ def print_registers(label: str, log: str) -> None:
                 if ident.endswith("kernel") and ident.isidentifier():
                     name = ident
             dh = re.search(r"ILi(\d+)E", line)
+            masked = re.search(r"ILi\d+ELb([01])E", line)
             name = name and name + (f"<{dh.group(1)}>" if dh else
                                     "<int16>" if "IsE" in line else "<f32>")
+            if name and masked:
+                name += " masked" if masked.group(1) == "1" else ""
         spill = re.search(r"(\d+) bytes spill stores", line)
         if spill and name:
             stores = spill.group(1)
@@ -77,36 +110,122 @@ def print_registers(label: str, log: str) -> None:
             name = None
 
 
-def build(kernels, tmp: str, sources):
-    """Every source, and every variant of `sources`, at once with -Xptxas
-    -v; returns {source: {variant: library path}} for `sources`."""
-    jobs = {src: (os.path.join(tmp, f"{src}.so"), src, [])
+def build(kernels, tmp: str, families):
+    """Every source, and every variant of the `families` ((part, source)
+    keys of VARIANTS), at once with -Xptxas -v; returns {family: {variant:
+    library path}}."""
+    jobs = {src: (os.path.join(tmp, f"{src}.so"), src, [], None)
             for src in kernels.SOURCES.values()}
-    for src in sources:
-        variants = VARIANTS[src][1]
-        for name, defines in variants.items():
+    for fam in families:
+        src = fam[1]
+        for name, defines in VARIANTS[fam][1].items():
             if defines:
                 jobs[f"{src} {name}"] = (
-                    os.path.join(tmp, f"{src}-{name}.so"), src, defines)
+                    os.path.join(tmp, f"{src}-{name}.so"), src, defines, fam)
     procs = {label: subprocess.Popen(
         [kernels.nvcc_path(), *kernels.NVCC_FLAGS, *defines, "-Xptxas", "-v",
          "-o", out, os.path.join(kernels.CSRC, src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for label, (out, src, defines) in jobs.items()}
+        for label, (out, src, defines, _) in jobs.items()}
     for label, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {label}:\n{log}")
-        if label in kernels.SOURCES.values():
+        fam = jobs[label][3]
+        if fam is None:
             print_registers(label, log)
         else:  # only the kernels the variant changes
-            marker = VARIANTS[jobs[label][1]][0]
+            marker = VARIANTS[fam][0]
             print_registers(label, "\n".join(
                 line for line in log.splitlines()
                 if marker in line or "Used" in line or "spill" in line))
-    return {src: {name: jobs[f"{src} {name}" if defines else src][0]
-                  for name, defines in VARIANTS[src][1].items()}
-            for src in sources}
+    return {fam: {name: jobs[f"{fam[1]} {name}" if defines else fam[1]][0]
+                  for name, defines in VARIANTS[fam][1].items()}
+            for fam in families}
+
+
+# bf16 K2 / K3 shapes of the port's paths: (path, B, S, heads, width D)
+SHAPES = [
+    ("serve", 320, 257, 16, 1024), ("eval / teacher", 640, 257, 16, 1024),
+    ("FT", 256, 257, 16, 1024), ("FS / ddp FT", 64, 257, 16, 1024),
+    ("split part", 160, 257, 16, 1024), ("pruned", 320, 129, 16, 1024),
+    ("TP rank", 16, 257, 8, 512), ("ZeRO-1 rank", 8, 257, 16, 1024),
+    ("ViT-L/14@336", 32, 577, 16, 1024), ("text bf16", 101, 77, 12, 768),
+]
+BACKWARD = {"FT", "FS / ddp FT", "TP rank", "ZeRO-1 rank", "ViT-L/14@336",
+            "text bf16"}
+
+
+def time_shapes(root: str) -> dict:
+    """K2 (and K3 where a path trains) at SHAPES through the public wrappers
+    of the package under `root`: {path: {fwd, fwd_device_us, bwd,
+    bwd_device_us}} in ms / us."""
+    import torch
+
+    sys.path.insert(0, root)
+    from chip_smoke import ATOL, REL, cuda_ms, hold
+    from eventclip_tpu_torch.models.clip.model import causal_mask
+    from eventclip_tpu_torch.ops import attention as A
+
+    def device_us(fn):
+        prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.device_time_total for e in prof.key_averages()
+                   if "attention" in e.key or "dq_" in e.key
+                   or "dkdv" in e.key) / 5
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for path, B, S, heads, D in SHAPES:
+        qkv = torch.randn((B, S, 3 * D), generator=gen, device=dev).bfloat16()
+        mask = causal_mask(S, device=dev) if path == "text bf16" else None
+        hold(path, [A.fused_qkv_attention(qkv, heads, mask)],
+             [A.qkv_attention_plain(qkv, heads, mask)], "bfloat16")
+        row = out[path] = dict(
+            fwd=cuda_ms(lambda: A.fused_qkv_attention(qkv, heads, mask)),
+            fwd_device_us=device_us(
+                lambda: A.fused_qkv_attention(qkv, heads, mask)))
+        if path in BACKWARD:
+            g = torch.randn((B, S, D), generator=gen, device=dev).bfloat16()
+            hold(path, A.qkv_attention_bwd(qkv, g, heads, mask).split(D, -1),
+                 A.qkv_attention_bwd_plain(qkv, g, heads, mask).split(D, -1),
+                 "bfloat16")
+            row.update(
+                bwd=cuda_ms(lambda: A.qkv_attention_bwd(qkv, g, heads, mask)),
+                bwd_device_us=device_us(
+                    lambda: A.qkv_attention_bwd(qkv, g, heads, mask)))
+        del qkv
+        torch.cuda.empty_cache()
+    return out
+
+
+def compare(other: str) -> None:
+    """The bf16 attention kernels of `other` and of this checkout, timed in
+    four processes in turn (other, this, this, other)."""
+    import json
+
+    runs = []
+    for root in (other, HERE, HERE, other):
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--shapes", root],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"timing {root} failed:\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    for path, *_ in SHAPES:
+        for key, unit in (("fwd", "K2"), ("bwd", "K3")):
+            if key not in runs[0][path]:
+                continue
+            cells = [f"{r[path][key]:.4f} ms ({r[path][key + '_device_us']:.1f}"
+                     " us on the device)" for r in runs]
+            print(f"{unit} {path}: other {cells[0]}, this {cells[1]}, this "
+                  f"{cells[2]}, other {cells[3]}", flush=True)
 
 
 def main(argv) -> int:
@@ -115,26 +234,38 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 2
-    parts = argv or ["forward", "backward", "histogram"]
+    if argv[:1] == ["--shapes"]:  # one process of `compare`
+        import json
+
+        print(json.dumps(time_shapes(os.path.abspath(argv[1]))), flush=True)
+        return 0
     sys.path.insert(0, HERE)
+    if argv[:1] == ["compare"]:
+        from chip_smoke import gpu_line
+
+        print(gpu_line(), flush=True)
+        compare(os.path.abspath(argv[1]))
+        return 0
+    parts = argv or ["forward", "backward", "wgmma", "histogram"]
     from chip_smoke import gpu_line
     from eventclip_tpu_torch import kernels
 
     print(gpu_line(), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    sources = [src for part, src in (("forward", "attention.cu"),
-                                     ("backward", "attention_bwd.cu"))
-               if part in parts]
+    families = [fam for fam in VARIANTS if fam[0] in parts]
     with tempfile.TemporaryDirectory() as tmp:
-        paths = build(kernels, tmp, sources)
-        libs = {src: {name: kernels.load(path, kernels_name(kernels, src))
+        paths = build(kernels, tmp, families)
+        libs = {fam: {name: kernels.load(path, kernels_name(kernels, fam[1]))
                       for name, path in builds.items()}
-                for src, builds in paths.items()}
+                for fam, builds in paths.items()}
     if "forward" in parts:
-        time_forward(libs["attention.cu"], gen, dev)
+        time_forward(libs["forward", "attention.cu"], gen, dev)
     if "backward" in parts:
-        time_backward(libs["attention_bwd.cu"], gen, dev)
+        time_backward(libs["backward", "attention_bwd.cu"], gen, dev)
+    if "wgmma" in parts:
+        time_wgmma(libs["wgmma", "attention.cu"],
+                   libs["wgmma", "attention_bwd.cu"], gen, dev)
     if "histogram" in parts:
         time_histogram(gen, dev)
     return 0
@@ -161,7 +292,7 @@ def time_forward(libs, gen, dev):
         rc = lib.attention_fwd(
             *A._column_blocks(qkv), None if mask is None else mask.data_ptr(),
             out.data_ptr(), B, S, heads, dh, S * D3, dh, D3, S * D, dh, D, 0,
-            dh ** -0.5, torch.cuda.current_stream().cuda_stream)
+            dh ** -0.5, torch.cuda.current_stream().cuda_stream, None, None)
         kernels.check(lib, rc, "attention_fwd")
         return out
 
@@ -213,7 +344,7 @@ def time_backward(libs, gen, dev):
             None if mask is None else mask.data_ptr(),
             *A._column_blocks(dqkv), stats.data_ptr(), B, S, heads, dh,
             S * D3, dh, D3, S * D, dh, D, 0, dh ** -0.5,
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream, None, None, None)
         kernels.check(lib, rc, "attention_bwd")
         return dqkv
 
@@ -248,6 +379,93 @@ def time_backward(libs, gen, dev):
             times.append(f"{name}: {ms:.4f} (err {err:.3g}, rel "
                          f"{max(rel):.3g})")
         print(f"K3 f32 [{B}, {S}, {3 * D}] causal={causal}: ms by build "
+              f"{', '.join(times)}; sdpa backward {sdpa:.4f}; bound "
+              f"{bound:.4f} ({by})", flush=True)
+
+
+def time_wgmma(fwd_libs, bwd_libs, gen, dev):
+    import torch
+    import torch.nn.functional as F
+
+    from chip_smoke import attention_bound, cuda_ms, hold
+    from eventclip_tpu_torch import kernels
+    from eventclip_tpu_torch.ops import attention as A
+
+    def maps(B, S, heads, dh, D):
+        return (A.tma_map(B, S, heads, dh, (S * 3 * D, dh, 3 * D)),
+                A.tma_map(B, S, heads, dh, (S * D, dh, D)))
+
+    def forward(lib, qkv, heads):
+        B, S, D3 = qkv.shape
+        D = D3 // 3
+        dh = D // heads
+        out = torch.empty((B, S, D), dtype=qkv.dtype, device=dev)
+        rc = lib.attention_fwd(
+            *A._column_blocks(qkv), None, out.data_ptr(), B, S, heads, dh,
+            S * D3, dh, D3, S * D, dh, D, 1, dh ** -0.5,
+            torch.cuda.current_stream().cuda_stream,
+            *(m.as_ctypes() for m in maps(B, S, heads, dh, D)))
+        kernels.check(lib, rc, "attention_fwd")
+        return out
+
+    def backward(lib, qkv, g, heads):
+        B, S, D3 = qkv.shape
+        D = D3 // 3
+        dh = D // heads
+        dqkv = torch.empty_like(qkv)
+        stats = torch.empty(3 * B * heads * A.stats_rows(S), device=dev)
+        in_map, g_map = maps(B, S, heads, dh, D)
+        rc = lib.attention_bwd(
+            *A._column_blocks(qkv), g.data_ptr(), None,
+            *A._column_blocks(dqkv), stats.data_ptr(), B, S, heads, dh,
+            S * D3, dh, D3, S * D, dh, D, 1, dh ** -0.5,
+            torch.cuda.current_stream().cuda_stream, in_map.as_ctypes(),
+            g_map.as_ctypes(), A.stats_map(B * heads, S).as_ctypes())
+        kernels.check(lib, rc, "attention_bwd")
+        return dqkv
+
+    for B, S in ((320, 257), (256, 257)):
+        qkv = torch.randn((B, S, 3072), generator=gen, device=dev).bfloat16()
+        want = A.qkv_attention_plain(qkv, 16)
+        q, k, v = (t.reshape(B, S, 16, 64).transpose(1, 2).contiguous()
+                   for t in qkv.split(1024, -1))
+        sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                       iters=50)
+        bound, by = attention_bound(B * S * 4096 * 2,
+                                    4 * B * 16 * S * S * 64, "bfloat16")
+        times = []
+        for name, lib in fwd_libs.items():
+            got = forward(lib, qkv, 16)
+            torch.cuda.synchronize()
+            err, rel = hold(name, [got], [want], "bfloat16")
+            ms = cuda_ms(lambda: forward(lib, qkv, 16), iters=50)
+            times.append(f"{name}: {ms:.4f} (err {err:.3g}, rel {max(rel):.3g})")
+        print(f"K2 bf16 [{B}, {S}, 3072]: ms by build {', '.join(times)}; "
+              f"sdpa {sdpa:.4f}; bound {bound:.4f} ({by})", flush=True)
+    for B, S in ((256, 257), (64, 257)):
+        qkv = torch.randn((B, S, 3072), generator=gen, device=dev).bfloat16()
+        g = torch.randn((B, S, 1024), generator=gen, device=dev).bfloat16()
+        want = A.qkv_attention_bwd_plain(qkv, g, 16).split(1024, -1)
+        q, k, v = (t.reshape(B, S, 16, 64).transpose(1, 2).contiguous()
+                   .requires_grad_() for t in qkv.split(1024, -1))
+        gh = g.reshape(B, S, 16, 64).transpose(1, 2).contiguous()
+        out = F.scaled_dot_product_attention(q, k, v)
+        sdpa = cuda_ms(lambda: torch.autograd.grad(
+            out, (q, k, v), gh, retain_graph=True))
+        del out
+        bound, by = attention_bound(B * S * 7 * 1024 * 2,
+                                    10 * B * 16 * S * S * 64, "bfloat16")
+        times = []
+        for name, lib in bwd_libs.items():
+            got = backward(lib, qkv, g, 16)
+            torch.cuda.synchronize()
+            if not torch.equal(got, backward(lib, qkv, g, 16)):
+                raise AssertionError(f"K3 bf16 {name}: two runs differ")
+            err, rel = hold(name, got.split(1024, -1), want, "bfloat16")
+            ms = cuda_ms(lambda: backward(lib, qkv, g, 16))
+            times.append(f"{name}: {ms:.4f} (err {err:.3g}, rel "
+                         f"{max(rel):.3g})")
+        print(f"K3 bf16 [{B}, {S}, 3072] + g: ms by build "
               f"{', '.join(times)}; sdpa backward {sdpa:.4f}; bound "
               f"{bound:.4f} ({by})", flush=True)
 

@@ -135,3 +135,138 @@ def test_bf16_rows_must_be_16_byte_aligned(ptrs, strides, ok_bf16, ok_f32):
             with pytest.raises(ValueError, match="16-byte aligned"):
                 _check_rows_aligned(dtype, [((0,), (0, 0, 0)),
                                             (ptrs, strides)])
+
+
+# -- the bf16 kernels' TMA tensor maps (ops/attention.py tma_map) ------------
+
+
+def _layout_strides(layout, B, S, heads, dh):
+    """(batch, head, row) element strides of one operand, as the launchers
+    give them: the fused qkv [B, S, 3D], a tensor-parallel rank's [B, S,
+    3D/2] of the same model (half the heads), and [B, H, S, dh]."""
+    D = heads * dh
+    if layout == "fused":
+        return (S * 3 * D, dh, 3 * D)
+    if layout == "tp slice":
+        return (S * 3 * D // 2, dh, 3 * D // 2)
+    return (heads * S * dh, S * dh, dh)
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64])
+@pytest.mark.parametrize("layout", ["fused", "tp slice", "[B, H, S, dh]"])
+def test_tma_map_geometry_of_each_layout(layout, dh):
+    from eventclip_tpu_torch.ops.attention import tma_map
+
+    B, S, heads = 3, 257, 16
+    if layout == "tp slice":
+        heads //= 2  # the rank's heads
+    strides = _layout_strides(layout, B, S, 2 * heads if layout == "tp slice"
+                              else heads, dh)
+    m = tma_map(B, S, heads, dh, strides)
+    # dims innermost first: a head's columns, its rows (S: TMA zero-fills
+    # the ragged last box), the heads, the batch
+    assert m.dims == (dh, S, heads, B)
+    # byte strides of a row, a head and a batch, each a multiple of 16
+    assert m.strides == (2 * strides[2], 2 * strides[1], 2 * strides[0])
+    assert all(s % 16 == 0 for s in m.strides)
+    # one copy: 64 rows of one head
+    assert m.box == (dh, 64, 1, 1)
+    # the swizzle of one row: the wgmma descriptors read it
+    assert m.swizzle == {16: 32, 32: 64, 64: 128}[dh] == 2 * dh
+    assert list(m.as_ctypes()) == [*m.dims, *m.strides, *m.box, m.swizzle]
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64])
+def test_tma_map_of_the_output_and_gradient_layouts(dh):
+    # the fused forward's [B, S, D] output and the backward's [B, S, D]
+    # output gradient share one geometry; [B, H, S, dh] out is q's
+    from eventclip_tpu_torch.ops.attention import tma_map
+
+    B, S, heads = 2, 77, 12
+    D = heads * dh
+    m = tma_map(B, S, heads, dh, (S * D, dh, D))
+    assert m.dims == (dh, S, heads, B)
+    assert m.strides == (2 * D, 2 * dh, 2 * S * D)
+
+
+@pytest.mark.parametrize("dh", [8, 48, 128])
+def test_tma_map_refuses_an_unsupported_head_dim(dh):
+    from eventclip_tpu_torch.ops.attention import tma_map
+
+    with pytest.raises(ValueError, match="head dim"):
+        tma_map(2, 17, 2, dh, (17 * 6 * dh, dh, 6 * dh))
+
+
+@pytest.mark.parametrize("strides", [
+    (9 * 1538, 64, 1538),  # a row of 3076 bytes
+    (9 * 3072, 4, 3072),  # a head 8 bytes after the last
+    (9 * 3072 + 1, 64, 3072),  # a batch 2 bytes past 16
+])
+def test_tma_map_refuses_strides_off_16_bytes(strides):
+    from eventclip_tpu_torch.ops.attention import tma_map
+
+    with pytest.raises(ValueError, match="16-byte"):
+        tma_map(2, 9, 16, 64, strides)
+
+
+@pytest.mark.parametrize("S", [1, 64, 65, 257])
+def test_stats_map_covers_whole_boxes_of_every_head(S):
+    from eventclip_tpu_torch.ops.attention import stats_map, stats_rows
+
+    bh = 6
+    sp = stats_rows(S)
+    assert sp % 64 == 0 and sp - 64 < S <= sp
+    m = stats_map(bh, S)
+    # [3, bh, sp] f32: a box is one head's 64 rows of m, 1 / sum, delta
+    assert m.dims == (sp, bh, 3, 1)
+    assert m.strides == (4 * sp, 4 * bh * sp, 12 * bh * sp)
+    assert m.box == (64, 1, 3, 1) and m.swizzle == 0
+
+
+def _recording_library(monkeypatch, calls):
+    """Launchers run against a stand-in library that records its
+    arguments (there is no card here)."""
+    import contextlib
+
+    from eventclip_tpu_torch import kernels
+    from eventclip_tpu_torch.ops import attention as A
+
+    class Lib:
+        def __getattr__(self, name):
+            def record(*args):
+                calls.append((name, args))
+                return 0
+            return record
+
+    monkeypatch.setattr(kernels, "library", lambda name: Lib())
+    monkeypatch.setattr(A, "_stream", lambda t: 0)
+    monkeypatch.setattr(A, "_on_device", lambda t: contextlib.nullcontext())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_launchers_pass_the_tma_maps_to_the_bf16_kernels(monkeypatch, dtype):
+    # the fused forward and backward hand the kernels tma_map's geometry of
+    # q/k/v (and dq/dk/dv), of the output or output gradient and of the
+    # statistics scratch; the f32 kernels get none
+    from eventclip_tpu_torch.ops import attention as A
+
+    calls = []
+    _recording_library(monkeypatch, calls)
+    B, S, heads, dh = 2, 65, 2, 32
+    D = heads * dh
+    qkv = torch.zeros((B, S, 3 * D), dtype=dtype)
+    A.launch_qkv_attention(qkv, heads, None)
+    A.launch_qkv_attention_bwd(qkv, torch.zeros((B, S, D), dtype=dtype),
+                               heads, None)
+    (fwd, fargs), (bwd, bargs) = calls
+    assert (fwd, bwd) == ("attention_fwd", "attention_bwd")
+    if dtype == torch.float32:
+        assert fargs[-2:] == (None, None) and bargs[-3:] == (None,) * 3
+        return
+    qkv_map = A.tma_map(B, S, heads, dh, (S * 3 * D, dh, 3 * D))
+    out_map = A.tma_map(B, S, heads, dh, (S * D, dh, D))
+    assert [list(g) for g in fargs[-2:]] == [list(qkv_map.as_ctypes()),
+                                            list(out_map.as_ctypes())]
+    assert [list(g) for g in bargs[-3:]] == [
+        list(qkv_map.as_ctypes()), list(out_map.as_ctypes()),
+        list(A.stats_map(B * heads, S).as_ctypes())]

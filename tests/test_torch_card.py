@@ -14,9 +14,12 @@ near a rounding boundary lands one bf16 ulp apart) and to a norm-relative
 ||kernel - plain|| / ||plain||, which in bf16 tells the TPU kernels'
 rounding order from others that the max-abs limit lets through (checked
 here on the CPU). The backward kernel is also held to give the same bits
-on two runs (no atomics). bf16 runs on the tensor-core kernels: their
-cases cover every head dim, ragged 64-row tiles and 16-key steps, the
-causal mask and both layouts, and the pruned serving shape (S = 129).
+on two runs (no atomics). bf16 runs on the wgmma kernels (TMA copies
+through tensor maps): their cases cover every head dim, ragged 64-row
+tiles and 16-key steps, the causal mask and both layouts, the pruned
+serving shape (S = 129), each kernel's largest S whose operands stay
+resident in shared memory and one row more (streamed through its ring),
+and a tensor-parallel slice whose k and v blocks start at an odd head.
 The W8A8 int8 product (`torch._int_mm`, a library call, not a kernel of
 this repository) is held bit-equal to the CPU route at ViT-L/14's widths,
 among them `patch_embed`'s K = 588, which the card takes only padded.
@@ -377,10 +380,11 @@ def _bf16_inputs(gen, shape, n, device):
 
 
 @pytest.mark.parametrize("dh", [16, 32, 64])
-@pytest.mark.parametrize("S", [1, 17, 63, 64, 65, 257, 577])
+@pytest.mark.parametrize("S", [1, 17, 63, 64, 65, 129, 257, 577])
 def test_bf16_tensor_core_kernels_match_plain_on_card(cuda, S, dh):
-    # S below, at and past one 64-row tile and one 16-key step, ViT-L/14's
-    # 257 and ViT-L/14@336's 577, fused layout
+    # S below, at and past one 64-row tile and one 16-key step, the pruned
+    # serving shape's 129, ViT-L/14's 257 and ViT-L/14@336's 577, fused
+    # layout
     gen = torch.Generator(device=cuda).manual_seed(S * dh)
     heads = 2
     qkv, g = _bf16_inputs(gen, (2, S, 3 * heads * dh), 1, cuda) + \
@@ -431,6 +435,62 @@ def test_bf16_causal_fused_kernels_match_plain_on_card(cuda, dh):
     _assert_matches(got.split(heads * dh, -1),
                     qkv_attention_bwd_plain(qkv, g, heads, mask)
                     .split(heads * dh, -1), torch.bfloat16)
+
+
+def _resident_limits(dh, device):
+    """Each bf16 kernel's largest S whose streamed operands it holds in
+    shared memory (resident), from the plan the libraries give."""
+    from eventclip_tpu_torch.ops.attention import ring_plan
+
+    limits = {}
+    for kind in ("fwd", "dq", "dkdv"):
+        lo, hi = 1, 256  # in 64-row chunks: resident at lo, not at hi
+        assert ring_plan(64 * lo, dh, device)[kind]["resident"]
+        assert not ring_plan(64 * hi, dh, device)[kind]["resident"]
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            if ring_plan(64 * mid, dh, device)[kind]["resident"]:
+                lo = mid
+            else:
+                hi = mid
+        limits[kind] = 64 * lo
+    return limits
+
+
+@pytest.mark.parametrize("layout", ["fused", "[B, H, S, dh]"])
+@pytest.mark.parametrize("dh", [16, 64])
+def test_bf16_kernels_on_both_sides_of_the_resident_limit(cuda, dh, layout):
+    # at each kernel's largest resident S and one row more, where that
+    # kernel streams its operands through the ring instead: forward and
+    # backward held to the plain versions, the backward twice, bit-equal
+    from eventclip_tpu_torch.ops.attention import ring_plan
+
+    limits = _resident_limits(dh, cuda)
+    heads = 2
+    for kind, limit in limits.items():
+        for S in (limit, limit + 1):
+            assert ring_plan(S, dh, cuda)[kind]["resident"] == (S == limit)
+            gen = torch.Generator(device=cuda).manual_seed(S + dh)
+            if layout == "fused":
+                qkv, g = _bf16_inputs(gen, (1, S, 3 * heads * dh), 1, cuda) + \
+                    _bf16_inputs(gen, (1, S, heads * dh), 1, cuda)
+                _assert_matches([fused_qkv_attention(qkv, heads)],
+                                [qkv_attention_plain(qkv, heads)],
+                                torch.bfloat16)
+                got = qkv_attention_bwd(qkv, g, heads)
+                assert torch.equal(got, qkv_attention_bwd(qkv, g, heads))
+                _assert_matches(got.split(heads * dh, -1),
+                                qkv_attention_bwd_plain(qkv, g, heads)
+                                .split(heads * dh, -1), torch.bfloat16)
+            else:
+                q, k, v, g = _bf16_inputs(gen, (1, heads, S, dh), 4, cuda)
+                _assert_matches([multi_head_attention(q, k, v)],
+                                [attention_plain(q, k, v)], torch.bfloat16)
+                got = attention_bwd(q, k, v, g)
+                for a, b in zip(got, attention_bwd(q, k, v, g)):
+                    assert torch.equal(a, b)
+                _assert_matches(got, attention_bwd_plain(q, k, v, g),
+                                torch.bfloat16)
 
 
 def test_misaligned_bf16_rows_raise_on_card(cuda):
@@ -783,6 +843,30 @@ def test_tp_attention_matches_plain_on_card(cuda, dtype):
     _assert_matches([out.detach()], [qkv_attention_plain(qkv, 8)], dtype)
     _assert_matches(x.grad.split(512, -1),
                     qkv_attention_bwd_plain(qkv, g, 8).split(512, -1), dtype)
+
+
+@pytest.mark.parametrize("dh", [16, 64])
+def test_tp_slice_at_an_odd_head_matches_plain_on_card(cuda, dh):
+    """A model rank of 6 heads over two: the rank's fused [B, S, 3 * 3 dh]
+    has its k and v column blocks start at its third head (96 or 384 bytes
+    into a row, off the 128-byte lines the tensor maps' swizzle spans),
+    forward and gradient held to the plain versions at 3 heads."""
+    from eventclip_tpu_torch.ops.attention import tp_fused_qkv_attention
+    from eventclip_tpu_torch.parallel.sharding import TPContext
+
+    tp = TPContext(n_data=1, n_model=2, data_index=0, model_index=1)
+    gen = torch.Generator(device=cuda).manual_seed(5 + dh)
+    D = 3 * dh  # the rank's width
+    qkv, g = _bf16_inputs(gen, (4, 257, 3 * D), 1, cuda) + \
+        _bf16_inputs(gen, (4, 257, D), 1, cuda)
+    x = qkv.clone().requires_grad_()
+    out = tp_fused_qkv_attention(x, 6, tp)
+    out.backward(g)
+    _assert_matches([out.detach()], [qkv_attention_plain(qkv, 3)],
+                    torch.bfloat16)
+    _assert_matches(x.grad.split(D, -1),
+                    qkv_attention_bwd_plain(qkv, g, 3).split(D, -1),
+                    torch.bfloat16)
 
 
 def test_local_split_on_one_card_twice(cuda):
