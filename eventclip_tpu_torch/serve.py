@@ -66,6 +66,7 @@ from .ops.quant import calibrate_visual_amax, quantize_classifier_params
 from .ops.rasterize import RasterSpec, rasterize_for_clip
 from .parallel.local import LocalSplit, local_devices
 from .utils.config import load_params
+from .utils.spans import span
 
 
 class Predictor:
@@ -199,51 +200,58 @@ class Predictor:
     def _canonical(self, events: np.ndarray) -> tuple:
         """Validate one stream -> (an own float32 copy with ±1 polarity,
         the rng seeded from its content)."""
-        # own copy: the polarity remap below is in place and must never
-        # mutate the caller's array (or the content hash)
-        events = np.array(events, dtype=np.float32, copy=True)
-        assert events.ndim == 2 and events.shape[1] == 4, (
-            f"expected [n, 4] x/y/t/p events, got {events.shape}"
-        )
-        if events.shape[0] == 0:
-            raise ValueError(
-                "empty event stream (0 events) — an idle sensor window has "
-                "no defined prediction; filter empty streams before predict()"
+        with span("serve.canonical"):
+            # own copy: the polarity remap below is in place and must never
+            # mutate the caller's array (or the content hash)
+            events = np.array(events, dtype=np.float32, copy=True)
+            assert events.ndim == 2 and events.shape[1] == 4, (
+                f"expected [n, 4] x/y/t/p events, got {events.shape}"
             )
-        if events[:, 3].min() >= -0.5:
-            # 0/1 polarity encoding -> ±1 (the rasterizer treats p == 0 as
-            # padding, so unmapped 0/1 would drop every negative event)
-            events[:, 3] = np.where(events[:, 3] <= 0.5, -1.0, 1.0)
+            if events.shape[0] == 0:
+                raise ValueError(
+                    "empty event stream (0 events) — an idle sensor window "
+                    "has no defined prediction; filter empty streams before "
+                    "predict()"
+                )
+            if events[:, 3].min() >= -0.5:
+                # 0/1 polarity encoding -> ±1 (the rasterizer treats p == 0
+                # as padding, so unmapped 0/1 would drop every negative
+                # event)
+                events[:, 3] = np.where(events[:, 3] <= 0.5, -1.0, 1.0)
         # view subsampling must be deterministic and independent of the
         # stream's position in the request: seed from the stream content
-        rng = np.random.default_rng(
-            zlib.crc32(np.ascontiguousarray(events).tobytes())
-        )
+        with span("serve.seed"):
+            rng = np.random.default_rng(
+                zlib.crc32(np.ascontiguousarray(events).tobytes())
+            )
         return events, rng
 
     def _prep(self, events: np.ndarray) -> tuple:
         """Validate + canonicalize + center one stream -> (events, rng)."""
         events, rng = self._canonical(events)
-        return prepare_stream(events, self.resolution), rng
+        with span("serve.centre"):
+            return prepare_stream(events, self.resolution), rng
 
     def _windows(self, events: np.ndarray) -> tuple:
         events, rng = self._prep(events)
-        return gather_event_windows(
-            events, self.window, self.views, rng=rng, packed=True
-        )
+        with span("serve.window"):
+            return gather_event_windows(
+                events, self.window, self.views, rng=rng, packed=True
+            )
 
     def _windows_tta(self, events: np.ndarray) -> tuple:
         """4 variants -> ([4, V, N, 3] int16, [4, V] bool) in the order
         identity, h-flip, t-flip, both; the 4 gathers consume ONE
         content-seeded rng in sequence (the dataset's TTA draw order)."""
         events, rng = self._prep(events)
-        pairs = [
-            gather_event_windows(v, self.window, self.views, rng=rng,
-                                 packed=True)
-            for v in tta_variants(events, self.resolution)
-        ]
-        return (np.stack([w for w, _ in pairs]),
-                np.stack([m for _, m in pairs]))
+        with span("serve.window"):
+            pairs = [
+                gather_event_windows(v, self.window, self.views, rng=rng,
+                                     packed=True)
+                for v in tta_variants(events, self.resolution)
+            ]
+            return (np.stack([w for w, _ in pairs]),
+                    np.stack([m for _, m in pairs]))
 
     # -- public API ----------------------------------------------------------
 
@@ -265,32 +273,37 @@ class Predictor:
                 "probs": np.zeros((0, n_cls), np.float32),
                 "topk": np.zeros((0, min(top_k, n_cls)), np.int64),
             }
-        wins, valids = self.gather_windows(event_streams)
-        return self.predict_windows(wins, valids, top_k=top_k)
+        # one root span over both halves (utils/spans.py)
+        with span("serve.predict"):
+            wins, valids = self.gather_windows(event_streams)
+            return self.predict_windows(wins, valids, top_k=top_k)
 
     def gather_windows(self, event_streams) -> tuple:
         """Host half: validate + window every stream -> stacked
         ([B, V, N, 3] int16, [B, V] bool); with tta=True every stream
         contributes 4 consecutive variant rows ([B*4, ...])."""
         windower = self._windows_tta if self.tta else self._windows
-        pairs = []
-        for i, e in enumerate(event_streams):
-            try:
-                pairs.append(windower(e))
-            except (ValueError, AssertionError) as err:
-                raise ValueError(f"event_streams[{i}]: {err}") from None
-        wins, valids = zip(*pairs)
-        wins, valids = np.stack(wins), np.stack(valids)
-        if self.tta:  # [B, 4, V, ...] -> [B*4, V, ...], variant-major rows
-            wins = wins.reshape((-1,) + wins.shape[2:])
-            valids = valids.reshape((-1,) + valids.shape[2:])
+        with span("serve.gather_windows"):
+            pairs = []
+            for i, e in enumerate(event_streams):
+                try:
+                    pairs.append(windower(e))
+                except (ValueError, AssertionError) as err:
+                    raise ValueError(f"event_streams[{i}]: {err}") from None
+            with span("serve.stack"):
+                wins, valids = zip(*pairs)
+                wins, valids = np.stack(wins), np.stack(valids)
+            if self.tta:  # [B, 4, V, ...] -> [B*4, V, ...], variant-major
+                wins = wins.reshape((-1,) + wins.shape[2:])
+                valids = valids.reshape((-1,) + valids.shape[2:])
         return wins, valids
 
     def predict_windows(self, wins: np.ndarray, valids: np.ndarray,
                         top_k: int = 1) -> Dict[str, Any]:
         """Device phase on pre-gathered windows (`gather_windows` output)."""
-        probs = self._run_chunked(wins, valids, self._dispatch_chunk)
-        return self.finalize(probs, top_k)
+        with span("serve.predict_windows"):
+            probs = self._run_chunked(wins, valids, self._dispatch_chunk)
+            return self.finalize(probs, top_k)
 
     def _run_chunked(self, wins: np.ndarray, valids: np.ndarray,
                      dispatch, pack: bool = True) -> np.ndarray:
@@ -306,8 +319,13 @@ class Predictor:
                     [w, np.zeros((pad,) + w.shape[1:], w.dtype)])
                 v = np.concatenate(
                     [v, np.zeros((pad,) + v.shape[1:], bool)])
-            out.append(dispatch(self._place_chunk(w, v, pack))[: bs - pad])
-        return torch.cat(out).cpu().numpy()[: len(wins)]
+            batch = self._place_chunk(w, v, pack)
+            # the host issues the device step; the card runs it after
+            with span("serve.enqueue"):
+                out.append(dispatch(batch)[: bs - pad])
+        # the host waits for the card here, then copies the rows back
+        with span("serve.fetch"):
+            return torch.cat(out).cpu().numpy()[: len(wins)]
 
     def _place_chunk(self, wins: np.ndarray, valids: np.ndarray,
                      pack: bool = True) -> Dict[str, torch.Tensor]:
@@ -315,13 +333,20 @@ class Predictor:
         when a bucket fits; pack=False keeps it padded, as embed runs)."""
         batch = {"windows": wins, "valid_mask": valids}
         if pack and self._buckets:
-            batch = pack_view_batch(batch, self._buckets)
+            with span("serve.pack") as s:
+                batch = pack_view_batch(batch, self._buckets)
+                if s:
+                    s.count(valid_views=int(valids.sum()),
+                            packed_views=len(batch["view_src"])
+                            if "view_src" in batch else valids.size)
         # a split places each part of the windows on its own card
         host = ("windows",) if self.data_parallel and self._split.n > 1 \
             else ()
-        return {k: torch.from_numpy(np.ascontiguousarray(x)) if k in host
-                else torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-                for k, x in batch.items()}
+        with span("serve.place"):
+            return {k: torch.from_numpy(np.ascontiguousarray(x)) if k in host
+                    else torch.from_numpy(np.ascontiguousarray(x)).to(
+                        self.device)
+                    for k, x in batch.items()}
 
     @torch.inference_mode()
     def _forward(self, batch: Dict[str, torch.Tensor]

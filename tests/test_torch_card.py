@@ -900,3 +900,79 @@ def test_local_split_on_one_card_twice(cuda):
     assert kernels.LAUNCHES["qkv_attention"] == 2 * 2
     torch.testing.assert_close(two["view_feats"], one["view_feats"],
                                rtol=1e-5, atol=1e-6)
+
+
+# -- the program's spans on the profiler's clock (utils/spans.py) ----------
+
+
+def _device_kernels(prof):
+    cuda_t = torch.autograd.DeviceType.CUDA
+    return sorted(((e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == cuda_t and e.duration_ns() > 0
+                   and "emcpy" not in e.name() and "emset" not in e.name()),
+                  key=lambda k: k[1])
+
+
+def test_spans_share_the_device_traces_clock_on_card(cuda):
+    """Under torch.profiler: a kernel launched and waited for inside a
+    span lies inside it on the trace's clock, and the span ends under
+    1 ms after the kernel. Then one serving request at ViT-L/14 (16
+    recordings of 200k events, 160 views: the card runs behind the host):
+    its `serve.fetch` span, the host waiting for the card, covers the
+    step's last kernel."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from eventclip_tpu_torch.serve import Predictor
+    from eventclip_tpu_torch.utils import spans
+    from eventclip_tpu_torch.utils.config import Params
+
+    class ZSL14(Params):  # configs/zsclip/zsclip_ncaltech_params.py
+        gpus = 1
+        dataset = "n_caltech"
+        data_root = "/nonexistent"
+        quantize_args = dict(
+            max_imgs=2, N=20000, split_method="event_count",
+            convert_method="event_histogram", grayscale=True,
+            count_non_zero=False, background_mask=True)
+        model = "ZSCLIP"
+        clip_dict = dict(arch="ViT-L/14",
+                         prompt="a point cloud image of a {}",
+                         agg_func="mean")
+        bf16 = True
+
+    pred = Predictor(ZSL14(), ["a", "b", "c"], smoke=True, batch_size=16,
+                     device=cuda)
+    rng = np.random.default_rng(3)
+    streams = [np.stack([rng.integers(0, 240, n), rng.integers(0, 180, n),
+                         np.sort(rng.random(n)), rng.choice([-1.0, 1.0], n)],
+                        axis=1).astype(np.float32)
+               for n in rng.integers(200_000, 220_000, 16)]
+    wins, valids = pred.gather_windows(streams)
+    want = pred.predict_windows(wins, valids)  # warm: allocator, libraries
+    torch.cuda.synchronize()
+    spans.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with spans.span("probe"):
+            torch.cuda._sleep(20_000_000)
+            torch.cuda.synchronize()
+        got = pred.predict_windows(wins, valids)
+    recs = {r.name: r for r in spans.records()}
+    spans.clear()
+    np.testing.assert_allclose(got["probs"], want["probs"], rtol=0,
+                               atol=1e-6)
+    ks = _device_kernels(prof)
+    (_, a, b), = [k for k in ks if "spin" in k[0]]
+    probe = recs["probe"]
+    assert probe.start_ns <= a and b <= probe.end_ns, (probe, a, b)
+    assert probe.end_ns - b < 1_000_000, probe.end_ns - b
+    fetch, enqueue = recs["serve.fetch"], recs["serve.enqueue"]
+    step = [k for k in ks if enqueue.start_ns <= k[1] <= fetch.end_ns]
+    # the card runs behind: most of the step's kernels, enqueued before
+    # the fetch began, run while the host waits in it
+    assert len([k for k in step if k[1] >= fetch.start_ns]) > 24
+    name, a, b = max(step, key=lambda k: k[2])
+    assert fetch.start_ns <= a and b <= fetch.end_ns, (name, fetch, a, b)
+    assert fetch.end_ns - b < 5_000_000, fetch.end_ns - b
