@@ -35,14 +35,20 @@ non-zero):
    at one shape the bf16 kernels' relative error is printed beside that of
    three other rounding orders, which must miss the limit. Each prints
    kernel ms, plain ms, the bound, one library call's ms as a yardstick
-   and the kernel's factor over it.
+   and the kernel's factor over it. D1, the bf16 dense product
+   (csrc/dense.cu), at every path's products (DENSE_PATHS: serving, FT,
+   the FS step's frozen tower; and the text tower's and FS adapter's
+   shapes, which run in f32 on the paths), each element within one bf16
+   ulp of the f32 product plus the f32 sums' bound, beside
+   `addmm(out_dtype=f32)` + the cast it replaced.
 3. serving: configs/zsclip/zsclip_ncaltech_params.py through the port's
    loader, random ViT-L/14 towers from a seeded generator, text features
    for 101 synthetic prompts through the text tower, a Predictor at
    batch 32 answering requests of 32 x 225k, 8 x 30-60k and 1 x 5k events,
    three times each. Launch counters are zeroed just before these timed
    requests and read just after them (the text tower's and the warm-up's
-   counts are printed apart); then one request is profiled.
+   counts are printed apart; D1 4 a block of each forward, the patch
+   embedding on the library GEMM); then one request is profiled.
 4. serving card vs CPU: one short stream through the same towers on the
    CPU (float32, plain kernels); cosine of the view features.
 5. FT training: configs/ftclip/ft_text_fsclip_nin_params.py (ViT-L/14 full
@@ -52,8 +58,11 @@ non-zero):
    with the config's img_aug (on-device RandAugment in the step). The
    EventCLIPTrainer runs its sanity eval, then one epoch of 4 steps with
    the launch counters zeroed just before and read just after (K1 1, K2 48,
-   K3 24 per step); then one step is profiled (RandAugment's device ms
-   apart), trained and frozen leaves are checked, the trainable checkpoint
+   K3 24 per step, D1 at least 4 a block in the forward and the remat
+   recompute; the other phases hold K1-K4 to their counts and read D1
+   apart, `tpu_kernel_launches`); then one step is profiled
+   (RandAugment's device ms apart), trained and frozen leaves are
+   checked, the trainable checkpoint
    is saved, the parameters moved by one more step, the checkpoint
    reloaded and evaluated to the same counters.
 6. FT update card vs CPU: a 2-layer ViT-L/14 at full width, f32, one
@@ -287,6 +296,16 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def tpu_kernel_launches():
+    """kernels.LAUNCHES of K1-K4, the TPU kernels' counterparts, which the
+    phases hold to a count a step, batch or request. D1's (`dense`,
+    csrc/dense.cu: every bf16 product of the towers) are read apart:
+    phase 2 times D1, phase 3 counts it a request and phase 5 a step."""
+    from eventclip_tpu_torch import kernels
+
+    return {k: v for k, v in kernels.LAUNCHES.items() if k != "dense"}
 
 
 # -- phase 2: kernels vs their plain versions --------------------------------
@@ -592,6 +611,87 @@ def check_bhsd_attention(gen, name, B, S, heads, dh, dtype, causal, dev):
                 library_ms=library_ms)
 
 
+# D1's products on each path: (M, [(K, N), ...]); a ViT block's are q/k/v,
+# out, MLP in and MLP out
+VITL14_PRODUCTS = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)]
+DENSE_PATHS = {
+    "serve": (320 * 257, VITL14_PRODUCTS),  # a request's 320 views
+    "train": (256 * 257, VITL14_PRODUCTS),  # the FT step's 128 x 2 views
+    "train_fs": (64 * 257, VITL14_PRODUCTS),  # the FS step's frozen tower
+    # shapes of no bf16 path (each runs in f32): the text tower's 101
+    # prompts, and the FS adapter (text-trans, d_model 256) on a 32 x 2
+    # batch: in_proj, q/k/v, out, MLP in, MLP out, out_proj
+    "text": (101 * 77, [(768, 2304), (768, 768), (768, 3072), (3072, 768)]),
+    "fs_adapter": (64, [(768, 256), (256, 768), (256, 256), (256, 1024),
+                        (1024, 256), (256, 768)]),
+}
+
+
+def dense_bound(M, K, N):
+    """(ms, what bounds it) of one bf16 product with an f32 bias: x, w and
+    the bias read once, the bf16 output written once; 2 M K N operations."""
+    nbytes = 2 * (M * K + N * K + M * N) + 4 * N
+    return attention_bound(nbytes, 2.0 * M * K * N, "bfloat16")
+
+
+def check_dense(gen, path, dev):
+    """D1 at one path's products against the plain version (the f32 product
+    of the bf16 operands on the card, TF32 off, plus the bias, rounded
+    once): every element within one bf16 ulp of it plus the f32 sums' own
+    bound, (K + 1) 2^-24 sum |x_i w_i|; kernel, plain and library
+    (`addmm(out_dtype=f32)` and the cast, the route D1 replaced) ms, and
+    the bound. The row sums the path's products."""
+    import torch
+
+    from eventclip_tpu_torch.ops import dense as DN
+
+    M, products = DENSE_PATHS[path]
+    rows = []
+    for K, N in products:
+        x = torch.randn((M, K), generator=gen, device=dev).bfloat16()
+        w = (torch.randn((N, K), generator=gen, device=dev) / K ** 0.5
+             ).bfloat16()
+        b = torch.randn((N,), generator=gen, device=dev)
+        got, want = DN.dense_bf16(x, w, b).float(), DN.dense_plain(x, w, b)
+        exact = x.float() @ w.float().t() + b
+        mag = x.float().abs() @ w.float().abs().t() + b.abs()
+        _, e = torch.frexp(exact)
+        limit = torch.ldexp(torch.ones_like(exact), e - 8) \
+            + (K + 1) * 2.0 ** -24 * mag
+        err = (got - exact).abs()
+        if not (err <= limit).all():
+            raise AssertionError(f"D1 {path} [{M}, {K}] x [{N}, {K}]: "
+                                 f"{float((err / limit).max()):.3f} of its "
+                                 f"limit")
+        differ = float((got != want.float()).float().mean())
+        del exact, mag, err, limit
+        ms = cuda_ms(lambda: DN.dense_bf16(x, w, b))
+        plain_ms = cuda_ms(lambda: DN.dense_plain(x, w, b), iters=5)
+        library_ms = cuda_ms(lambda: DN.library_dense(x, w, b))
+        bound_ms, bound_by = dense_bound(M, K, N)
+        width, blocks = DN.dense_plan(M, N, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        log(f"[2 kernels] D1 {path} [{M}, {K}] x [{N}, {K}] + bias: within "
+            f"one ulp + the f32 bound, {100 * differ:.4f}% of elements off "
+            f"the plain version's bits; tiles 128 x {width} on {blocks} "
+            f"blocks; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, addmm + "
+            f"cast {library_ms:.4f} ms (kernel / library "
+            f"{ms / library_ms:.2f}x), bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{100 * bound_ms / ms:.1f}%)")
+        rows.append(dict(shape=[M, K, N], ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, differ_share=differ,
+                         tile_width=width, blocks=blocks))
+        del x, w, b, got, want
+    return dict(shape=f"M {M}: (K, N) " + ", ".join(
+        f"({k}, {n})" for k, n in products),
+        **{k: sum(r[k] for r in rows)
+           for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        bound_by="operations" if all(r["bound_by"] == "operations"
+                                     for r in rows) else "bytes",
+        products=rows)
+
+
 def check_rounding_orders(gen, B, S, heads, dh, dev):
     """The bf16 kernels' rel_err beside that of three other rounding
     orders, on the same inputs: the kernels must pass REL, the others
@@ -892,6 +992,16 @@ def train_phase(dev, tag="5 train", config=("ftclip",
         peak_gb = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         steps = len(trainer.step_times)
         L = trainer.clip_cfg.vision.layers
+        # D1 takes the bf16 tower's products: 4 a block in the forward, as
+        # many again in the remat recompute (the backward's products stay
+        # library GEMMs); the f32 step has none
+        dense = launches.get("dense", 0)
+        tpu = {k: v for k, v in launches.items() if k != "dense"}
+        fwd = 2 if cfg.model == "FTCLIP" and cfg.remat else 1
+        if (dense < 4 * L * fwd * steps) if cfg.dtype == torch.bfloat16 \
+                else dense:
+            raise AssertionError(f"train D1 launches {dense} over {steps} "
+                                 f"steps ({cfg.dtype}, L {L})")
         if cfg.model == "FTCLIP":
             want = {"histogram": steps, "qkv_attention": 2 * L * steps,
                     "qkv_attention_bwd": L * steps}
@@ -901,9 +1011,9 @@ def train_phase(dev, tag="5 train", config=("ftclip",
             want = {"histogram": steps, "qkv_attention": L * steps}
             expect = f"K1 1, K2 {L} = {L} layers x forward, K3 0: frozen tower"
         log(f"[{tag}] launches over the {steps} timed steps {launches} "
-            f"(per step: {expect} expected)")
-        if launches != want:
-            raise AssertionError(f"train launches {launches} != {want}")
+            f"(per step: {expect} expected); D1 {dense // steps} a step")
+        if tpu != want:
+            raise AssertionError(f"train launches {tpu} != {want}")
         step_ms = [s * 1e3 for _, s in trainer.step_times]
         wait_ms = [w * 1e3 for w, _ in trainer.step_times]
         med = statistics.median(step_ms)
@@ -922,6 +1032,7 @@ def train_phase(dev, tag="5 train", config=("ftclip",
                    host_share=host_share, peak_gib=peak_gb, loss=loss,
                    launches_per_step={k: v // steps
                                       for k, v in launches.items()},
+                   dense_per_step=dense // steps,
                    sanity_eval=sanity)
         host_batch = next(iter(trainer.train_loader.epoch(1)))
         placed = trainer.device_batch(host_batch)
@@ -1352,7 +1463,7 @@ def data_to_accuracy(dev, gen, tmp):
     res = cli_test.main(["--params", zs, "--clip_ckpt", pt,
                          "--data_root", tree])
     torch.cuda.synchronize(dev)
-    launches = dict(kernels.LAUNCHES)
+    launches = tpu_kernel_launches()
     ctx = res["ctx"]
     ev = ctx["evals"][-1]
     b = ev["batches"]
@@ -1442,7 +1553,7 @@ def data_to_accuracy(dev, gen, tmp):
         "--clip_ckpt", pt, "--data_root", tree, "--ckpt_base", base])
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = tpu_kernel_launches()
     steps = len(trainer.step_times)
     evals = min(2, len(trainer.val_loader)) + len(trainer.val_loader)
     # the validation GIFs' forwards (K1 + K2 each) and inputs (K1 each)
@@ -1557,7 +1668,7 @@ def timed_requests(pred, streams, n=3):
         out = pred.predict(streams)
         times.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    return statistics.median(times) * 1e3, dict(kernels.LAUNCHES), out
+    return statistics.median(times) * 1e3, tpu_kernel_launches(), out
 
 
 def blocks_delta(pred, streams):
@@ -1760,7 +1871,7 @@ def serving_options(dev, gen, pred, clip, text_feats, names, streams,
     kernels.reset_launches()
     em.set_classes(names)
     torch.cuda.synchronize()
-    text_launches = dict(kernels.LAUNCHES)
+    text_launches = tpu_kernel_launches()
     p0 = em.predict(few)["probs"]
     em.set_classes(names[:50])
     p50 = em.predict(few)["probs"]
@@ -2016,7 +2127,7 @@ def resnet_phase(dev, streams, files, tmp, tag="11 pseudo"):
     pred = Predictor(params, names, clip_ckpt=pt, batch_size=32, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    text_launches = dict(kernels.LAUNCHES)
+    text_launches = tpu_kernel_launches()
     pred.warm_up()
     kernels.reset_launches()
     times = []
@@ -2026,7 +2137,7 @@ def resnet_phase(dev, streams, files, tmp, tag="11 pseudo"):
         times.append(time.perf_counter() - t0)
         check_probs(res, len(streams), len(names))
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    launches = tpu_kernel_launches()
     ms = statistics.median(times) * 1e3
     prof = profile_call(f"{tag} profile", "RN50 request 32 x 225k",
                         lambda: pred.predict(streams))
@@ -2086,7 +2197,7 @@ def resnet_phase(dev, streams, files, tmp, tag="11 pseudo"):
                          "--data_root", files["tree"]])
     torch.cuda.synchronize()
     ev = res["ctx"]["evals"][-1]
-    cli_launches = dict(kernels.LAUNCHES)
+    cli_launches = tpu_kernel_launches()
     want = {"histogram": ev["batches"], "qkv_attention": cfg.text.layers}
     log(f"[{tag}] (a) cli.test --arch RN50: {int(ev['n'])} samples in "
         f"{ev['wall_s']:.2f} s ({ev['n'] / ev['wall_s']:.1f} samples/s, "
@@ -2116,7 +2227,7 @@ def teacher_run(tag, label, argv, L, Lt, calib=0):
     kernels.reset_launches()
     (res, stdout, report), wall_ms, busy = device_busy(
         lambda: run_gen_data(argv))
-    launches = dict(kernels.LAUNCHES)
+    launches = tpu_kernel_launches()
     st = res["stats"]
     b = st["batches"]
     want = {"histogram": b + calib, "qkv_attention": Lt + L * (b + calib)}
@@ -2230,7 +2341,7 @@ def pseudo_label_phase(dev, files, tmp, tag="11 pseudo"):
                               "--ckpt_base", ckpt])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = tpu_kernel_launches()
     steps = len(trainer.step_times)
     evals = min(2, len(trainer.val_loader)) + len(trainer.val_loader)
     vp, vi = trainer.viz_forwards  # the validation GIFs' forwards
@@ -2418,7 +2529,7 @@ def server_phase(pred, streams, tmp, tag="12 server"):
             got = client.predict(streams, top_k=5, return_probs=True)
             times.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
-        http_launches = dict(kernels.LAUNCHES)
+        http_launches = tpu_kernel_launches()
         http_ms = statistics.median(times) * 1e3
         same = (np.array_equal(got["label"], direct["label"])
                 and got["names"] == direct["names"]
@@ -2449,7 +2560,7 @@ def server_phase(pred, streams, tmp, tag="12 server"):
             kernels.reset_launches()
             wall, res = burst(u, path)
             torch.cuda.synchronize()
-            launches = dict(kernels.LAUNCHES)
+            launches = tpu_kernel_launches()
             # a single-stream forward may round differently from the
             # 32-stream one (another batch shape): agreement is printed
             agree = sum(r == direct["names"][i] for i, r in enumerate(res))
@@ -2643,7 +2754,7 @@ def export_phase(dev, pred, streams, tmp, tag="12 export"):
     kernels.reset_launches()
     prof = profile_call(tag, f"{TRACED_REQUESTS} exported requests",
                         requests, keep=True)
-    made = dict(kernels.LAUNCHES)
+    made = tpu_kernel_launches()
     out["kernel_ms"], out["traced_launches"] = {}, {}
     for name, sym in (("histogram", "hist_kernel"),
                       ("qkv_attention", "attention_wgmma_kernel")):
@@ -2754,7 +2865,7 @@ def bundle_on_cpu(live, path, streams, tag):
     t0 = time.perf_counter()
     got = ex.predict(streams)
     ms = (time.perf_counter() - t0) * 1e3
-    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    launches = {k: v for k, v in tpu_kernel_launches().items() if v}
     if launches:
         raise AssertionError(f"the CPU set launched kernels {launches}")
     t0 = time.perf_counter()
@@ -2936,7 +3047,7 @@ def ddp_fs_rank(rank, port, out_dir, device):
     kernels.reset_launches()
     trainer.train_epoch(0)
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    launches = tpu_kernel_launches()
     ev, logits, probs = evaluate_rows(trainer)
     np.savez(os.path.join(out_dir, f"eval_rows{rank}.npz"),
              **{f"logits{i}": x for i, x in enumerate(logits)},
@@ -3015,7 +3126,7 @@ def nccl_one_rank(dev, tmp, batch=32, tag="13 ddp"):
         kernels.reset_launches()
         trainer.train_epoch(0)
         torch.cuda.synchronize()
-        launches = dict(kernels.LAUNCHES)
+        launches = tpu_kernel_launches()
         nccl_ms = [s * 1e3 for _, s in trainer.step_times]
         cmp = compare_leaves(trained_leaves(trainer), want, 0.0)
         backend = torch.distributed.get_backend()
@@ -3175,7 +3286,7 @@ def fs_ranks_and_preemption(dev, tmp, tag="13 ddp"):
             raise
     torch.cuda.synchronize()
     vp, vi = ref.viz_forwards
-    viz_launches = dict(kernels.LAUNCHES)
+    viz_launches = tpu_kernel_launches()
     if viz_launches != {"histogram": vp + vi, "qkv_attention": L * vp} \
             or vp < 1:
         raise AssertionError(f"viz launches {viz_launches} ({vp}, {vi})")
@@ -3513,7 +3624,7 @@ def tp_rank(rank, port, out_dir, device):
         tr.train_epoch(0)
         torch.cuda.synchronize()
         steps = len(tr.step_times)
-        r = dict(launches=dict(kernels.LAUNCHES),
+        r = dict(launches=tpu_kernel_launches(),
                  step_ms=[st * 1e3 for _, st in tr.step_times],
                  wait_ms=[w * 1e3 for w, _ in tr.step_times],
                  comm_ms=clock.ms / steps, comm_bytes=clock.bytes / steps,
@@ -3613,7 +3724,7 @@ def tp_zero1_phase(dev, tmp, tag="14 tp/zero1"):
     one.train_epoch(0)
     torch.cuda.synchronize()
     one_ms = [st * 1e3 for _, st in one.step_times]
-    one_launches = dict(kernels.LAUNCHES)
+    one_launches = tpu_kernel_launches()
     want = flat_leaves(one)
     one_moments = one.optimizer.moment_bytes()
     one_param_bytes = sum(p.numel() * p.element_size()
@@ -3757,7 +3868,7 @@ def dp_serve_phase(dev, params, names, text_feats, ref, tag="14 dp serve"):
             probs = pred.predict_windows(wins, valids, top_k=5)["probs"]
             times.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
-        launches = {k: v // 3 for k, v in kernels.LAUNCHES.items()}
+        launches = {k: v // 3 for k, v in tpu_kernel_launches().items()}
         batch = pred._place_chunk(wins[:32], valids[:32])
         feats = pred._forward(batch)["view_feats"].float()
         r = dict(parts=pred._split.n, ms=statistics.median(times),
@@ -3886,7 +3997,7 @@ def parity_phase(dev, files, tmp, tag="15 parity"):
     rc = parity_check.main(argv)
     torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    launches = dict(kernels.LAUNCHES)
+    launches = tpu_kernel_launches()
     # set by the harness for the prompt-tuned config (its text features
     # load from the checkpoint)
     os.environ.pop("EVENTCLIP_ALLOW_RANDOM_TEXT", None)
@@ -4040,6 +4151,12 @@ def main() -> int:
     check_bhsd_attention(gen, "ViT-T/8@32", 80, 17, 2, 32, torch.float32,
                          False, dev)
     orders = check_rounding_orders(gen, 32, 257, 16, 64, dev)
+    # D1 at every path's products, and at the bf16 shapes of the text tower
+    # and the FS adapter, which run in f32 (F.linear) on every path
+    for path in ("serve", "train", "train_fs"):
+        rec[path]["dense"] = check_dense(gen, path, dev)
+    dense_off_path = {p: check_dense(gen, p, dev)
+                      for p in ("text", "fs_adapter")}
 
     # -- 3 ---------------------------------------------------------------
     params = load_params(os.path.join(HERE, "configs", "zsclip",
@@ -4057,7 +4174,7 @@ def main() -> int:
     with torch.inference_mode():
         text_feats = compute_text_features(clip, tokens)
     torch.cuda.synchronize()
-    text_launches = dict(kernels.LAUNCHES)
+    text_launches = tpu_kernel_launches()
     pred = Predictor(params, names, clip_params=clip, text_feats=text_feats,
                      batch_size=32, device=dev)
     log(f"[3 main path] {params.dataset} {clip_cfg.name}: window "
@@ -4110,9 +4227,16 @@ def main() -> int:
     native_calls = dict(native.CALLS)
     log(f"[3 main path] launches over the 9 timed requests {launches}; "
         f"native host-ops calls {native_calls}")
-    for k in ("histogram", "qkv_attention"):
+    for k in ("histogram", "qkv_attention", "dense"):
         if launches.get(k, 0) <= 0:
             raise AssertionError(f"main path never launched the {k} kernel")
+    # D1 takes every product of the tower but the patch embedding (K =
+    # 588): 4 for each block, as K2 runs once a block
+    for label, r in per_request.items():
+        want = 4 * r["launches"]["qkv_attention"]
+        if r["launches"].get("dense", 0) != want:
+            raise AssertionError(f"request {label}: D1 launches "
+                                 f"{r['launches']}, want {want}")
     profile_call("3 profile", f"request {requests[0][0]}",
                  lambda: pred.predict(requests[0][1]))
 
@@ -4217,6 +4341,9 @@ def main() -> int:
                               "eventclip_tpu/ops/attention.py:215"),
         "attention": ("eventclip_tpu_torch/csrc/attention.cu",
                       "eventclip_tpu/ops/attention.py:115"),
+        "dense": ("eventclip_tpu_torch/csrc/dense.cu",
+                  "none: XLA's fused dot of eventclip_tpu/models/clip/"
+                  "model.py dense"),
     }
     # each kernel's row: this slice's path, FT training, with launches, ms
     # and bound from that path (K4 is on no path: its own check's shape);
@@ -4237,6 +4364,7 @@ def main() -> int:
              by_path={p: rows[k] for p, rows in by_path.items() if k in rows})
         for k, (src, tpu) in sources.items()
     ], "text_attention": text, "f32_attention": f32,
+        "dense_off_path": dense_off_path,
         "rounding_orders": orders,
         "requests": per_request, "train": train, "update_card_vs_cpu": update,
         "train_f32": train32, "train_fs": train_fs, "randaugment": augment,

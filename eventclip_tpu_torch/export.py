@@ -42,9 +42,9 @@ exporting predictor's). The bundle holds one graph set (every program)
 for each listed type this host can trace: the CPU always, the card when
 one is present. Each set is traced with its weights and example inputs
 on its own device, so every trace-time device branch takes that device's
-arm: the card's set holds its f32-accumulating bf16 GEMMs (`mm` with
-`out_dtype`), which the CPU lacks, and the CPU's set the f32 products of
-the rounded operands. A type with no set of its own (the card, listed on
+arm: the card's set holds its bf16 products as `eventclip::dense_bf16`
+nodes (D1, ops/dense.py), and the CPU's set the f32 products of the
+rounded operands. A type with no set of its own (the card, listed on
 a host without one) loads the CPU's set and moves the graph there
 (`torch.export.passes.move_to_device_pass`): torch cannot trace a graph
 for a device it does not have. The weights are stored once, whatever the

@@ -28,7 +28,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 
 SOURCES = {"histogram": "histogram.cu", "attention": "attention.cu",
-           "attention_bwd": "attention_bwd.cu"}
+           "attention_bwd": "attention_bwd.cu", "dense": "dense.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -58,6 +58,10 @@ _SIGNATURES = {
         "attention_bwd": [_P] * 9 + [_I] * 4 + _STRIDES * 2 + [_I, _F, _P]
         + [_P] * 3,
         "attention_bwd_plan": [_I, _I, _P],
+    },
+    "dense": {
+        # x, w, bias, out, M, N, K, tile width, blocks, stream
+        "dense_bf16": [_P] * 4 + [_I] * 5 + [_P],
     },
 }
 

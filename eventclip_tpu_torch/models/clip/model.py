@@ -51,6 +51,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import fused_qkv_attention, tp_fused_qkv_attention
+from ...ops.dense import dense_bf16
 from ...ops.quant import AmaxRecorder, QWeight, qdense
 from ...parallel.distributed import model_all_reduce_sum_
 from .config import CLIPConfig, ResNetVisionConfig, TextConfig, VisionConfig
@@ -63,25 +64,17 @@ from .resnet import ResNetVisionTower, init_resnet_visual_
 
 
 def _dense_f32_acc(x2, w, b):
-    """bf16 [N, in] @ w.T with the f32 bias added to the GEMM's f32
-    accumulator (`out_dtype`), rounded once to x2's dtype (CUDA only).
-    While a graph is traced (export.py) the bias is added after the
-    product, the same f32 sum: the fake tensors of `torch.export` run
-    torch 2.11's decomposition of `addmm`'s `out_dtype` overload, which
-    takes the dtype for `beta`."""
-    if b is None:
-        y = torch.mm(x2, w.t(), out_dtype=torch.float32)
-    elif torch.compiler.is_compiling():
-        y = torch.mm(x2, w.t(), out_dtype=torch.float32) + b.float()
-    else:
-        y = torch.addmm(b.float(), x2, w.t(), out_dtype=torch.float32)
-    return y.to(x2.dtype)
+    """bf16 [N, in] @ w.T with the f32 bias added to the f32 accumulator,
+    rounded once to x2's dtype (CUDA only): `eventclip::dense_bf16`
+    (ops/dense.py), also while a graph is traced (export.py), where it
+    stays one node a product."""
+    return dense_bf16(x2, w, None if b is None else b.float())
 
 
 class _DenseF32Acc(torch.autograd.Function):
     """bf16 x [N, in] @ w.T [in, out] (+ f32 b) on the card: the f32
-    accumulator written by the GEMM (`out_dtype`), the bias added there,
-    one rounding. The backward is JAX's: the bf16 output gradient, read as
+    accumulator, the bias added there, one rounding (`_dense_f32_acc`).
+    The backward is JAX's: the bf16 output gradient, read as
     f32, against the bf16 operands, summed in f32 and rounded to bf16 for x
     and w; the bias gradient its f32 column sum."""
 
@@ -111,11 +104,16 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
     takes the W8A8 product, `qdense`; an `AmaxRecorder` notes max |x| and
     takes the float product.
 
-    On CUDA a bf16 product writes its f32 accumulator (`out_dtype`) with the
-    bias added there. The CPU has no such matmul; there the f32 product of
-    the rounded operands is the same sum, since a product of two bf16
-    values is exact in f32, and autograd through the casts gives JAX's
-    gradient rules."""
+    On CUDA a bf16 product is `eventclip::dense_bf16` (ops/dense.py): the
+    hand-written GEMM D1 (csrc/dense.cu) adds the f32 bias to its f32
+    accumulator in registers and rounds once, for every product whose K
+    and N rows are 16-byte multiples (K and N multiples of 8, which TMA
+    needs: `d1_takes`); any other (ViT-L/14's patch embedding, K = 588)
+    keeps the library GEMM that writes its f32 accumulator, the bias added
+    there, rounded after it. The CPU has no such matmul; there the f32
+    product of the rounded operands is the same sum, since a product of
+    two bf16 values is exact in f32, and autograd through the casts gives
+    JAX's gradient rules."""
     if isinstance(w, QWeight):
         return qdense(x, w, b)
     if isinstance(w, AmaxRecorder):
@@ -126,7 +124,7 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
     x2 = x.reshape(-1, x.shape[-1])
     if x.is_cuda:
         # without a gradient to record (serving, and torch.export under
-        # no_grad) the forward runs as plain ops, which a trace sees
+        # no_grad) the forward is the op alone, one node in a trace
         y = (_DenseF32Acc.apply(x2, w, b) if torch.is_grad_enabled()
              else _dense_f32_acc(x2, w, b))
     else:

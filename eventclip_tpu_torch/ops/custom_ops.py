@@ -1,14 +1,19 @@
 """The hand-written kernels as `torch.library` custom ops.
 
-K1 (csrc/histogram.cu), K2 / K4 (csrc/attention.cu) and K3
-(csrc/attention_bwd.cu) are registered here, so that eager training,
-serving and `torch.export` (export.py) all launch the same registered op:
+K1 (csrc/histogram.cu), K2 / K4 (csrc/attention.cu), K3
+(csrc/attention_bwd.cu) and D1 (csrc/dense.cu) are registered here, so
+that eager training, serving and `torch.export` (export.py) all launch
+the same registered op:
 
 - `eventclip::event_histogram(windows, height, width)` (K1);
 - `eventclip::qkv_attention(qkv, heads, mask)` (K2, fused [B, S, 3D]);
 - `eventclip::attention(q, k, v, mask)` (K4, [B, H, S, dh], K2's launcher);
 - `eventclip::qkv_attention_bwd` / `eventclip::attention_bwd` (K3), the
-  registered autograd formulas of the two attention ops.
+  registered autograd formulas of the two attention ops;
+- `eventclip::dense_bf16(x2, w, b)` (D1, the bf16 product of `dense`; its
+  CUDA implementation keeps the library GEMM for the shapes D1 does not
+  take, ops/dense.py `d1_takes`). Its gradient is `dense`'s autograd
+  Function (models/clip/model.py `_DenseF32Acc`), not registered here.
 
 Each op has a CUDA implementation (the ctypes launch of its kernel, which
 counts `kernels.LAUNCHES`), a CPU implementation (its plain PyTorch
@@ -30,6 +35,7 @@ import torch
 from torch import Tensor
 
 from . import attention as A
+from . import dense as DN
 from . import rasterize as R
 
 # -- K1 ------------------------------------------------------------------------
@@ -154,3 +160,19 @@ def _bhsd_backward(ctx, g):
 
 attention.register_autograd(_bhsd_backward, setup_context=_bhsd_setup)
 
+
+# -- D1, the bf16 dense product -----------------------------------------------
+
+
+@torch.library.custom_op("eventclip::dense_bf16", mutates_args=(),
+                         device_types="cpu")
+def dense_bf16(x2: Tensor, w: Tensor, b: Optional[Tensor]) -> Tensor:
+    return DN.dense_plain(x2, w, b)
+
+
+dense_bf16.register_kernel("cuda")(DN.launch_dense)
+
+
+@dense_bf16.register_fake
+def _(x2, w, b):
+    return x2.new_empty((x2.shape[0], w.shape[0]))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the shape choices of the CUDA kernels on one card.
 
-    python3 kernel_variants.py [forward] [backward] [wgmma] [histogram]
+    python3 kernel_variants.py [forward] [backward] [wgmma] [histogram] [dense]
     python3 kernel_variants.py compare DIR
 
 (no argument: the first four)
@@ -34,6 +34,17 @@
 - The event histogram (csrc/histogram.cu): clusters of 1 .. 16 CTAs in 1 to
   4 row bands at [320, 20000, 3] @ 180x240 and [256, 70000, 3] @ 480x640,
   each exact; the plan `histograms` launches is marked.
+- D1, the bf16 dense product (csrc/dense.cu, dense_wgmma_kernel):
+  builds with -DD1_STAGES_256 / -DD1_STAGES_128 (the ring's stages at
+  each tile width) against the default build, each under both tile
+  widths (128 x 256 and 128 x 128, one persistent block an SM), at every
+  path's products (chip_smoke.DENSE_PATHS: serving, FT, the FS step's
+  frozen tower, and the bf16 shapes of the text tower and the FS adapter,
+  which run in f32 on the paths); each held bit-equal to the default
+  build under the plan `dense_plan` picks (only the order of the f32 sums
+  could differ, and it does not), beside the route D1 replaced
+  (`addmm(out_dtype=f32)` and the cast), a plain bf16 `torch.mm` with no
+  bias and the bound. The plan the wrapper picks is marked.
 - compare DIR: the bf16 K2 and K3 of this checkout against those of the
   checkout at DIR (another commit of this repository, its kernels built
   there), through the public wrappers `fused_qkv_attention` and
@@ -81,6 +92,9 @@ VARIANTS = {
         "default": [],
         **{f"consumers={c}": [f"-DWGB_CONSUMERS={c}"] for c in (2, 3)},
         **{f"stages={n}": [f"-DWGB_STAGES={n}"] for n in (2, 3)}}),
+    ("dense", "dense.cu"): ("dense_wgmma_kernel", {
+        "default": [], "stages256=3": ["-DD1_STAGES_256=3"],
+        "stages128=4": ["-DD1_STAGES_128=4"]}),
 }
 
 
@@ -98,8 +112,8 @@ def print_registers(label: str, log: str) -> None:
             masked = re.search(r"ILi\d+ELb([01])E", line)
             name = name and name + (f"<{dh.group(1)}>" if dh else
                                     "<int16>" if "IsE" in line else "<f32>")
-            if name and masked:
-                name += " masked" if masked.group(1) == "1" else ""
+            if name and masked and masked.group(1) == "1":
+                name += " bias" if name.startswith("dense") else " masked"
         spill = re.search(r"(\d+) bytes spill stores", line)
         if spill and name:
             stores = spill.group(1)
@@ -268,6 +282,8 @@ def main(argv) -> int:
                    libs["wgmma", "attention_bwd.cu"], gen, dev)
     if "histogram" in parts:
         time_histogram(gen, dev)
+    if "dense" in parts:
+        time_dense(libs["dense", "dense.cu"], gen, dev)
     return 0
 
 
@@ -468,6 +484,51 @@ def time_wgmma(fwd_libs, bwd_libs, gen, dev):
         print(f"K3 bf16 [{B}, {S}, 3072] + g: ms by build "
               f"{', '.join(times)}; sdpa backward {sdpa:.4f}; bound "
               f"{bound:.4f} ({by})", flush=True)
+
+
+def time_dense(libs, gen, dev):
+    import torch
+
+    from chip_smoke import DENSE_PATHS, cuda_ms, dense_bound
+    from eventclip_tpu_torch import kernels
+    from eventclip_tpu_torch.ops import dense as DN
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def run(lib, x, w, b, width):
+        M, K = x.shape
+        N = w.shape[0]
+        blocks = min(-(-M // DN.TILE_ROWS) * -(-N // width), sms)
+        out = torch.empty((M, N), dtype=x.dtype, device=dev)
+        rc = lib.dense_bf16(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                            out.data_ptr(), M, N, K, width, blocks,
+                            torch.cuda.current_stream().cuda_stream)
+        kernels.check(lib, rc, "dense_bf16")
+        return out
+
+    for path, (M, products) in DENSE_PATHS.items():
+        for K, N in products:
+            x = torch.randn((M, K), generator=gen, device=dev).bfloat16()
+            w = (torch.randn((N, K), generator=gen, device=dev) / K ** 0.5
+                 ).bfloat16()
+            b = torch.randn((N,), generator=gen, device=dev)
+            picked = DN.dense_plan(M, N, sms)[0]
+            want = run(libs["default"], x, w, b, picked)
+            times = []
+            for name, lib in libs.items():
+                for width in DN.TILE_WIDTHS:
+                    if not torch.equal(run(lib, x, w, b, picked), want):
+                        raise AssertionError(f"D1 {name} differs")
+                    ms = cuda_ms(lambda: run(lib, x, w, b, width), iters=50)
+                    mark = "*" if name == "default" and width == picked \
+                        else ""
+                    times.append(f"{name} x{width}{mark}: {ms:.4f}")
+            library = cuda_ms(lambda: DN.library_dense(x, w, b), iters=50)
+            mm = cuda_ms(lambda: torch.mm(x, w.t()), iters=50)
+            bound, by = dense_bound(M, K, N)
+            print(f"D1 {path} [{M}, {K}] x [{N}, {K}]: ms by build and "
+                  f"tile width {', '.join(times)}; addmm + cast {library:.4f};"
+                  f" bf16 mm {mm:.4f}; bound {bound:.4f} ({by})", flush=True)
 
 
 def time_histogram(gen, dev):

@@ -20,6 +20,12 @@ tiles and 16-key steps, the causal mask and both layouts, the pruned
 serving shape (S = 129), each kernel's largest S whose operands stay
 resident in shared memory and one row more (streamed through its ring),
 and a tensor-parallel slice whose k and v blocks start at an odd head.
+D1, the bf16 dense product (csrc/dense.cu), is held to the exact f64 sum
+of its bf16 operands plus the f32 bias at every path's shapes (within one
+bf16 ulp plus the f32 sums' own bound, and no more elements off the exact
+rounding than the library route it replaced), counted 96 times a
+32-recording ViT-L/14 request, and absent where K = 588 (the patch
+embedding keeps the library GEMM).
 The W8A8 int8 product (`torch._int_mm`, a library call, not a kernel of
 this repository) is held bit-equal to the CPU route at ViT-L/14's widths,
 among them `patch_embed`'s K = 588, which the card takes only padded.
@@ -42,6 +48,7 @@ from eventclip_tpu_torch.ops.attention import (
     qkv_attention_plain,
 )
 from eventclip_tpu_torch.ops.rasterize import histograms, histograms_plain
+from eventclip_tpu_torch.utils.config import Params
 
 SHAPES = [
     (torch.bfloat16, 257, 16, 64, False),  # ViT-L/14
@@ -50,6 +57,20 @@ SHAPES = [
     (torch.bfloat16, 17, 2, 32, False),
     (torch.float32, 77, 2, 16, True),  # ViT-T/8@32 text tower
 ]
+
+
+class _ZSL14(Params):  # configs/zsclip/zsclip_ncaltech_params.py
+    gpus = 1
+    dataset = "n_caltech"
+    data_root = "/nonexistent"
+    quantize_args = dict(
+        max_imgs=2, N=20000, split_method="event_count",
+        convert_method="event_histogram", grayscale=True,
+        count_non_zero=False, background_mask=True)
+    model = "ZSCLIP"
+    clip_dict = dict(arch="ViT-L/14", prompt="a point cloud image of a {}",
+                     agg_func="mean")
+    bf16 = True
 
 
 @pytest.fixture
@@ -374,6 +395,141 @@ def test_dense_bf16_grads_on_card_match_cpu(cuda):
         assert ((got - want).abs() <= ulp + 1e-6).all()
 
 
+# -- D1, the bf16 dense product (csrc/dense.cu, ops/dense.py) ----------------
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp at each value of v (float64): 2^(e - 7) for |v| in
+    [2^e, 2^(e+1)); the smallest normal's at 0."""
+    _, e = torch.frexp(v.float())
+    return torch.ldexp(torch.ones_like(v), (e - 8).to(torch.int64)).clamp(
+        min=2.0 ** -133)
+
+
+def _dense_vs_exact(got, x, w, b, rows=16384):
+    """Hold got [M, N] to the exact f64 product of the bf16 operands plus
+    the f32 bias: every element within one bf16 ulp of the exact value
+    plus the f32 sum's own bound, (K + 1) 2^-24 sum |x_i w_i| (+ |b|),
+    which any order of f32 sums keeps; returns the elements whose bits are
+    not the exact value's rounding."""
+    K = x.shape[1]
+    differ = 0
+    for r0 in range(0, x.shape[0], rows):
+        xs = x[r0:r0 + rows].double()
+        exact = xs @ w.double().t()
+        mag = xs.abs() @ w.double().abs().t()
+        if b is not None:
+            exact, mag = exact + b.double(), mag + b.double().abs()
+        err = (got[r0:r0 + rows].double() - exact).abs()
+        limit = _bf16_ulp(exact) + (K + 1) * 2.0 ** -24 * mag
+        assert (err <= limit).all(), float((err / limit).max())
+        differ += int((got[r0:r0 + rows]
+                       != exact.float().bfloat16()).sum())
+    return differ
+
+
+@pytest.mark.parametrize("M,K,N,bias", [
+    (82240, 1024, 3072, True),  # serving, 320 views x 257: q/k/v
+    (82240, 1024, 1024, True),  # attention out
+    (82240, 1024, 4096, True),  # MLP in
+    (82240, 4096, 1024, True),  # MLP out
+    (82240, 1024, 3072, False),
+    (65792, 1024, 3072, True),  # FT, 256 views
+    (65792, 4096, 1024, False),
+    (7777, 768, 2304, True),  # text tower, 101 prompts x 77
+    (7777, 3072, 768, False),
+    (1, 1024, 1024, True),
+    (1, 1024, 1024, False),
+    (65, 1024, 3072, True),
+    (65, 1024, 3072, False),
+])
+def test_dense_d1_rounds_the_exact_sum_on_card(cuda, M, K, N, bias):
+    """D1 against the exact f64 product of the bf16 operands plus the f32
+    bias: every element within one bf16 ulp (and the f32 sum's bound), and
+    no more elements off the exact rounding than the library route
+    (`addmm(out_dtype=f32)` then the cast) gives on the same inputs."""
+    from eventclip_tpu_torch.ops import dense as DN
+
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=gen, device=cuda).bfloat16()
+    w = (torch.randn((N, K), generator=gen, device=cuda) / K ** 0.5
+         ).bfloat16()
+    b = torch.randn((N,), generator=gen, device=cuda) if bias else None
+    kernels.reset_launches()
+    got = DN.dense_bf16(x, w, b)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {"dense": 1}
+    assert got.shape == (M, N) and got.dtype == torch.bfloat16
+    lib = DN.library_dense(x, w, b)
+    assert _dense_vs_exact(got, x, w, b) <= _dense_vs_exact(lib, x, w, b)
+
+
+def test_dense_patch_embedding_keeps_the_library_gemm_on_card(cuda):
+    """ViT-L/14's patch embedding (K = 588: 1,176-byte rows, no bias) is
+    the one tower product D1 leaves: no launch, the library GEMM's bits,
+    within one bf16 ulp of the exact sum."""
+    from eventclip_tpu_torch.models.clip.model import dense
+    from eventclip_tpu_torch.ops import dense as DN
+
+    gen = torch.Generator(device=cuda).manual_seed(588)
+    x = torch.randn((320, 256, 588), generator=gen, device=cuda).bfloat16()
+    w = torch.randn((1024, 588), generator=gen, device=cuda) / 588 ** 0.5
+    kernels.reset_launches()
+    got = dense(x, w)
+    torch.cuda.synchronize()
+    assert dict(kernels.LAUNCHES) == {}
+    x2, wb = x.reshape(-1, 588), w.bfloat16()
+    assert torch.equal(got.reshape(-1, 1024), DN.library_dense(x2, wb, None))
+    _dense_vs_exact(got.reshape(-1, 1024), x2, wb, None)
+
+
+def test_dense_op_opcheck_and_launcher_on_card(cuda):
+    """opcheck of `eventclip::dense_bf16`'s CUDA implementation (with and
+    without the bias, D1's shapes and the library's), and the op is its
+    launch, bit for bit, counting one launch each."""
+    from torch.library import opcheck
+
+    from eventclip_tpu_torch.ops import dense as DN
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for K, N in ((64, 96), (588, 40)):
+        x = torch.randn((77, K), generator=gen, device=cuda).bfloat16()
+        w = torch.randn((N, K), generator=gen, device=cuda).bfloat16()
+        for b in (None, torch.randn((N,), generator=gen, device=cuda)):
+            res = opcheck(torch.ops.eventclip.dense_bf16.default, (x, w, b))
+            assert set(res.values()) == {"SUCCESS"}, res
+            kernels.reset_launches()
+            assert torch.equal(torch.ops.eventclip.dense_bf16(x, w, b),
+                               DN.launch_dense(x, w, b))
+            torch.cuda.synchronize()
+            assert dict(kernels.LAUNCHES) == (
+                {"dense": 2} if K == 64 else {})
+
+
+def test_dense_launches_96_a_serving_request_on_card(cuda):
+    """One request of 32 recordings at ViT-L/14 (bf16, the 320 bucket)
+    runs 96 of its 97 products on D1: q/k/v, out and the two MLP products
+    of 24 blocks; the patch embedding keeps the library GEMM."""
+    import numpy as np
+
+    from eventclip_tpu_torch.serve import Predictor
+
+    pred = Predictor(_ZSL14(), ["a", "b", "c"], smoke=True, batch_size=32,
+                     device=cuda)
+    rng = np.random.default_rng(5)
+    streams = [np.stack([rng.integers(0, 240, n), rng.integers(0, 180, n),
+                         np.sort(rng.random(n)), rng.choice([-1.0, 1.0], n)],
+                        axis=1).astype(np.float32)
+               for n in rng.integers(190_000, 225_000, 32)]
+    wins, valids = pred.gather_windows(streams)
+    kernels.reset_launches()
+    out = pred.predict_windows(wins, valids)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dense"] == 96
+    assert kernels.LAUNCHES["qkv_attention"] == 24
+    assert np.isfinite(out["probs"]).all()
+
+
 def _bf16_inputs(gen, shape, n, device):
     return [torch.randn(shape, generator=gen, device=device).bfloat16()
             for _ in range(n)]
@@ -673,18 +829,18 @@ def test_exported_bundle_launches_the_kernels_on_card(cuda, tmp_path,
                                                       exported_on,
                                                       loaded_on):
     """A bundle listing both device types, exported on the card (bf16: a
-    graph set traced on the card, whose bf16 products are the card's
-    f32-accumulating GEMMs, and one traced on the CPU) or on a host
+    graph set traced on the card, whose bf16 products are
+    `eventclip::dense_bf16` nodes, and one traced on the CPU) or on a host
     without a card (f32, `torch.cuda.is_available` patched off: the CPU's
     set alone, moved to the card at load), loaded on the card or on the
     CPU. On the card it launches K1 and K2, the `eventclip::` nodes of its
-    graphs, and answers as the live card predictor on the same leaves:
+    graphs, and D1 for the card set's products, and answers as the live card predictor on the same leaves:
     probabilities atol 1e-5, or 1e-4 for the moved f32 graph (the export
     CLI's --check limit: other graph, other summation order). On the CPU
     it launches nothing and answers as the live CPU predictor on the same
     leaves, atol 1e-5 (the same ops). The CPU's set holds no `mm.dtype`
-    and no constant off the CPU; the card's set holds the f32-accumulating
-    GEMMs."""
+    and no constant off the CPU; the card's set holds D1's op and no
+    `mm.dtype`."""
     import io
     import zipfile
 
@@ -732,7 +888,8 @@ def test_exported_bundle_launches_the_kernels_on_card(cuda, tmp_path,
                 assert {t.device.type for t in ep.constants.values()
                         if isinstance(t, torch.Tensor)} <= {"cpu"}, name
             elif name == "cuda/step.pt2":
-                assert "aten.mm.dtype" in targets
+                assert "eventclip.dense_bf16.default" in targets
+                assert "aten.mm.dtype" not in targets
     frozen = ExportedPredictor(path, device=loaded_on)
     want_pred = live if loaded_on == exported_on else live.on_device(
         loaded_on)
@@ -750,6 +907,12 @@ def test_exported_bundle_launches_the_kernels_on_card(cuda, tmp_path,
         assert launches["histogram"] >= 1
         assert launches["qkv_attention"] >= layers
         assert launches["qkv_attention"] % layers == 0
+        # the card's set runs its bf16 products on D1; the moved f32 set
+        # has none
+        if exported_on == "cuda":
+            assert launches["dense"] >= 4 * layers
+        else:
+            assert "dense" not in launches
     else:
         assert not any(launches.values()), launches
     want = want_pred.predict(streams)
@@ -926,23 +1089,8 @@ def test_spans_share_the_device_traces_clock_on_card(cuda):
 
     from eventclip_tpu_torch.serve import Predictor
     from eventclip_tpu_torch.utils import spans
-    from eventclip_tpu_torch.utils.config import Params
 
-    class ZSL14(Params):  # configs/zsclip/zsclip_ncaltech_params.py
-        gpus = 1
-        dataset = "n_caltech"
-        data_root = "/nonexistent"
-        quantize_args = dict(
-            max_imgs=2, N=20000, split_method="event_count",
-            convert_method="event_histogram", grayscale=True,
-            count_non_zero=False, background_mask=True)
-        model = "ZSCLIP"
-        clip_dict = dict(arch="ViT-L/14",
-                         prompt="a point cloud image of a {}",
-                         agg_func="mean")
-        bf16 = True
-
-    pred = Predictor(ZSL14(), ["a", "b", "c"], smoke=True, batch_size=16,
+    pred = Predictor(_ZSL14(), ["a", "b", "c"], smoke=True, batch_size=16,
                      device=cuda)
     rng = np.random.default_rng(3)
     streams = [np.stack([rng.integers(0, 240, n), rng.integers(0, 180, n),
