@@ -5,9 +5,10 @@ checkpoint files on disk, the ResNet towers, pseudo-labelling with
 self-training, the HTTP server and its client, frozen export bundles
 (one graph set for the card, one for the CPU), data-parallel training and
 pseudo-labelling, the trainer's extras, ZeRO-1, tensor parallelism, and
-the converters and real-asset parity harness.
+the converters and real-asset parity harness, and the EVA02-CLIP tower.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py        # every phase
+    python3 chip_smoke.py eva    # phases 1 and 16 alone
 
 Phases (each prints its lines; any failure raises, so the exit code is
 non-zero):
@@ -224,6 +225,18 @@ non-zero):
    the tokenizer and zero-shot stages skipped with their notes, the method
    eval ok, the round trip bit-equal; each stage's wall s; counters
    zeroed just before and read just after (`parity` path: K1 and K2 run).
+16. the EVA02-CLIP-L/14 @ 336 px tower (arch EVA02-CLIP-L-14-336, the
+   `eva` path): R1, the rotary kernel (csrc/rope.cu), at a request's
+   [320, 577, 3072] bit-equal to `rope_qkv_plain`, the class token and
+   the v third untouched, kernel and plain ms beside its bound (the q and
+   k of tokens 1 ... 576 read and written); K2 at [320, 577, 3072]; D1 at
+   the block's products at M = 320 x 577 ((1024, 3072), (1024, 1024),
+   (1024, 5472), (2736, 1024): W1 and W2 fused, the hidden 2730 stored
+   as 2736); then random EVA02 towers, text features for 101 synthetic
+   prompts through its exact-GELU text tower and a Predictor at batch 32
+   answering one 32 x 225k request (one 320-view forward) after an
+   untimed one, counters zeroed just before it: K1 1, D1 96, R1 24, K2
+   24.
 
 Then one JSON line with every kernel's numbers (by_path adds the eval
 CLI's `cli` rows, the pruned request's `serve_pruned` K2 row, RN50's
@@ -232,7 +245,8 @@ profiler inside its request, phase 13(a)'s `ddp` rows, phase 14's
 `tp`, `zero1` and `dp_serve` rows and phase 15's `parity` rows (the eval
 CLI's shapes); `eval_cli`, `train_cli` and `trained_eval` hold phase 9,
 `serve_options` phase 10, `pseudo_labels` phase 11, `server_export`
-phase 12, `ddp` phase 13, `parallel` phase 14, `parity` phase 15),
+phase 12, `ddp` phase 13, `parallel` phase 14, `parity` phase 15,
+`eva02` phase 16; R1's row is the `eva` path's),
 the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Imports nothing
@@ -618,6 +632,11 @@ DENSE_PATHS = {
     "serve": (320 * 257, VITL14_PRODUCTS),  # a request's 320 views
     "train": (256 * 257, VITL14_PRODUCTS),  # the FT step's 128 x 2 views
     "train_fs": (64 * 257, VITL14_PRODUCTS),  # the FS step's frozen tower
+    # phase 16: an EVA02-CLIP-L/14@336 block at a request's 320 views of
+    # 577 tokens: q/k/v, out, W1 and W2 fused (the hidden 2730 stored as
+    # 2736), W3
+    "eva": (320 * 577, [(1024, 3072), (1024, 1024), (1024, 5472),
+                        (2736, 1024)]),
     # shapes of no bf16 path (each runs in f32): the text tower's 101
     # prompts, and the FS adapter (text-trans, d_model 256) on a 32 x 2
     # batch: in_proj, q/k/v, out, MLP in, MLP out, out_proj
@@ -4046,7 +4065,138 @@ def parity_phase(dev, files, tmp, tag="15 parity"):
     return out, launches
 
 
-def main() -> int:
+# -- phase 16: the EVA02-CLIP-L/14 @ 336 px tower ------------------------------
+
+EVA_ARCH = "EVA02-CLIP-L-14-336"
+# each kernel's source and the TPU kernel it stands for, in the kernels line
+KERNEL_SOURCES = {
+    "histogram": ("eventclip_tpu_torch/csrc/histogram.cu",
+                  "eventclip_tpu/ops/rasterize.py:123"),
+    "qkv_attention": ("eventclip_tpu_torch/csrc/attention.cu",
+                      "eventclip_tpu/ops/attention.py:325"),
+    "qkv_attention_bwd": ("eventclip_tpu_torch/csrc/attention_bwd.cu",
+                          "eventclip_tpu/ops/attention.py:215"),
+    "attention": ("eventclip_tpu_torch/csrc/attention.cu",
+                  "eventclip_tpu/ops/attention.py:115"),
+    "dense": ("eventclip_tpu_torch/csrc/dense.cu",
+              "none: XLA's fused dot of eventclip_tpu/models/clip/"
+              "model.py dense"),
+    "rope_qkv": ("eventclip_tpu_torch/csrc/rope.cu",
+                 "none: the JAX package has no EVA02 tower"),
+}
+
+
+def rope_bound(B, S, D):
+    """(ms, what bounds it) of R1 on a [B, S, 3D] q/k/v: the q and k of
+    tokens 1 ... S-1 read and written in bf16 (the f32 tables, 0.3 MB at
+    S = 577, stay in cache); 3 operations an element."""
+    n = B * (S - 1) * 2 * D
+    return attention_bound(2 * 2 * n, 3.0 * n, "bfloat16")
+
+
+def check_rope(gen, B, cfg, dev, tag="16 eva02"):
+    """R1 (csrc/rope.cu) at B views of the tower `cfg` against
+    `rope_qkv_plain` on the card: bit-equal, the class token and the v
+    third untouched; kernel and plain ms beside the bound."""
+    import torch
+
+    from eventclip_tpu_torch.models.clip import eva
+    from eventclip_tpu_torch.ops.rope import rope_qkv, rope_qkv_plain
+
+    S, D, heads = cfg.seq_len, cfg.width, cfg.heads
+    qkv = (4 * torch.randn((B, S, 3 * D), generator=gen, device=dev)
+           ).bfloat16()
+    cos, sin = eva.rope_tables(cfg, dev)
+    got, want = qkv.clone(), qkv.clone()
+    rope_qkv(got, cos, sin, heads)
+    rope_qkv_plain(want, cos, sin, heads)
+    if not torch.equal(got, want):
+        raise AssertionError(f"R1 [{B}, {S}, {3 * D}]: "
+                             f"{float((got != want).float().mean()):.3g} of "
+                             "the elements off the plain version's bits")
+    if not (torch.equal(got[:, 0], qkv[:, 0])
+            and torch.equal(got[..., 2 * D:], qkv[..., 2 * D:])):
+        raise AssertionError("R1 moved the class token or the v third")
+    del want
+    ms = cuda_ms(lambda: rope_qkv(got, cos, sin, heads))
+    plain_ms = cuda_ms(lambda: rope_qkv_plain(qkv, cos, sin, heads),
+                       iters=5)
+    bound_ms, bound_by = rope_bound(B, S, D)
+    log(f"[{tag}] R1 rope_qkv [{B}, {S}, {3 * D}] bf16, {heads} heads: "
+        f"bit-equal to the plain version, token 0 and v untouched; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}, {100 * bound_ms / ms:.1f}%)")
+    return dict(shape=[B, S, 3 * D], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def eva_phase(dev, gen, tag="16 eva02"):
+    """Phase 16: R1, K2 and D1 at the EVA02 serving path's shapes, then a
+    32 x 225k request through Predictor with the arch EVA02-CLIP-L-14-336
+    (random towers), launch counters zeroed just before it. Returns (the
+    path's kernel rows, its launches, the request's numbers)."""
+    import torch
+
+    from eventclip_tpu_torch import kernels
+    from eventclip_tpu_torch.models.classifier import compute_text_features
+    from eventclip_tpu_torch.models.clip.config import clip_arch_config
+    from eventclip_tpu_torch.models.clip.model import init_clip_params
+    from eventclip_tpu_torch.serve import Predictor
+    from eventclip_tpu_torch.utils.config import load_params
+
+    t_phase = time.perf_counter()
+    cfg = clip_arch_config(EVA_ARCH)
+    v = cfg.vision
+    rows = {"rope_qkv": check_rope(gen, 320, v, dev, tag),
+            "qkv_attention": check_attention(
+                gen, "EVA02-CLIP-L/14@336", 320, v.seq_len, v.heads,
+                v.width // v.heads, torch.bfloat16, False, dev),
+            "dense": check_dense(gen, "eva", dev)}
+    torch.cuda.empty_cache()
+
+    params = load_params(os.path.join(HERE, "configs", "zsclip",
+                                      "zsclip_ncaltech_params.py"))
+    params.clip_dict["arch"] = EVA_ARCH
+    n_cls = 101
+    names = [f"class_{i}" for i in range(n_cls)]
+    rng = np.random.default_rng(16)
+    clip = init_clip_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+    tokens = torch.from_numpy(
+        synth_prompts(rng, n_cls, cfg.text.context_length)).to(dev)
+    with torch.inference_mode():
+        text_feats = compute_text_features(clip, tokens)
+    pred = Predictor(params, names, clip_params=clip, text_feats=text_feats,
+                     batch_size=32, device=dev)
+    streams = [synth_stream(rng, 225000) for _ in range(32)]
+    pred.predict(streams)  # the first request's allocations
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = pred.predict(streams, top_k=5)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    check_probs(out, len(streams), n_cls)
+    # one 320-view forward: D1 4 a block (the K = 588 patch embedding on
+    # the library GEMM), R1 and K2 once a block, K1 once
+    want = {"histogram": 1, "dense": 4 * v.layers, "rope_qkv": v.layers,
+            "qkv_attention": v.layers}
+    if launches != want:
+        raise AssertionError(f"EVA02 request launches {launches}, want "
+                             f"{want}")
+    info = dict(ms=ms, streams_per_s=len(streams) / (ms / 1e3),
+                launches=launches, phase_s=time.perf_counter() - t_phase)
+    log(f"[{tag}] {EVA_ARCH} request 32 x 225k through Predictor: "
+        f"{ms:.1f} ms ({info['streams_per_s']:.2f} streams/s); launches "
+        f"{launches}; probs finite, rows sum to 1; phase "
+        f"{info['phase_s']:.1f} s")
+    del pred, clip
+    torch.cuda.empty_cache()
+    return rows, launches, info
+
+
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -4076,6 +4226,18 @@ def main() -> int:
 
     # -- 2 ---------------------------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
+    if argv == ["eva"]:
+        # phase 16 alone
+        rows, launches, info = eva_phase(dev, gen)
+        log(json.dumps({"kernels": [
+            dict(name=k, route="cuda", source=KERNEL_SOURCES[k][0],
+                 launches=launches.get(k, 0), **r)
+            for k, r in rows.items()], "eva02": info}))
+        log(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     # each path's records at the shapes that path gives the kernel
     rec = {"serve": {}, "train": {}, "train_f32": {}, "train_fs": {},
            "cli": {}, "none": {}}
@@ -4320,6 +4482,8 @@ def main() -> int:
         # the harness on phase 9's files, with no vocab on its paths
         os.environ.pop("EVENTCLIP_BPE_PATH")
         parity, parity_launches = parity_phase(dev, files, tmp)
+    # -- 16 -----------------------------------------------------------------
+    rec["eva"], eva_launches, eva = eva_phase(dev, gen)
     rec["serve_pruned"] = {"qkv_attention": pruned_row}
     # the harness's evals run the eval CLI's shapes
     rec["parity"] = rec["cli"]
@@ -4332,23 +4496,13 @@ def main() -> int:
                 bound_by=rec["serve"][k]["bound_by"])
         for k in ("histogram", "qkv_attention")}
 
-    sources = {
-        "histogram": ("eventclip_tpu_torch/csrc/histogram.cu",
-                      "eventclip_tpu/ops/rasterize.py:123"),
-        "qkv_attention": ("eventclip_tpu_torch/csrc/attention.cu",
-                          "eventclip_tpu/ops/attention.py:325"),
-        "qkv_attention_bwd": ("eventclip_tpu_torch/csrc/attention_bwd.cu",
-                              "eventclip_tpu/ops/attention.py:215"),
-        "attention": ("eventclip_tpu_torch/csrc/attention.cu",
-                      "eventclip_tpu/ops/attention.py:115"),
-        "dense": ("eventclip_tpu_torch/csrc/dense.cu",
-                  "none: XLA's fused dot of eventclip_tpu/models/clip/"
-                  "model.py dense"),
-    }
     # each kernel's row: this slice's path, FT training, with launches, ms
-    # and bound from that path (K4 is on no path: its own check's shape);
-    # by_path holds each path's own row
-    counts = {"serve": launches, "train": train_launches,
+    # and bound from that path (K4 is on no path: its own check's shape;
+    # R1 runs on the EVA02 serving path only: that path's); by_path holds
+    # each path's own row
+    row_path = {k: "eva" if k == "rope_qkv" else "train"
+                for k in KERNEL_SOURCES}
+    counts = {"serve": launches, "train": train_launches, "eva": eva_launches,
               "train_f32": train32_launches, "train_fs": train_fs_launches,
               "cli": data["eval_cli"]["launches"],
               "serve_pruned": pruned_launches, "rn50": rn50_launches,
@@ -4359,10 +4513,10 @@ def main() -> int:
                for p, recs in rec.items() if p in counts}
     line = {"kernels": [
         dict(name=k, route="cuda", source=src, replaces=tpu,
-             launches=train_launches.get(k, 0),
-             **(rec["train"].get(k) or rec["none"][k]),
+             launches=counts[row_path[k]].get(k, 0),
+             **(rec[row_path[k]].get(k) or rec["none"][k]),
              by_path={p: rows[k] for p, rows in by_path.items() if k in rows})
-        for k, (src, tpu) in sources.items()
+        for k, (src, tpu) in KERNEL_SOURCES.items()
     ], "text_attention": text, "f32_attention": f32,
         "dense_off_path": dense_off_path,
         "rounding_orders": orders,
@@ -4370,7 +4524,7 @@ def main() -> int:
         "train_f32": train32, "train_fs": train_fs, "randaugment": augment,
         "serve_options": options, "pseudo_labels": pseudo,
         "server_export": served, "ddp": ddp, "parallel": parallel,
-        "parity": parity, **data}
+        "parity": parity, "eva02": eva, **data}
     log(json.dumps(line))
     log(card)
     print(json.dumps({"ok": True, "device": {
@@ -4380,4 +4534,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -66,6 +66,8 @@ import torch
 from torch import nn
 
 from .models.classifier import normalize
+from .models.clip.config import EVAVisionConfig
+from .models.clip.eva import refuse
 from .models.clip.model import encode_text
 from .serve import Predictor, device_step, embed_features
 
@@ -225,6 +227,8 @@ def export_predictor(pred: Predictor, path: str, *,
             "export_predictor freezes single-device programs; build the "
             "Predictor with data_parallel=False (a multi-chip deployment "
             "re-shards at load time and should serve live)")
+    if isinstance(pred._cfg.clip.vision, EVAVisionConfig):
+        raise refuse("export", pred._cfg.clip.vision)
     platforms = list(platforms or [pred.device.type])
     bad = [p for p in platforms if p not in _DEVICE_TYPES]
     if bad:

@@ -28,7 +28,8 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 
 SOURCES = {"histogram": "histogram.cu", "attention": "attention.cu",
-           "attention_bwd": "attention_bwd.cu", "dense": "dense.cu"}
+           "attention_bwd": "attention_bwd.cu", "dense": "dense.cu",
+           "rope": "rope.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -62,6 +63,10 @@ _SIGNATURES = {
     "dense": {
         # x, w, bias, out, M, N, K, tile width, blocks, stream
         "dense_bf16": [_P] * 4 + [_I] * 5 + [_P],
+    },
+    "rope": {
+        # qkv, cos, sin, B, S, D, heads, stream
+        "rope_qkv": [_P] * 3 + [_I] * 4 + [_P],
     },
 }
 

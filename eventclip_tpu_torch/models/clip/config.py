@@ -3,12 +3,18 @@
 Copy of eventclip_tpu/models/clip/config.py (shape hyper-parameters of
 OpenAI's released CLIP checkpoints), with its own copy of the ResNet config
 dataclass so the table needs no JAX (the towers: models/clip/resnet.py).
+
+`EVA_ARCHS` adds the port's own EVA02-CLIP towers (EVA-CLIP,
+github.com/baaivision/EVA, `EVA02-CLIP-L-14-336.json` and
+`EVA02-CLIP-L-14.json`; the tower: models/clip/eva.py), which the JAX
+package does not have; `CLIP_ARCHS` stays the JAX package's table, and
+`clip_arch_config` finds a name in either.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import ClassVar, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +57,41 @@ class ResNetVisionConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EVAVisionConfig:
+    """An EVA02 image tower (EVA-CLIP's `eva_vit_model.py`): pre-norm
+    blocks with 2-D rotary q/k, a layer norm on the heads' output
+    (`inner_attn_ln`), a SwiGLU MLP of `mlp_hidden` with a layer norm on
+    its hidden (`ffn_ln`), q and v biases only, a patch embedding with
+    bias, no `ln_pre`, a final norm and a `head` with bias."""
+
+    image_size: int
+    patch_size: int
+    width: int
+    layers: int
+    heads: int
+    output_dim: int
+    mlp_hidden: int  # int(width * 2.6667), as EVA-CLIP computes it
+    rope_theta: float = 10000.0
+    pt_hw_seq_len: int = 16  # the grid the rotary positions are scaled to
+    eps: float = 1e-6
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def seq_len(self) -> int:
+        return self.grid * self.grid + 1
+
+    @property
+    def mlp_stored(self) -> int:
+        """The hidden width as stored: `mlp_hidden` rounded up to a
+        multiple of 8 (16-byte bf16 rows, which D1's TMA needs), the pad
+        rows of W1 / W2 and columns of W3 zero."""
+        return -(-self.mlp_hidden // 8) * 8
+
+
+@dataclasses.dataclass(frozen=True)
 class TextConfig:
     vocab_size: int = 49408
     context_length: int = 77
@@ -58,6 +99,15 @@ class TextConfig:
     layers: int = 12
     heads: int = 8
     output_dim: int = 512
+    # the MLP's activation: OpenAI's "quick_gelu", or exact "gelu"
+    act: ClassVar[str] = "quick_gelu"
+
+
+@dataclasses.dataclass(frozen=True)
+class EVATextConfig(TextConfig):
+    """EVA-CLIP's text tower: OpenAI's shape with exact GELU."""
+
+    act: ClassVar[str] = "gelu"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,9 +189,41 @@ CLIP_ARCHS["RN-T@32"] = dataclasses.replace(
 )
 
 
+def _eva(name, image, patch, width, layers, heads, embed, mlp, t_width,
+         t_heads, t_layers=12, pt=16, debug=False):
+    return CLIPConfig(
+        name=name,
+        vision=EVAVisionConfig(
+            image_size=image, patch_size=patch, width=width, layers=layers,
+            heads=heads, output_dim=embed, mlp_hidden=mlp, pt_hw_seq_len=pt),
+        text=EVATextConfig(width=t_width, heads=t_heads, layers=t_layers,
+                           output_dim=embed),
+        debug=debug,
+    )
+
+
+EVA_ARCHS = {
+    "EVA02-CLIP-L-14-336": _eva("EVA02-CLIP-L-14-336", 336, 14, 1024, 24,
+                                16, 768, int(1024 * 2.6667), 768, 12),
+    "EVA02-CLIP-L-14": _eva("EVA02-CLIP-L-14", 224, 14, 1024, 24, 16, 768,
+                            int(1024 * 2.6667), 768, 12),
+    # tiny debug siblings (tests; not releases): a hidden of 170, not a
+    # multiple of 8, and a grid of 6 rotated at 4 positions (the 336 px
+    # tower's interpolation) or of 4 at 4 (the 224 px tower's)
+    "EVA02-T/8@48": _eva("EVA02-T/8@48", 48, 8, 64, 2, 2, 32,
+                         int(64 * 2.6667), 32, 2, t_layers=2, pt=4,
+                         debug=True),
+    "EVA02-T/8@32": _eva("EVA02-T/8@32", 32, 8, 64, 2, 2, 32,
+                         int(64 * 2.6667), 32, 2, t_layers=2, pt=4,
+                         debug=True),
+}
+
+
 def clip_arch_config(arch: str) -> CLIPConfig:
-    if arch not in CLIP_ARCHS:
+    cfg = CLIP_ARCHS.get(arch) or EVA_ARCHS.get(arch)
+    if cfg is None:
         raise KeyError(
-            f"Unknown CLIP arch {arch!r}; available: {sorted(CLIP_ARCHS)}"
+            f"Unknown CLIP arch {arch!r}; available: "
+            f"{sorted(CLIP_ARCHS) + sorted(EVA_ARCHS)}"
         )
-    return CLIP_ARCHS[arch]
+    return cfg

@@ -27,6 +27,10 @@ convert to the JAX package's tree as numpy first (`convert_clip_state_dict`,
 ViT and ResNet branches, every leaf cast to float32, batch norms folded by
 the same numpy operations), and `clip_from_jax` builds the port's towers
 from that tree.
+
+EVA-CLIP's image towers (models/clip/eva.py) have no JAX tree: their
+`visual.*` state dict (EVA's `eva_vit_model.py` names) maps straight onto
+the port's layout (`eva_visual_state_dict`, `load_eva_visual_`).
 """
 
 from __future__ import annotations
@@ -36,7 +40,8 @@ from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from .config import CLIPConfig, ResNetVisionConfig, TextConfig, VisionConfig
+from .config import (CLIPConfig, EVAVisionConfig, ResNetVisionConfig,
+                     TextConfig, VisionConfig)
 from .model import CLIP
 
 
@@ -352,3 +357,71 @@ def load_clip_checkpoint(path: str):
     if hasattr(obj, "state_dict"):
         obj = obj.state_dict()
     return convert_clip_state_dict(obj), infer_config_from_state_dict(obj)
+
+
+# -- EVA-CLIP image towers -----------------------------------------------------
+
+
+def eva_visual_state_dict(sd: Mapping[str, Any], cfg: EVAVisionConfig
+                          ) -> Dict[str, torch.Tensor]:
+    """EVA-CLIP's image tower state dict (`visual.` prefix optional; EVA's
+    names: `patch_embed.proj`, `cls_token`, `pos_embed`, per block
+    `norm1`, `attn.{q,k,v}_proj.weight`, `attn.q_bias`, `attn.v_bias`,
+    `attn.inner_attn_ln`, `attn.proj`, `norm2`, `mlp.w1`, `mlp.w2`,
+    `mlp.ffn_ln`, `mlp.w3`; then `norm`, `head`) -> the port's
+    `EVAVisionTower` state dict, float32: q/k/v fused with a zero k bias,
+    W1 and W2 fused with their hidden padded to `cfg.mlp_stored`, W3's
+    columns padded. The rotary buffers (`rope.freqs_*`) are left out: the
+    port makes its tables from the config. Any other name raises."""
+    sd = {(k[len("visual."):] if k.startswith("visual.") else k): v
+          for k, v in sd.items()}
+    used = {k for k in sd if "rope.freqs_" in k}
+
+    def get(name):
+        used.add(name)
+        return torch.as_tensor(sd[name]).float()
+
+    D, H, Hs = cfg.width, cfg.mlp_hidden, cfg.mlp_stored
+
+    def pad_rows(t):
+        return torch.cat([t, t.new_zeros((Hs - H,) + t.shape[1:])])
+
+    out = {"patch_embed": get("patch_embed.proj.weight").reshape(D, -1),
+           "patch_bias": get("patch_embed.proj.bias"),
+           "class_embedding": get("cls_token").reshape(D),
+           "positional_embedding": get("pos_embed").reshape(cfg.seq_len, D),
+           "norm.weight": get("norm.weight"), "norm.bias": get("norm.bias"),
+           "head": get("head.weight"), "head_bias": get("head.bias")}
+    for i in range(cfg.layers):
+        p = f"blocks.{i}."
+        for a, b in (("norm1", "norm1"), ("norm2", "norm2"),
+                     ("inner_attn_ln", "attn.inner_attn_ln"),
+                     ("ffn_ln", "mlp.ffn_ln")):
+            for leaf in ("weight", "bias"):
+                out[p + a + "." + leaf] = get(p + b + "." + leaf)
+        out[p + "wqkv"] = torch.cat([get(p + f"attn.{t}_proj.weight")
+                                     for t in "qkv"])
+        qb = get(p + "attn.q_bias")
+        out[p + "bqkv"] = torch.cat([qb, torch.zeros_like(qb),
+                                     get(p + "attn.v_bias")])
+        out[p + "wo"] = get(p + "attn.proj.weight")
+        out[p + "bo"] = get(p + "attn.proj.bias")
+        out[p + "w12"] = torch.cat([pad_rows(get(p + "mlp.w1.weight")),
+                                    pad_rows(get(p + "mlp.w2.weight"))])
+        out[p + "b12"] = torch.cat([pad_rows(get(p + "mlp.w1.bias")),
+                                    pad_rows(get(p + "mlp.w2.bias"))])
+        w3 = get(p + "mlp.w3.weight")
+        out[p + "w3"] = torch.cat([w3, w3.new_zeros((D, Hs - H))], dim=1)
+        out[p + "b3"] = get(p + "mlp.w3.bias")
+    left = sorted(set(sd) - used)
+    if left:
+        raise KeyError(f"EVA image tower: names the port does not map: "
+                       f"{left[:8]}")
+    return out
+
+
+@torch.no_grad()
+def load_eva_visual_(visual, sd: Mapping[str, Any]) -> None:
+    """Copy an EVA-CLIP image tower state dict into the port's
+    `EVAVisionTower` (models/clip/eva.py) in place, every leaf checked."""
+    visual.load_state_dict(eva_visual_state_dict(sd, visual.cfg))

@@ -54,7 +54,8 @@ from ...ops.attention import fused_qkv_attention, tp_fused_qkv_attention
 from ...ops.dense import dense_bf16
 from ...ops.quant import AmaxRecorder, QWeight, qdense
 from ...parallel.distributed import model_all_reduce_sum_
-from .config import CLIPConfig, ResNetVisionConfig, TextConfig, VisionConfig
+from .config import (CLIPConfig, EVAVisionConfig, ResNetVisionConfig,
+                     TextConfig, VisionConfig)
 from .resnet import ResNetVisionTower, init_resnet_visual_
 
 
@@ -257,6 +258,12 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
 
 
+def activation(name: str):
+    """A text tower's MLP activation by its config's `act`: OpenAI's
+    "quick_gelu" or exact "gelu" (looked up when called)."""
+    return F.gelu if name == "gelu" else quick_gelu
+
+
 def lora_delta(x: torch.Tensor, a: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
     """Low-rank delta (x A^T) B^T; A [r, in], B [out, r], each product
@@ -354,8 +361,9 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, width: int, device=None):
+    def __init__(self, width: int, device=None, act: str = "quick_gelu"):
         super().__init__()
+        self.act = act
         self.w1 = _param(4 * width, width, device=device)
         self.b1 = _param(4 * width, zeros=True, device=device)
         self.w2 = _param(width, 4 * width, device=device)
@@ -363,20 +371,23 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor, tp=None) -> torch.Tensor:
         if tp is not None:
-            h = quick_gelu(column_parallel(x, self.w1, self.b1, tp))
+            h = activation(self.act)(column_parallel(x, self.w1, self.b1,
+                                                     tp))
             return row_parallel(h, self.w2, self.b2, tp)
-        return dense(quick_gelu(dense(x, self.w1, self.b1)), self.w2, self.b2)
+        return dense(activation(self.act)(dense(x, self.w1, self.b1)),
+                     self.w2, self.b2)
 
 
 class Block(nn.Module):
     """Pre-norm residual transformer block."""
 
-    def __init__(self, width: int, heads: int, device=None):
+    def __init__(self, width: int, heads: int, device=None,
+                 act: str = "quick_gelu"):
         super().__init__()
         self.ln_1 = nn.LayerNorm(width, device=device)
         self.attn = Attention(width, heads, device=device)
         self.ln_2 = nn.LayerNorm(width, device=device)
-        self.mlp = MLP(width, device=device)
+        self.mlp = MLP(width, device=device, act=act)
 
     def forward(self, h: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 lora: Optional[LayerLoRA] = None, tp=None) -> torch.Tensor:
@@ -385,10 +396,12 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int, device=None):
+    def __init__(self, width: int, layers: int, heads: int, device=None,
+                 act: str = "quick_gelu"):
         super().__init__()
         self.layers = nn.ModuleList(
-            Block(width, heads, device=device) for _ in range(layers))
+            Block(width, heads, device=device, act=act)
+            for _ in range(layers))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 lora: Optional["LoRA"] = None,
@@ -438,15 +451,19 @@ class TextTower(nn.Module):
         self.ln_final = nn.LayerNorm(cfg.width, device=device)
         self.projection = _param(cfg.width, cfg.output_dim, device=device)
         self.blocks = Transformer(cfg.width, cfg.layers, cfg.heads,
-                                  device=device)
+                                  device=device, act=cfg.act)
 
 
 class CLIP(nn.Module):
     def __init__(self, cfg: CLIPConfig, device=None):
         super().__init__()
         self.cfg = cfg
+        from .eva import EVAVisionTower
+
         tower = (ResNetVisionTower if isinstance(cfg.vision,
                                                  ResNetVisionConfig)
+                 else EVAVisionTower if isinstance(cfg.vision,
+                                                   EVAVisionConfig)
                  else VisionTower)
         self.visual = tower(cfg.vision, device=device)
         self.text = TextTower(cfg.text, device=device)
@@ -476,8 +493,15 @@ def encode_image(visual: VisionTower, images: torch.Tensor, *,
     keep_tokens=K (eval-time, opt-in) keeps the K highest-variance patches
     (`prune_patches`), each with its own positional embedding, in raster
     order; K = grid² reproduces the full forward. `tp` runs the blocks
-    tensor-parallel (on weights cut by parallel/sharding.py)."""
+    tensor-parallel (on weights cut by parallel/sharding.py). An EVA02
+    tower (models/clip/eva.py) takes its own forward, which refuses LoRA,
+    remat, pruning, `tp` and a recorded gradient."""
     cfg = visual.cfg
+    if isinstance(cfg, EVAVisionConfig):
+        from .eva import encode_image_eva
+
+        return encode_image_eva(visual, images, dtype=dtype, lora=lora,
+                                remat=remat, keep_tokens=keep_tokens, tp=tp)
     B = images.shape[0]
     ps, g, D = cfg.patch_size, cfg.grid, cfg.width
     x = images.to(dtype)
@@ -552,6 +576,10 @@ def init_clip_params(cfg: CLIPConfig, generator: torch.Generator,
     v, t = model.visual, model.text
     if isinstance(v, ResNetVisionTower):
         init_resnet_visual_(v, generator)
+    elif isinstance(cfg.vision, EVAVisionConfig):
+        from .eva import init_eva_visual_
+
+        init_eva_visual_(v, generator)
     else:
         scale = cfg.vision.width ** -0.5
         for p in (v.patch_embed, v.class_embedding, v.positional_embedding,

@@ -1,7 +1,8 @@
 """The hand-written kernels as `torch.library` custom ops.
 
 K1 (csrc/histogram.cu), K2 / K4 (csrc/attention.cu), K3
-(csrc/attention_bwd.cu) and D1 (csrc/dense.cu) are registered here, so
+(csrc/attention_bwd.cu), D1 (csrc/dense.cu) and the rotary kernel
+(csrc/rope.cu) are registered here, so
 that eager training, serving and `torch.export` (export.py) all launch
 the same registered op:
 
@@ -13,7 +14,9 @@ the same registered op:
 - `eventclip::dense_bf16(x2, w, b)` (D1, the bf16 product of `dense`; its
   CUDA implementation keeps the library GEMM for the shapes D1 does not
   take, ops/dense.py `d1_takes`). Its gradient is `dense`'s autograd
-  Function (models/clip/model.py `_DenseF32Acc`), not registered here.
+  Function (models/clip/model.py `_DenseF32Acc`), not registered here;
+- `eventclip::rope_qkv(qkv, cos, sin, heads)` (EVA02's 2-D rotary q/k,
+  ops/rope.py), which writes `qkv` in place and has no gradient.
 
 Each op has a CUDA implementation (the ctypes launch of its kernel, which
 counts `kernels.LAUNCHES`), a CPU implementation (its plain PyTorch
@@ -22,8 +25,8 @@ takes a CUDA tensor to a plain version: a traced graph keeps each op as
 one node, which dispatches on its inputs' device when the graph runs. The
 histogram's launch plan depends on the card's shared memory and is chosen
 inside the CUDA implementation at run time, so no card-specific number is
-baked into a traced graph. No op
-mutates or aliases an argument. Argument checks stay in the public
+baked into a traced graph. No op but `rope_qkv`
+mutates an argument, and none aliases one. Argument checks stay in the public
 wrappers (ops/attention.py, ops/rasterize.py), which call these ops.
 """
 
@@ -37,6 +40,7 @@ from torch import Tensor
 from . import attention as A
 from . import dense as DN
 from . import rasterize as R
+from . import rope as RP
 
 # -- K1 ------------------------------------------------------------------------
 
@@ -176,3 +180,20 @@ dense_bf16.register_kernel("cuda")(DN.launch_dense)
 @dense_bf16.register_fake
 def _(x2, w, b):
     return x2.new_empty((x2.shape[0], w.shape[0]))
+
+
+# -- the rotary positions of EVA02's q and k, in place -------------------------
+
+
+@torch.library.custom_op("eventclip::rope_qkv", mutates_args=("qkv",),
+                         device_types="cpu")
+def rope_qkv(qkv: Tensor, cos: Tensor, sin: Tensor, heads: int) -> None:
+    RP.rope_qkv_plain(qkv, cos, sin, heads)
+
+
+rope_qkv.register_kernel("cuda")(RP.launch_rope_qkv)
+
+
+@rope_qkv.register_fake
+def _(qkv, cos, sin, heads):
+    return None

@@ -82,6 +82,10 @@ def _require_vit(visual: nn.Module) -> None:
             "int8 quantization supports the ViT towers only "
             "(ResNet archs run bf16)"
         )
+    # the sites are those of OpenAI's block, under `blocks.layers`
+    if not hasattr(visual.blocks, "layers"):
+        raise ValueError("int8 quantization supports OpenAI's ViT block "
+                         f"only, not {type(visual).__name__}'s")
 
 
 def quantize_weight(w: torch.Tensor) -> QWeight:

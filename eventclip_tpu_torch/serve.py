@@ -60,7 +60,8 @@ from .engine.trainer import (build_text_features, copy_clip,
 from .models.classifier import (DEFAULT_PROMPT, build_classifier_config,
                                 classifier_forward, classifier_forward_packed,
                                 init_classifier_params, normalize)
-from .models.clip.config import clip_arch_config
+from .models.clip.config import EVAVisionConfig, clip_arch_config
+from .models.clip.eva import refuse
 from .ops.preprocess import ClipPreprocess
 from .ops.quant import calibrate_visual_amax, quantize_classifier_params
 from .ops.rasterize import RasterSpec, rasterize_for_clip
@@ -137,6 +138,12 @@ class Predictor:
         dtype = torch.bfloat16 if bool(params.get("bf16", True)) \
             else torch.float32
         self._cfg = build_classifier_config(params, clip_cfg, dtype=dtype)
+        if isinstance(clip_cfg.vision, EVAVisionConfig):
+            # refused here rather than at the first request
+            if prune_tokens > 0:
+                raise refuse("token pruning", clip_cfg.vision)
+            if dtype != torch.bfloat16 and self.device.type == "cuda":
+                raise refuse("f32 on the card", clip_cfg.vision)
         if prune_tokens > 0:
             self._cfg = dataclasses.replace(self._cfg,
                                             keep_tokens=int(prune_tokens))
