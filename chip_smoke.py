@@ -229,14 +229,18 @@ non-zero):
    `eva` path): R1, the rotary kernel (csrc/rope.cu), at a request's
    [320, 577, 3072] bit-equal to `rope_qkv_plain`, the class token and
    the v third untouched, kernel and plain ms beside its bound (the q and
-   k of tokens 1 ... 576 read and written); K2 at [320, 577, 3072]; D1 at
+   k of tokens 1 ... 576 read and written); S1, the SwiGLU glue
+   (csrc/swiglu.cu), at [320, 577, 5472] -> 2736 (H 2730, the pad columns
+   of h12 holding +-1e4) within one bf16 ulp of `swiglu_plain`, the pad
+   columns 0, kernel and plain ms beside its bound (h12 read once, the
+   result written once); K2 at [320, 577, 3072]; D1 at
    the block's products at M = 320 x 577 ((1024, 3072), (1024, 1024),
    (1024, 5472), (2736, 1024): W1 and W2 fused, the hidden 2730 stored
    as 2736); then random EVA02 towers, text features for 101 synthetic
    prompts through its exact-GELU text tower and a Predictor at batch 32
    answering one 32 x 225k request (one 320-view forward) after an
    untimed one, counters zeroed just before it: K1 1, D1 96, R1 24, K2
-   24.
+   24, S1 24.
 
 Then one JSON line with every kernel's numbers (by_path adds the eval
 CLI's `cli` rows, the pruned request's `serve_pruned` K2 row, RN50's
@@ -246,7 +250,7 @@ profiler inside its request, phase 13(a)'s `ddp` rows, phase 14's
 CLI's shapes); `eval_cli`, `train_cli` and `trained_eval` hold phase 9,
 `serve_options` phase 10, `pseudo_labels` phase 11, `server_export`
 phase 12, `ddp` phase 13, `parallel` phase 14, `parity` phase 15,
-`eva02` phase 16; R1's row is the `eva` path's),
+`eva02` phase 16; R1's and S1's rows are the `eva` path's),
 the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}. Imports nothing
@@ -4083,6 +4087,8 @@ KERNEL_SOURCES = {
               "model.py dense"),
     "rope_qkv": ("eventclip_tpu_torch/csrc/rope.cu",
                  "none: the JAX package has no EVA02 tower"),
+    "swiglu_ln": ("eventclip_tpu_torch/csrc/swiglu.cu",
+                  "none: the JAX package has no EVA02 tower"),
 }
 
 
@@ -4130,9 +4136,61 @@ def check_rope(gen, B, cfg, dev, tag="16 eva02"):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def swiglu_bound(M, Hs):
+    """(ms, what bounds it) of S1 on [M, 2 Hs] -> [M, Hs] bf16: h12 read
+    once and the result written once (the weight and bias, 8 H bytes, stay
+    in cache); its few operations an element bound it nowhere near."""
+    return 2 * 3 * M * Hs / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def check_swiglu(gen, B, cfg, dev, tag="16 eva02"):
+    """S1 (csrc/swiglu.cu) at B views of the tower `cfg` ([B, S, 2 Hs]
+    bf16, the pad columns of h12 holding junk) against `swiglu_plain` on
+    the card: within one bf16 ulp (rtol 2^-7, atol 1e-3 near 0, where the
+    f32 statistics' orders differ), the pad columns 0, one launch; kernel
+    and plain ms beside the bound."""
+    import torch
+
+    from eventclip_tpu_torch import kernels
+    from eventclip_tpu_torch.ops.swiglu import swiglu_ln, swiglu_plain
+
+    S, H, Hs = cfg.seq_len, cfg.mlp_hidden, cfg.mlp_stored
+    h12 = (2 * torch.randn((B, S, 2 * Hs), generator=gen, device=dev)
+           ).bfloat16()
+    h12[..., H:Hs] = 1e4
+    h12[..., Hs + H:] = -1e4
+    w = 1 + 0.2 * torch.randn((H,), generator=gen, device=dev)
+    b = 0.1 * torch.randn((H,), generator=gen, device=dev)
+    eps = cfg.eps
+    kernels.reset_launches()
+    got = swiglu_ln(h12, w, b, eps)
+    torch.cuda.synchronize()
+    if dict(kernels.LAUNCHES) != {"swiglu_ln": 1}:
+        raise AssertionError(f"S1 launches {dict(kernels.LAUNCHES)}")
+    want = swiglu_plain(h12, w, b, eps)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=1e-3)
+    if got[..., H:].any():
+        raise AssertionError("S1 wrote a pad column other than 0")
+    err = float((got.float() - want.float()).abs().max())
+    off = float((got != want).float().mean())
+    del want
+    ms = cuda_ms(lambda: swiglu_ln(h12, w, b, eps))
+    plain_ms = cuda_ms(lambda: swiglu_plain(h12, w, b, eps), iters=5)
+    M = B * S
+    bound_ms, bound_by = swiglu_bound(M, Hs)
+    log(f"[{tag}] S1 swiglu_ln [{B}, {S}, {2 * Hs}] -> {Hs} bf16, H {H}: "
+        f"max |kernel - plain| {err:.3g}, {off:.3g} of the elements off "
+        f"the plain version's bits, pad 0; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+        f"{100 * bound_ms / ms:.1f}%)")
+    return dict(shape=[B, S, 2 * Hs], max_abs_err=err, off_bits=off, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
 def eva_phase(dev, gen, tag="16 eva02"):
-    """Phase 16: R1, K2 and D1 at the EVA02 serving path's shapes, then a
-    32 x 225k request through Predictor with the arch EVA02-CLIP-L-14-336
+    """Phase 16: R1, S1, K2 and D1 at the EVA02 serving path's shapes, then
+    a 32 x 225k request through Predictor with the arch EVA02-CLIP-L-14-336
     (random towers), launch counters zeroed just before it. Returns (the
     path's kernel rows, its launches, the request's numbers)."""
     import torch
@@ -4148,6 +4206,7 @@ def eva_phase(dev, gen, tag="16 eva02"):
     cfg = clip_arch_config(EVA_ARCH)
     v = cfg.vision
     rows = {"rope_qkv": check_rope(gen, 320, v, dev, tag),
+            "swiglu_ln": check_swiglu(gen, 320, v, dev, tag),
             "qkv_attention": check_attention(
                 gen, "EVA02-CLIP-L/14@336", 320, v.seq_len, v.heads,
                 v.width // v.heads, torch.bfloat16, False, dev),
@@ -4179,9 +4238,9 @@ def eva_phase(dev, gen, tag="16 eva02"):
     launches = dict(kernels.LAUNCHES)
     check_probs(out, len(streams), n_cls)
     # one 320-view forward: D1 4 a block (the K = 588 patch embedding on
-    # the library GEMM), R1 and K2 once a block, K1 once
+    # the library GEMM), R1, K2 and S1 once a block, K1 once
     want = {"histogram": 1, "dense": 4 * v.layers, "rope_qkv": v.layers,
-            "qkv_attention": v.layers}
+            "qkv_attention": v.layers, "swiglu_ln": v.layers}
     if launches != want:
         raise AssertionError(f"EVA02 request launches {launches}, want "
                              f"{want}")
@@ -4498,9 +4557,9 @@ def main(argv) -> int:
 
     # each kernel's row: this slice's path, FT training, with launches, ms
     # and bound from that path (K4 is on no path: its own check's shape;
-    # R1 runs on the EVA02 serving path only: that path's); by_path holds
-    # each path's own row
-    row_path = {k: "eva" if k == "rope_qkv" else "train"
+    # R1 and S1 run on the EVA02 serving path only: that path's); by_path
+    # holds each path's own row
+    row_path = {k: "eva" if k in ("rope_qkv", "swiglu_ln") else "train"
                 for k in KERNEL_SOURCES}
     counts = {"serve": launches, "train": train_launches, "eva": eva_launches,
               "train_f32": train32_launches, "train_fs": train_fs_launches,

@@ -9,7 +9,10 @@ starts one `nvcc` per source at once.
 
 Every kernel wrapper adds one to `LAUNCHES[name]` where it launches its
 kernel, and nowhere else, so a run can show that its path went through the
-kernels (`reset_launches` before, read after).
+kernels (`reset_launches` before, read after). The sources: K1
+(`histogram`), K2 / K4 (`attention`), K3 (`attention_bwd`), D1 (`dense`),
+EVA02's rotary kernel R1 (`rope`) and its SwiGLU glue S1 (`swiglu`,
+counted as `swiglu_ln`).
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ BUILD_DIR = os.path.join(_HERE, "_build")
 
 SOURCES = {"histogram": "histogram.cu", "attention": "attention.cu",
            "attention_bwd": "attention_bwd.cu", "dense": "dense.cu",
-           "rope": "rope.cu"}
+           "rope": "rope.cu", "swiglu": "swiglu.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
@@ -67,6 +70,10 @@ _SIGNATURES = {
     "rope": {
         # qkv, cos, sin, B, S, D, heads, stream
         "rope_qkv": [_P] * 3 + [_I] * 4 + [_P],
+    },
+    "swiglu": {
+        # h12, weight, bias, out, M, H, Hs, eps, stream
+        "swiglu_ln": [_P] * 4 + [_L, _I, _I, _F, _P],
     },
 }
 

@@ -16,7 +16,8 @@ A patch embedding with bias, the class token, learned positions (no
   multiple of 8, which D1 needs: 2730 -> 2736), its pad rows of W1 / W2,
   pad entries of b1 / b2 and pad columns of W3 zero; `ffn_ln` normalises
   the `mlp_hidden` real columns only and the pad columns are written as 0
-  (`swiglu`, inside a `record_function("swiglu")` range);
+  (`swiglu`, inside a `record_function("swiglu")` range: one pass of the
+  op `eventclip::swiglu_ln`, ops/swiglu.py, S1 csrc/swiglu.cu on the card);
 
 then the class token's final norm and `head` (with bias). Layer norms
 use eps 1e-6. Every product goes through `dense` (D1 on the card for
@@ -34,13 +35,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.profiler import record_function
 
 from ...ops.attention import fused_qkv_attention
 from ...ops import rope as _rope
 from ...ops.rope import rope_qkv
+from ...ops.swiglu import swiglu_ln
 from .config import EVAVisionConfig
 from .model import _normal_, _param, dense, layer_norm
 
@@ -110,11 +111,7 @@ def swiglu(h12: torch.Tensor, ffn_ln: nn.LayerNorm) -> torch.Tensor:
     """[..., 2 Hs] gate and value -> [..., Hs]: SiLU(gate) * value over the
     real columns in f32, rounded once, `ffn_ln` over them, the pad
     columns 0."""
-    Hs = h12.shape[-1] // 2
-    H = ffn_ln.normalized_shape[0]
-    h = (F.silu(h12[..., :H].float()) * h12[..., Hs:Hs + H].float()
-         ).to(h12.dtype)
-    return F.pad(layer_norm(h, ffn_ln), (0, Hs - H))
+    return swiglu_ln(h12, ffn_ln.weight, ffn_ln.bias, ffn_ln.eps)
 
 
 def mlp(blk: EVABlock, h: torch.Tensor) -> torch.Tensor:

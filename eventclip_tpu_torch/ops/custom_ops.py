@@ -1,10 +1,10 @@
 """The hand-written kernels as `torch.library` custom ops.
 
 K1 (csrc/histogram.cu), K2 / K4 (csrc/attention.cu), K3
-(csrc/attention_bwd.cu), D1 (csrc/dense.cu) and the rotary kernel
-(csrc/rope.cu) are registered here, so
-that eager training, serving and `torch.export` (export.py) all launch
-the same registered op:
+(csrc/attention_bwd.cu), D1 (csrc/dense.cu), the rotary kernel
+(csrc/rope.cu) and S1, EVA02's SwiGLU glue (csrc/swiglu.cu), are
+registered here, so that eager training, serving and `torch.export`
+(export.py) all launch the same registered op:
 
 - `eventclip::event_histogram(windows, height, width)` (K1);
 - `eventclip::qkv_attention(qkv, heads, mask)` (K2, fused [B, S, 3D]);
@@ -16,7 +16,10 @@ the same registered op:
   take, ops/dense.py `d1_takes`). Its gradient is `dense`'s autograd
   Function (models/clip/model.py `_DenseF32Acc`), not registered here;
 - `eventclip::rope_qkv(qkv, cos, sin, heads)` (EVA02's 2-D rotary q/k,
-  ops/rope.py), which writes `qkv` in place and has no gradient.
+  ops/rope.py), which writes `qkv` in place and has no gradient;
+- `eventclip::swiglu_ln(h12, weight, bias, eps)` (S1, EVA02's SiLU(gate) *
+  value and `ffn_ln` over the real hidden columns, the pad columns 0,
+  ops/swiglu.py), which has no gradient.
 
 Each op has a CUDA implementation (the ctypes launch of its kernel, which
 counts `kernels.LAUNCHES`), a CPU implementation (its plain PyTorch
@@ -27,7 +30,8 @@ histogram's launch plan depends on the card's shared memory and is chosen
 inside the CUDA implementation at run time, so no card-specific number is
 baked into a traced graph. No op but `rope_qkv`
 mutates an argument, and none aliases one. Argument checks stay in the public
-wrappers (ops/attention.py, ops/rasterize.py), which call these ops.
+wrappers (ops/attention.py, ops/rasterize.py, ops/rope.py, ops/swiglu.py),
+which call these ops.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from . import attention as A
 from . import dense as DN
 from . import rasterize as R
 from . import rope as RP
+from . import swiglu as SW
 
 # -- K1 ------------------------------------------------------------------------
 
@@ -197,3 +202,21 @@ rope_qkv.register_kernel("cuda")(RP.launch_rope_qkv)
 @rope_qkv.register_fake
 def _(qkv, cos, sin, heads):
     return None
+
+
+# -- S1, EVA02's SwiGLU glue ---------------------------------------------------
+
+
+@torch.library.custom_op("eventclip::swiglu_ln", mutates_args=(),
+                         device_types="cpu")
+def swiglu_ln(h12: Tensor, weight: Tensor, bias: Tensor,
+              eps: float) -> Tensor:
+    return SW.swiglu_plain(h12, weight, bias, eps)
+
+
+swiglu_ln.register_kernel("cuda")(SW.launch_swiglu_ln)
+
+
+@swiglu_ln.register_fake
+def _(h12, weight, bias, eps):
+    return h12.new_empty((*h12.shape[:-1], h12.shape[-1] // 2))

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the shape choices of the CUDA kernels on one card.
 
-    python3 kernel_variants.py [forward] [backward] [wgmma] [histogram] [dense]
+    python3 kernel_variants.py [forward] [backward] [wgmma] [histogram]
+                               [dense] [swiglu]
     python3 kernel_variants.py compare DIR
 
 (no argument: the first four)
@@ -45,6 +46,12 @@
   could differ, and it does not), beside the route D1 replaced
   (`addmm(out_dtype=f32)` and the cast), a plain bf16 `torch.mm` with no
   bias and the bound. The plan the wrapper picks is marked.
+- S1, EVA02's SwiGLU glue (csrc/swiglu.cu, swiglu_ln_kernel): builds with
+  -DS1_UNROLL (16-byte vectors of each half a lane has in flight: 2 by
+  default; 1, 4) and -DS1_MIN_BLOCKS (the resident blocks an SM the
+  registers are cut to: 4 by default; 3, 5) at the EVA02 request's [320,
+  577, 5472] and a ragged [3, 37, 5472]; each held to the plain version
+  within one bf16 ulp, beside the plain version's time and the bound.
 - compare DIR: the bf16 K2 and K3 of this checkout against those of the
   checkout at DIR (another commit of this repository, its kernels built
   there), through the public wrappers `fused_qkv_attention` and
@@ -95,6 +102,10 @@ VARIANTS = {
     ("dense", "dense.cu"): ("dense_wgmma_kernel", {
         "default": [], "stages256=3": ["-DD1_STAGES_256=3"],
         "stages128=4": ["-DD1_STAGES_128=4"]}),
+    ("swiglu", "swiglu.cu"): ("swiglu_ln_kernel", {
+        "default": [],
+        **{f"unroll={n}": [f"-DS1_UNROLL={n}"] for n in (1, 4)},
+        **{f"min_blocks={n}": [f"-DS1_MIN_BLOCKS={n}"] for n in (3, 5)}}),
 }
 
 
@@ -284,6 +295,8 @@ def main(argv) -> int:
         time_histogram(gen, dev)
     if "dense" in parts:
         time_dense(libs["dense", "dense.cu"], gen, dev)
+    if "swiglu" in parts:
+        time_swiglu(libs["swiglu", "swiglu.cu"], gen, dev)
     return 0
 
 
@@ -529,6 +542,48 @@ def time_dense(libs, gen, dev):
             print(f"D1 {path} [{M}, {K}] x [{N}, {K}]: ms by build and "
                   f"tile width {', '.join(times)}; addmm + cast {library:.4f};"
                   f" bf16 mm {mm:.4f}; bound {bound:.4f} ({by})", flush=True)
+
+
+def time_swiglu(libs, gen, dev):
+    import torch
+
+    from chip_smoke import cuda_ms, swiglu_bound
+    from eventclip_tpu_torch import kernels
+    from eventclip_tpu_torch.ops.swiglu import swiglu_plain
+
+    def run(lib, h12, w, b):
+        Hs = h12.shape[-1] // 2
+        out = h12.new_empty((*h12.shape[:-1], Hs))
+        rc = lib.swiglu_ln(h12.data_ptr(), w.data_ptr(), b.data_ptr(),
+                           out.data_ptr(), h12.numel() // (2 * Hs),
+                           w.shape[0], Hs, 1e-6,
+                           torch.cuda.current_stream().cuda_stream)
+        kernels.check(lib, rc, "swiglu_ln")
+        return out
+
+    # (views, tokens, H, Hs): the EVA02 request's, a ragged one
+    for B, S, H, Hs in ((320, 577, 2730, 2736), (3, 37, 2730, 2736)):
+        h12 = (2 * torch.randn((B, S, 2 * Hs), generator=gen, device=dev)
+               ).bfloat16()
+        w = 1 + 0.2 * torch.randn((H,), generator=gen, device=dev)
+        b = 0.1 * torch.randn((H,), generator=gen, device=dev)
+        want = swiglu_plain(h12, w, b, 1e-6)
+        times = []
+        for name, lib in libs.items():
+            got = run(lib, h12, w, b)
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=2 ** -7, atol=1e-3)
+            if got[..., H:].any():
+                raise AssertionError(f"S1 {name}: a pad column not 0")
+            ms = cuda_ms(lambda: run(lib, h12, w, b), iters=50)
+            times.append(f"{name}: {ms:.4f}")
+        plain = cuda_ms(lambda: swiglu_plain(h12, w, b, 1e-6), iters=5)
+        bound, by = swiglu_bound(B * S, Hs)
+        print(f"S1 [{B}, {S}, {2 * Hs}] H {H}: ms by build "
+              f"{', '.join(times)}; plain {plain:.4f}; bound {bound:.4f} "
+              f"({by})", flush=True)
+        del h12, want
+        torch.cuda.empty_cache()
 
 
 def time_histogram(gen, dev):

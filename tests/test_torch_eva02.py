@@ -8,7 +8,8 @@ to 4) and EVA02-T/8@32 (a grid of 4 at 4). The float32 tower is held to
 the reference within 1e-5 relative, and each of `portbench/faults_eva.py`'s
 faults fails that comparison. Cases named `*_on_card` need a CUDA device
 (the rotary kernel against its plain version, the tower's launches) and
-skip elsewhere."""
+skip elsewhere; the SwiGLU glue's op has its own file,
+tests/test_torch_swiglu.py."""
 
 import dataclasses
 
@@ -453,7 +454,7 @@ def test_tower_launches_the_kernels_on_card(cuda):
     # 4 products a block, and the patch embedding: K = 3 x 8 x 8 = 192 is
     # a multiple of 8 at the debug tower (at L/14, K = 588 is not)
     assert dict(kernels.LAUNCHES) == {"rope_qkv": L, "qkv_attention": L,
-                                      "dense": 4 * L + 1}
+                                      "dense": 4 * L + 1, "swiglu_ln": L}
     emu = eva02.encode(x, w, tower_config(arch)["vision"], eva02.to_bf16)
     want = eva02.encode(x, w, tower_config(arch)["vision"])
     assert rel(got, want) < 2 * rel(emu, want)
