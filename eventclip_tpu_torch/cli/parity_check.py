@@ -166,7 +166,6 @@ def tower_parity(sd, tree, cfg, tol, device):
     from ..models.clip.config import ResNetVisionConfig
     from ..models.clip.convert import clip_from_jax
     from ..models.clip.model import encode_image, encode_text
-    from ..models.clip.resnet import encode_image_resnet
     from ..ops.quant import quantize_classifier_params
 
     oracle = load_oracle()
@@ -193,8 +192,7 @@ def tower_parity(sd, tree, cfg, tol, device):
     try:
         x = torch.from_numpy(imgs).to(device)
         with torch.inference_mode():
-            ours = (encode_image_resnet(clip.visual, x) if resnet
-                    else encode_image(clip.visual, x)).cpu().numpy()
+            ours = encode_image(clip.visual, x).cpu().numpy()
             ours_t = encode_text(clip.text, torch.from_numpy(toks).to(
                 device)).cpu().numpy()
         if resnet:

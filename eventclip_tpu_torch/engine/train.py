@@ -10,7 +10,7 @@ gradient is global, and the metrics are averaged over the data ranks.
 
 Under tensor parallelism (parameters cut by parallel/sharding.py's
 `shard_params`, which sets `params.tp`) the towers run Megatron's
-operators (models/clip/model.py) and the ranks of a model group hold one
+operators (models/clip/layers.py) and the ranks of a model group hold one
 data shard. The LoRA factors are replicated but each model rank uses
 them in part (its rows of q/k/v's B, its columns of o's A), so their
 gradients are summed over the model group first; every other replicated

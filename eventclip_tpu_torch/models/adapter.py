@@ -29,7 +29,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .clip.model import dense, layer_norm
+from .clip.layers import dense, layer_norm
 
 
 @dataclasses.dataclass(frozen=True)

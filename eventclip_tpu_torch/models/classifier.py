@@ -31,10 +31,9 @@ from torch.profiler import record_function
 
 from .adapter import (Adapter, AdapterConfig, apply_adapter,
                       init_adapter_params)
-from .clip.config import CLIPConfig, ResNetVisionConfig
+from .clip.config import CLIPConfig
 from .clip.model import (CLIP, LoRA, encode_image, encode_text,
                          init_clip_params, init_lora_params)
-from .clip.resnet import encode_image_resnet
 from .clip.tokenizer import SimpleTokenizer, tokenize
 
 # the reference's prompt template (configs override it with
@@ -259,19 +258,13 @@ def _encode_views(params: ClassifierParams, cfg: ClassifierConfig,
                   flat_imgs: torch.Tensor, train: bool,
                   tp=None) -> torch.Tensor:
     """[V, 3, S, S] -> [V, C] raw (un-normalized) f32 encoder features,
-    through the ViT or, for a ResNet config, the ResNet tower. Only FT
+    through the config's image tower (`encode_image`). Only FT
     records a graph through the tower; ZS and FS encode under
     no_grad (the frozen tower, the JAX package's stop_gradient). `tp` (a
     parallel/sharding.py TPContext) runs the ViT's blocks
     tensor-parallel; a ResNet tower has none to split."""
     trains_tower = cfg.model == "FTCLIP"
     with torch.set_grad_enabled(trains_tower and torch.is_grad_enabled()):
-        if isinstance(cfg.clip.vision, ResNetVisionConfig):
-            # keep_tokens is a ViT option: a ResNet ignores it
-            assert params.lora is None, \
-                "LoRA targets the ViT attention (lora.py:385)"
-            return encode_image_resnet(params.clip.visual, flat_imgs,
-                                       dtype=cfg.dtype)
         return encode_image(
             params.clip.visual, flat_imgs, dtype=cfg.dtype, lora=params.lora,
             remat=cfg.remat and trains_tower and train,

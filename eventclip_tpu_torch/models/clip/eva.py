@@ -43,7 +43,7 @@ from ...ops import rope as _rope
 from ...ops.rope import rope_qkv
 from ...ops.swiglu import swiglu_ln
 from .config import EVAVisionConfig
-from .model import _normal_, _param, dense, layer_norm
+from .layers import _normal_, _param, dense, layer_norm
 
 
 def refuse(what: str, cfg: EVAVisionConfig) -> ValueError:
@@ -51,6 +51,13 @@ def refuse(what: str, cfg: EVAVisionConfig) -> ValueError:
                       f"(width {cfg.width}, {cfg.layers} layers): it is "
                       "served only, in bf16 on the card (the rotary "
                       "kernel's dtype) or f32 on the CPU")
+
+
+# the up-front options this tower refuses (models/clip/model.py's
+# `refuse_option` asks); LoRA at init is a TypeError, as a ResNet's is
+REFUSES = dict.fromkeys(("token pruning", "int8", "export", "f32 on the card"),
+                        refuse)
+REFUSES["LoRA"] = lambda what, cfg: TypeError(*refuse(what, cfg).args)
 
 
 class EVABlock(nn.Module):

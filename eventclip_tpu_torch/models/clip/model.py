@@ -1,49 +1,28 @@
-"""CLIP encoders as PyTorch modules.
+"""CLIP encoders as PyTorch modules, and `TOWERS`, the table of towers.
 
 Port of eventclip_tpu/models/clip/model.py (the OpenAI CLIP ViT image tower
-and causal text tower; `CLIP` builds models/clip/resnet.py's tower for a
-ResNet config). Parameters keep the JAX package's names and layouts —
-weights in torch [out, in] order, the fused in-projection as one [3D, D]
-matrix — but each tower holds a `ModuleList` of blocks instead of
+and causal text tower). Parameters keep the JAX package's names and
+layouts — weights in torch [out, in] order, the fused in-projection as one
+[3D, D] matrix — but each tower holds a `ModuleList` of blocks instead of
 `[L, ...]`-stacked arrays (models/clip/convert.py bridges the two).
+Products, norms and the tensor-parallel operators are models/clip/layers.py's;
+attention runs through the fused-qkv kernels (ops/attention.py), whose
+gradient is the backward kernel.
 
-Numerics follow the JAX package: parameters are stored in float32 and
-matmul weights are cast to the activation dtype at use; matmuls accumulate
-in float32; layer norms always compute in float32; attention runs through
-the fused-qkv kernels (ops/attention.py), whose gradient is the backward
-kernel. Gradients follow JAX's rules too: a weight's gradient through a bf16
-matmul is rounded to bf16 before it reaches the f32 master weight.
+`TOWERS` maps a vision config's type to its tower: the module `CLIP`
+builds, the forward `encode_image` takes, `init_clip_params`'s init and
+the up-front options that the tower's own module declares it refuses,
+which callers ask through `refuse_option`. Imports point one way:
+layers.py, then resnet.py and eva.py, then this module.
 
-`remat=True` recomputes each block in the backward pass
-(`torch.utils.checkpoint`, as the JAX package's `jax.checkpoint` per scan
-body). LoRA deltas are [L, ...]-stacked like the JAX package's
-(`init_lora_params`), applied in the attention as (x A^T) B^T.
-
-Inference options, as the JAX package's: `keep_tokens` prunes the patch
-sequence to its highest-variance patches before the tower; a tower whose
-weights were quantized by ops/quant.py runs its products through `qdense`
-(`dense` dispatches on the `QWeight`); a calibration copy holding
-`AmaxRecorder`s in their place notes the max-abs of those products'
-inputs.
-
-Tensor parallelism (`tp=`, a parallel/sharding.py `TPContext`, on
-weights cut by its `shard_params`): Megatron's pair of operators, as the
-JAX package's GSPMD program computes them. The column-parallel products
-(`wqkv`, `w1`) take the replicated input and give this rank's output
-features (local f32 bias, one rounding); their backward sums the f32
-input-gradient partials over the model group before rounding. The
-row-parallel products (`wo`, `w2`) sum their f32 partial products over
-the model group, then add the replicated f32 bias and round once (the
-JAX `dense` reduces the f32 einsum before `+ b`). Attention runs the
-fused kernels on the rank's heads (`tp_fused_qkv_attention`). LoRA
-factors stay replicated and each rank uses its rows of q/k/v's B and its
-columns of o's A; o's delta joins the row-parallel partial sum. int8
+The ViT's options are the JAX package's: `remat`, LoRA deltas
+[L, ...]-stacked (`init_lora_params`), `keep_tokens` and `tp`; int8
 weights and token pruning are single-card inference paths.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,239 +30,18 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.attention import fused_qkv_attention, tp_fused_qkv_attention
-from ...ops.dense import dense_bf16
-from ...ops.quant import AmaxRecorder, QWeight, qdense
-from ...parallel.distributed import model_all_reduce_sum_
+from ...ops.quant import AmaxRecorder, QWeight
+from . import eva, resnet
 from .config import (CLIPConfig, EVAVisionConfig, ResNetVisionConfig,
                      TextConfig, VisionConfig)
-from .resnet import ResNetVisionTower, init_resnet_visual_
-
-
-# ---------------------------------------------------------------------------
-# primitive layers
-# ---------------------------------------------------------------------------
-
-
-def _dense_f32_acc(x2, w, b):
-    """bf16 [N, in] @ w.T with the f32 bias added to the f32 accumulator,
-    rounded once to x2's dtype (CUDA only): `eventclip::dense_bf16`
-    (ops/dense.py), also while a graph is traced (export.py), where it
-    stays one node a product."""
-    return dense_bf16(x2, w, None if b is None else b.float())
-
-
-class _DenseF32Acc(torch.autograd.Function):
-    """bf16 x [N, in] @ w.T [in, out] (+ f32 b) on the card: the f32
-    accumulator, the bias added there, one rounding (`_dense_f32_acc`).
-    The backward is JAX's: the bf16 output gradient, read as
-    f32, against the bf16 operands, summed in f32 and rounded to bf16 for x
-    and w; the bias gradient its f32 column sum."""
-
-    @staticmethod
-    def forward(ctx, x2, w, b):
-        ctx.save_for_backward(x2, w)
-        return _dense_f32_acc(x2, w, b)
-
-    @staticmethod
-    def backward(ctx, g):
-        x2, w = ctx.saved_tensors
-        gx = gw = gb = None
-        if ctx.needs_input_grad[0]:
-            gx = torch.mm(g, w, out_dtype=torch.float32).to(x2.dtype)
-        if ctx.needs_input_grad[1]:
-            gw = torch.mm(g.t(), x2, out_dtype=torch.float32).to(w.dtype)
-        if ctx.needs_input_grad[2]:
-            gb = g.float().sum(0)
-        return gx, gw, gb
-
-
-def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
-          ) -> torch.Tensor:
-    """x @ w.T + b; w is [out, in]. The product of x and w rounded to x's
-    dtype, accumulated in f32, plus the f32 bias, rounded once to x's
-    dtype: the JAX package's `dense`. An int8 `QWeight` (ops/quant.py)
-    takes the W8A8 product, `qdense`; an `AmaxRecorder` notes max |x| and
-    takes the float product.
-
-    On CUDA a bf16 product is `eventclip::dense_bf16` (ops/dense.py): the
-    hand-written GEMM D1 (csrc/dense.cu) adds the f32 bias to its f32
-    accumulator in registers and rounds once, for every product whose K
-    and N rows are 16-byte multiples (K and N multiples of 8, which TMA
-    needs: `d1_takes`); any other (ViT-L/14's patch embedding, K = 588)
-    keeps the library GEMM that writes its f32 accumulator, the bias added
-    there, rounded after it. The CPU has no such matmul; there the f32
-    product of the rounded operands is the same sum, since a product of
-    two bf16 values is exact in f32, and autograd through the casts gives
-    JAX's gradient rules."""
-    if isinstance(w, QWeight):
-        return qdense(x, w, b)
-    if isinstance(w, AmaxRecorder):
-        w = w.see(x)
-    w = w.to(x.dtype)
-    if x.dtype == torch.float32:
-        return F.linear(x, w, b)
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda:
-        # without a gradient to record (serving, and torch.export under
-        # no_grad) the forward is the op alone, one node in a trace
-        y = (_DenseF32Acc.apply(x2, w, b) if torch.is_grad_enabled()
-             else _dense_f32_acc(x2, w, b))
-    else:
-        y = torch.mm(x2.float(), w.float().t())
-        if b is not None:
-            y = y + b.float()
-        y = y.to(x.dtype)
-    return y.reshape(*x.shape[:-1], w.shape[0])
-
-
-# -- tensor parallelism: Megatron's column- and row-parallel products -------
-
-
-def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b accumulated and returned in f32 (operands in a's dtype): the
-    card's GEMM writes its f32 accumulator; the CPU takes the f32 product
-    of the rounded operands, the same sum."""
-    if a.dtype == torch.float32:
-        return torch.mm(a, b.float())
-    if a.is_cuda:
-        return torch.mm(a, b.to(a.dtype), out_dtype=torch.float32)
-    return torch.mm(a.float(), b.to(a.dtype).float())
-
-
-class _ColumnParallel(torch.autograd.Function):
-    """x [N, in] (replicated) @ w_r.T (+ f32 b_r): this rank's output
-    features, the f32 accumulator plus the bias rounded once (`dense`).
-    Backward: the f32 partial input gradient summed over the model group,
-    then rounded; the weight gradient in x's dtype, the bias gradient the
-    f32 column sum."""
-
-    @staticmethod
-    def forward(ctx, x2, w, b, tp):
-        ctx.save_for_backward(x2, w)
-        ctx.tp = tp
-        y = _mm_f32(x2, w.t())
-        if b is not None:
-            y = y + b.float()
-        return y.to(x2.dtype)
-
-    @staticmethod
-    def backward(ctx, g):
-        x2, w = ctx.saved_tensors
-        gx = gw = gb = None
-        if ctx.needs_input_grad[0]:
-            gx = model_all_reduce_sum_(_mm_f32(g, w), ctx.tp).to(x2.dtype)
-        if ctx.needs_input_grad[1]:
-            gw = _mm_f32(g.t(), x2).to(w.dtype)
-        if ctx.needs_input_grad[2]:
-            gb = g.float().sum(0)
-        return gx, gw, gb, None
-
-
-class _RowParallel(torch.autograd.Function):
-    """x_r [N, in/n] @ w_r.T [in/n, out]: the f32 partial product (plus an
-    f32 `extra` partial, o's LoRA delta), summed over the model group in
-    f32, then the replicated f32 bias added and the sum rounded once.
-    Backward: the output gradient is replicated, so the local input,
-    weight and bias gradients need no sum."""
-
-    @staticmethod
-    def forward(ctx, x2, w, b, tp, extra):
-        ctx.save_for_backward(x2, w)
-        y = _mm_f32(x2, w.t())
-        if extra is not None:
-            y = y + extra
-        model_all_reduce_sum_(y, tp)
-        if b is not None:
-            y = y + b.float()
-        return y.to(x2.dtype)
-
-    @staticmethod
-    def backward(ctx, g):
-        x2, w = ctx.saved_tensors
-        gx = gw = gb = ge = None
-        if ctx.needs_input_grad[0]:
-            gx = _mm_f32(g, w).to(x2.dtype)
-        if ctx.needs_input_grad[1]:
-            gw = _mm_f32(g.t(), x2).to(w.dtype)
-        if ctx.needs_input_grad[2]:
-            gb = g.float().sum(0)
-        if ctx.needs_input_grad[4]:
-            ge = g.float()
-        return gx, gw, gb, None, ge
-
-
-class _CopyToModel(torch.autograd.Function):
-    """Identity forward on a replicated input; backward sums the
-    gradient's f32 partials over the model group (the q/k/v LoRA deltas,
-    whose B each rank uses in part)."""
-
-    @staticmethod
-    def forward(ctx, x, tp):
-        ctx.tp = tp
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        return model_all_reduce_sum_(g.float(), ctx.tp).to(g.dtype), None
-
-
-def column_parallel(x: torch.Tensor, w: torch.Tensor,
-                    b: Optional[torch.Tensor], tp) -> torch.Tensor:
-    """[..., in] replicated -> [..., out/n] this rank's features (`tp`
-    the layout whose model group sums the input gradient)."""
-    x2 = x.reshape(-1, x.shape[-1])
-    y = _ColumnParallel.apply(x2, w.to(x.dtype), b, tp)
-    return y.reshape(*x.shape[:-1], w.shape[0])
-
-
-def row_parallel(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
-                 tp, extra: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """[..., in/n] this rank's features -> [..., out] replicated (summed
-    over `tp`'s model group)."""
-    x2 = x.reshape(-1, x.shape[-1])
-    y = _RowParallel.apply(x2, w.to(x.dtype), b, tp, extra)
-    return y.reshape(*x.shape[:-1], w.shape[0])
-
-
-def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
-    """LayerNorm computed in float32 (f32 statistics, f32 weight and bias)
-    regardless of activation dtype, rounded once to x's dtype. The up-cast
-    is explicit: CUDA's layer norm refuses a bf16 input with f32 weights."""
-    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
-                     ln.bias.float(), ln.eps)
-    return y.to(x.dtype)
-
-
-def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(1.702 * x)
-
-
-def activation(name: str):
-    """A text tower's MLP activation by its config's `act`: OpenAI's
-    "quick_gelu" or exact "gelu" (looked up when called)."""
-    return F.gelu if name == "gelu" else quick_gelu
-
-
-def lora_delta(x: torch.Tensor, a: torch.Tensor,
-               b: torch.Tensor) -> torch.Tensor:
-    """Low-rank delta (x A^T) B^T; A [r, in], B [out, r], each product
-    rounded to x's dtype (the JAX package's `_lora_delta`)."""
-    return dense(dense(x, a), b)
-
-
-def causal_mask(T: int, device=None) -> torch.Tensor:
-    """Additive [T, T] f32 mask, -inf above the diagonal."""
-    return torch.full((T, T), float("-inf"), device=device).triu(1)
+from .layers import (_CopyToModel, _normal_, _param, causal_mask,
+                     column_parallel, dense, layer_norm, lora_delta,
+                     row_parallel)
 
 
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
-
-
-def _param(*shape, zeros: bool = False, device=None) -> nn.Parameter:
-    return nn.Parameter((torch.zeros if zeros else torch.empty)(
-        *shape, device=device))
 
 
 # one layer's LoRA factors: target ('q'|'k'|'v'|'o') -> (A [r, D], B [D, r])
@@ -358,6 +116,16 @@ class Attention(nn.Module):
             extra = (o2 @ a[:, lo:hi].to(o.dtype).float().t()) \
                 @ b.to(o.dtype).float().t()
         return row_parallel(o, self.wo, self.bo, tp, extra)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+def activation(name: str):
+    """A text tower's MLP activation by its config's `act`: OpenAI's
+    "quick_gelu" or exact "gelu" (looked up when called)."""
+    return F.gelu if name == "gelu" else quick_gelu
 
 
 class MLP(nn.Module):
@@ -454,22 +222,6 @@ class TextTower(nn.Module):
                                   device=device, act=cfg.act)
 
 
-class CLIP(nn.Module):
-    def __init__(self, cfg: CLIPConfig, device=None):
-        super().__init__()
-        self.cfg = cfg
-        from .eva import EVAVisionTower
-
-        tower = (ResNetVisionTower if isinstance(cfg.vision,
-                                                 ResNetVisionConfig)
-                 else EVAVisionTower if isinstance(cfg.vision,
-                                                   EVAVisionConfig)
-                 else VisionTower)
-        self.visual = tower(cfg.vision, device=device)
-        self.text = TextTower(cfg.text, device=device)
-        self.logit_scale = _param((), device=device)
-
-
 def prune_patches(x: torch.Tensor, keep_tokens: int) -> torch.Tensor:
     """[B, P, F] dtype-rounded patches -> [B, K] indices of the K
     highest-variance patches, in raster order. The score is the population
@@ -482,26 +234,19 @@ def prune_patches(x: torch.Tensor, keep_tokens: int) -> torch.Tensor:
     return torch.sort(order[:, :keep_tokens], dim=-1).values
 
 
-def encode_image(visual: VisionTower, images: torch.Tensor, *,
-                 dtype: torch.dtype = torch.float32,
-                 lora: Optional[LoRA] = None,
-                 remat: bool = False,
-                 keep_tokens: Optional[int] = None,
-                 tp=None) -> torch.Tensor:
+def encode_image_vit(visual: VisionTower, images: torch.Tensor, *,
+                     dtype: torch.dtype = torch.float32,
+                     lora: Optional[LoRA] = None,
+                     remat: bool = False,
+                     keep_tokens: Optional[int] = None,
+                     tp=None) -> torch.Tensor:
     """[B, 3, H, W] CLIP-normalized images -> [B, output_dim] f32 features.
 
     keep_tokens=K (eval-time, opt-in) keeps the K highest-variance patches
     (`prune_patches`), each with its own positional embedding, in raster
     order; K = grid² reproduces the full forward. `tp` runs the blocks
-    tensor-parallel (on weights cut by parallel/sharding.py). An EVA02
-    tower (models/clip/eva.py) takes its own forward, which refuses LoRA,
-    remat, pruning, `tp` and a recorded gradient."""
+    tensor-parallel (on weights cut by parallel/sharding.py)."""
     cfg = visual.cfg
-    if isinstance(cfg, EVAVisionConfig):
-        from .eva import encode_image_eva
-
-        return encode_image_eva(visual, images, dtype=dtype, lora=lora,
-                                remat=remat, keep_tokens=keep_tokens, tp=tp)
     B = images.shape[0]
     ps, g, D = cfg.patch_size, cfg.grid, cfg.width
     x = images.to(dtype)
@@ -544,12 +289,8 @@ def encode_text(text: TextTower, tokens: torch.Tensor, *,
 
 
 # ---------------------------------------------------------------------------
-# initialization
+# initialization, and the table of vision towers
 # ---------------------------------------------------------------------------
-
-
-def _normal_(p: torch.Tensor, std: float, gen: torch.Generator) -> None:
-    p.copy_(torch.randn(p.shape, generator=gen, device=gen.device) * std)
 
 
 def _init_blocks(blocks: Transformer, width: int, gen: torch.Generator):
@@ -564,28 +305,75 @@ def _init_blocks(blocks: Transformer, width: int, gen: torch.Generator):
         _normal_(blk.mlp.w2, proj_std, gen)
 
 
+def init_vit_visual_(v: VisionTower, generator: torch.Generator) -> None:
+    """Random ViT weights in place (OpenAI's scheme)."""
+    scale = v.cfg.width ** -0.5
+    for p in (v.patch_embed, v.class_embedding, v.positional_embedding,
+              v.proj):
+        _normal_(p, scale, generator)
+    _init_blocks(v.blocks, v.cfg.width, generator)
+
+
+class Tower(NamedTuple):
+    """A vision tower: the module `CLIP` builds, its forward, its random
+    init in place, and the up-front options it refuses (option -> a
+    function of the option and the vision config giving the exception)."""
+
+    module: Callable[..., nn.Module]
+    encode: Callable[..., torch.Tensor]
+    init: Callable[[nn.Module, torch.Generator], None]
+    refuses: Mapping[str, Callable[[str, object], Exception]]
+
+
+TOWERS: Dict[type, Tower] = {
+    VisionConfig: Tower(VisionTower, encode_image_vit, init_vit_visual_, {}),
+    ResNetVisionConfig: Tower(resnet.ResNetVisionTower,
+                              resnet.encode_image_resnet,
+                              resnet.init_resnet_visual_, resnet.REFUSES),
+    EVAVisionConfig: Tower(eva.EVAVisionTower, eva.encode_image_eva,
+                           eva.init_eva_visual_, eva.REFUSES),
+}
+
+
+def refuse_option(vision, option: str) -> None:
+    """Raise what the `REFUSES` of `vision`'s tower module declares for
+    `option`; return if the tower takes it."""
+    make = TOWERS[type(vision)].refuses.get(option)
+    if make is not None:
+        raise make(option, vision)
+
+
+class CLIP(nn.Module):
+    def __init__(self, cfg: CLIPConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.visual = TOWERS[type(cfg.vision)].module(cfg.vision,
+                                                     device=device)
+        self.text = TextTower(cfg.text, device=device)
+        self.logit_scale = _param((), device=device)
+
+
+def encode_image(visual: nn.Module, images: torch.Tensor,
+                 **options) -> torch.Tensor:
+    """[B, 3, H, W] CLIP-normalized images -> [B, output_dim] f32 features
+    through the tower's own forward (`TOWERS`), with `encode_image_vit`'s
+    keyword options: the ViT takes them all; a ResNet asserts LoRA absent
+    and ignores the rest; an EVA02 tower refuses LoRA, remat, pruning,
+    `tp` and a recorded gradient."""
+    return TOWERS[type(visual.cfg)].encode(visual, images, **options)
+
+
 @torch.no_grad()
 def init_clip_params(cfg: CLIPConfig, generator: torch.Generator,
                      device=None) -> CLIP:
     """Random CLIP towers (OpenAI init scheme, as the JAX package's
-    `init_clip_params`; a ResNet image tower as its `init_resnet_visual`)
+    `init_clip_params`; the image tower by its own init in `TOWERS`)
     drawn from `generator`, built on `device` (default: the generator's
     device). Biases zero, norms identity."""
     device = generator.device if device is None else torch.device(device)
     model = CLIP(cfg, device=device)
-    v, t = model.visual, model.text
-    if isinstance(v, ResNetVisionTower):
-        init_resnet_visual_(v, generator)
-    elif isinstance(cfg.vision, EVAVisionConfig):
-        from .eva import init_eva_visual_
-
-        init_eva_visual_(v, generator)
-    else:
-        scale = cfg.vision.width ** -0.5
-        for p in (v.patch_embed, v.class_embedding, v.positional_embedding,
-                  v.proj):
-            _normal_(p, scale, generator)
-        _init_blocks(v.blocks, cfg.vision.width, generator)
+    t = model.text
+    TOWERS[type(cfg.vision)].init(model.visual, generator)
     _normal_(t.token_embedding, 0.02, generator)
     _normal_(t.positional_embedding, 0.01, generator)
     _normal_(t.projection, cfg.text.width ** -0.5, generator)
@@ -630,10 +418,7 @@ def init_lora_params(cfg: VisionConfig, spec, generator: torch.Generator,
     parsed = parse_lora_spec(spec)
     if parsed is None:
         return None
-    if not isinstance(cfg, VisionConfig):
-        # the JAX package fails here too (a TypeError on the stage tuple)
-        raise TypeError("LoRA targets the ViT attention (lora.py:385); a "
-                        "ResNet tower has none")
+    refuse_option(cfg, "LoRA")
     device = generator.device if device is None else torch.device(device)
     r = parsed["rank"]
     lora = LoRA({t: LoRAFactors(cfg.layers, r, cfg.width, device=device)

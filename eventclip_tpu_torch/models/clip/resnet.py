@@ -37,11 +37,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from .config import ResNetVisionConfig
+from .layers import _normal_, _param, dense
 
-
-def _param(*shape, zeros: bool = False, device=None) -> nn.Parameter:
-    return nn.Parameter((torch.zeros if zeros else torch.empty)(
-        *shape, device=device))
+# the up-front options this tower refuses (`model.refuse_option` asks), with
+# the JAX package's exceptions (its LoRA init fails on the stage tuple)
+REFUSES = {
+    "int8": lambda what, cfg: ValueError("int8 quantization supports the "
+                                         "ViT towers only (ResNet archs "
+                                         "run bf16)"),
+    "LoRA": lambda what, cfg: TypeError("LoRA targets the ViT attention "
+                                        "(lora.py:385); a ResNet tower has "
+                                        "none")}
 
 
 class Affine(nn.Module):
@@ -198,8 +204,6 @@ def _attention_pool(x: torch.Tensor, p: AttentionPool,
                     heads: int) -> torch.Tensor:
     """[B, C, H, W] -> [B, output_dim]: the mean token attends over the
     HW + 1 tokens (separate q / k / v projections)."""
-    from .model import dense
-
     B, C, H, W = x.shape
     t = x.reshape(B, C, H * W).transpose(1, 2)  # [B, HW, C]
     t = torch.cat([t.mean(1, keepdim=True), t], dim=1)
@@ -241,9 +245,12 @@ def _ieee_f32(on: bool):
 
 
 def encode_image_resnet(visual: ResNetVisionTower, images: torch.Tensor,
-                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                        dtype: torch.dtype = torch.float32, *, lora=None,
+                        remat: bool = False, keep_tokens=None,
+                        tp=None) -> torch.Tensor:
     """[B, 3, S, S] CLIP-normalized images -> [B, output_dim] f32
-    features."""
+    features; `remat`, `keep_tokens` and `tp` are ViT options, ignored."""
+    assert lora is None, "LoRA targets the ViT attention (lora.py:385)"
     with _ieee_f32(dtype == torch.float32 and images.is_cuda):
         x = images.to(dtype)
         stem = visual.stem
@@ -263,9 +270,7 @@ def encode_image_resnet(visual: ResNetVisionTower, images: torch.Tensor,
 
 
 def _he_(w: torch.Tensor, gen: torch.Generator) -> None:
-    fan_in = w.shape[1] * w.shape[2] * w.shape[3]
-    w.copy_(torch.randn(w.shape, generator=gen, device=gen.device)
-            * (2.0 / fan_in) ** 0.5)
+    _normal_(w, (2.0 / (w.shape[1] * w.shape[2] * w.shape[3])) ** 0.5, gen)
 
 
 def _init_affine_(bn: Affine) -> None:
@@ -292,11 +297,7 @@ def init_resnet_visual_(visual: ResNetVisionTower,
             _init_affine_(ds.bn)
     pool = visual.attnpool
     C = visual.cfg.embed_dim
-    pool.positional_embedding.copy_(torch.randn(
-        pool.positional_embedding.shape, generator=generator,
-        device=generator.device) * C ** -0.5)
+    _normal_(pool.positional_embedding, C ** -0.5, generator)
     for lin in (pool.q_proj, pool.k_proj, pool.v_proj, pool.c_proj):
-        lin.w.copy_(torch.randn(lin.w.shape, generator=generator,
-                                device=generator.device)
-                    * lin.w.shape[1] ** -0.5)
+        _normal_(lin.w, lin.w.shape[1] ** -0.5, generator)
         lin.b.zero_()

@@ -14,7 +14,7 @@ registered here, so that eager training, serving and `torch.export`
 - `eventclip::dense_bf16(x2, w, b)` (D1, the bf16 product of `dense`; its
   CUDA implementation keeps the library GEMM for the shapes D1 does not
   take, ops/dense.py `d1_takes`). Its gradient is `dense`'s autograd
-  Function (models/clip/model.py `_DenseF32Acc`), not registered here;
+  Function (models/clip/layers.py `_DenseF32Acc`), not registered here;
 - `eventclip::rope_qkv(qkv, cos, sin, heads)` (EVA02's 2-D rotary q/k,
   ops/rope.py), which writes `qkv` in place and has no gradient;
 - `eventclip::swiglu_ln(h12, weight, bias, eps)` (S1, EVA02's SiLU(gate) *

@@ -3,7 +3,7 @@
 `dense_bf16(x2, w, b)` takes x2 [M, K] and w [N, K] in bf16 and an
 optional f32 bias [N]: the products summed in f32, the f32 bias added to
 that sum, one rounding to bf16, the arithmetic of the JAX package's
-`dense` (models/clip/model.py `dense` calls it for every bf16 product on
+`dense` (models/clip/layers.py `dense` calls it for every bf16 product on
 the card). It goes through the `torch.library` custom op
 `eventclip::dense_bf16` (ops/custom_ops.py):
 

@@ -24,7 +24,7 @@ no useful gradient); training never sees a quantized tower.
 
 A quantized weight is a `QWeight` module (`q` int8 [out, in], `s` f32
 [out], optional `a` f32 scalar), put in place of the float Parameter;
-models.clip.model.dense dispatches on it, so a quantized tower runs
+models.clip.layers.dense dispatches on it, so a quantized tower runs
 through the unchanged forward.
 """
 
@@ -62,7 +62,7 @@ class QWeight(nn.Module):
 
 class AmaxRecorder(nn.Module):
     """A float weight that notes the max |x| of the input it last
-    multiplied (a 0-d f32 `amax`); model.dense takes the float product
+    multiplied (a 0-d f32 `amax`); layers.dense takes the float product
     through it. A calibration copy of the tower holds one at each
     quantized site."""
 
@@ -74,18 +74,6 @@ class AmaxRecorder(nn.Module):
     def see(self, x: torch.Tensor) -> torch.Tensor:
         self.amax = x.abs().amax().float()
         return self.w
-
-
-def _require_vit(visual: nn.Module) -> None:
-    if not (hasattr(visual, "blocks") and hasattr(visual, "patch_embed")):
-        raise ValueError(
-            "int8 quantization supports the ViT towers only "
-            "(ResNet archs run bf16)"
-        )
-    # the sites are those of OpenAI's block, under `blocks.layers`
-    if not hasattr(visual.blocks, "layers"):
-        raise ValueError("int8 quantization supports OpenAI's ViT block "
-                         f"only, not {type(visual).__name__}'s")
 
 
 def quantize_weight(w: torch.Tensor) -> QWeight:
@@ -116,7 +104,7 @@ def _int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def qdense(x: torch.Tensor, qw: QWeight,
            b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Quantized counterpart of model.dense: x @ w.T + b.
+    """Quantized counterpart of layers.dense: x @ w.T + b.
 
     x [..., in] float; the product runs int8 x int8 with int32 sums.
     Activation scale: dynamic per-token max-abs by default; with the
@@ -197,9 +185,10 @@ def calibrate_visual_amax(visual: nn.Module, images: torch.Tensor, *,
     elementwise max to calibrate over more batches). The tower must be
     unquantized: the maxima are the float activations the static scales
     stand in for. It runs as a copy with an AmaxRecorder at each site."""
-    from ..models.clip.model import encode_image
+    # imported here: models/clip/layers.py's `dense` imports this module
+    from ..models.clip.model import encode_image, refuse_option
 
-    _require_vit(visual)
+    refuse_option(visual.cfg, "int8")  # the tower's own declaration
     assert not isinstance(visual.patch_embed, QWeight), (
         "calibrate on the FLOAT tower (before quantize_visual)"
     )
@@ -223,8 +212,10 @@ def quantize_classifier_params(model_params: nn.Module,
     Call AFTER checkpoint loading (fine-tuned visual weights must be the
     ones quantized). ViT towers only. act_amax: optional calibration maxima
     for static activation scales (see quantize_visual)."""
+    from ..models.clip.model import refuse_option
+
     visual = model_params.clip.visual
-    _require_vit(visual)
+    refuse_option(visual.cfg, "int8")
     out = _shared_copy(model_params)
     out.clip.visual = quantize_visual(visual, act_amax=act_amax)
     return out

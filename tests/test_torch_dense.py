@@ -13,7 +13,7 @@ import pytest
 import torch
 from torch.library import opcheck
 
-from eventclip_tpu_torch.models.clip import model
+from eventclip_tpu_torch.models.clip import layers, model
 from eventclip_tpu_torch.ops import dense as D
 
 OPS = torch.ops.eventclip
@@ -72,7 +72,7 @@ class _Products(torch.nn.Module):
         for i, (_, n) in enumerate(self.shapes):
             w = params[2 * i]
             b = params[2 * i + 1] if self.bias else None
-            x = model._dense_f32_acc(x, w, b)
+            x = layers._dense_f32_acc(x, w, b)
         return x
 
 

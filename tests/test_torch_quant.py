@@ -183,8 +183,8 @@ def test_calibration_requires_float_tower(towers):
 
 
 def test_resnet_towers_are_refused_like_jax():
-    class Visual:  # a ResNet tower: no `blocks` / `patch_embed`
-        stem = None
+    class Visual:  # a ResNet tower: known by its config, as every tower
+        cfg = clip_arch_config("RN-T@32").vision
 
     class Clip:
         visual = Visual()
