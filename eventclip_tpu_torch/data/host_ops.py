@@ -174,6 +174,8 @@ def gather_event_windows(
     num_views: int,
     rng: Optional[np.random.Generator] = None,
     packed: bool = False,
+    *,
+    out: Optional[np.ndarray] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Split a stream into event-count windows and gather up to `num_views`.
 
@@ -189,6 +191,10 @@ def gather_event_windows(
     in random order (reference torch.randperm semantics,
     datasets/event2img.py:83-86); otherwise windows keep stream order and
     the remaining slots are padding.
+
+    `out`: a zeroed, writable, C-contiguous array of the windows' shape
+    and dtype (one stream's slice of a request buffer) that receives the
+    windows and is returned; only the spans' rows are written.
     """
     spans = event_count_windows(len(events), window)
     if len(spans) > num_views:
@@ -203,13 +209,13 @@ def gather_event_windows(
     valid[: len(spans)] = True
     if native.available():
         return native.pack_spans(events, spans, num_views, window,
-                                 packed=packed), valid
+                                 packed=packed, out=out), valid
     if packed:
-        out = np.zeros((num_views, window, 3), dtype=np.int16)
+        out = native.out_buffer(out, (num_views, window, 3), np.int16)
         for i, (a, b) in enumerate(spans):
             out[i, : b - a] = events[a:b, (0, 1, 3)]  # x, y, p (t dropped)
         return out, valid
-    out = np.zeros((num_views, window, 4), dtype=np.float32)
+    out = native.out_buffer(out, (num_views, window, 4), np.float32)
     for i, (a, b) in enumerate(spans):
         out[i, : b - a] = events[a:b]
     return out, valid

@@ -239,13 +239,34 @@ def transform_events(
     return out[:m]
 
 
+def out_buffer(out: Optional[np.ndarray], shape: Tuple[int, ...],
+               dtype) -> np.ndarray:
+    """`out` when it is a writable, C-contiguous array of `shape` and
+    `dtype` (the caller has zeroed it), a fresh zeroed one when it is None;
+    anything else raises ValueError, since the library writes through the
+    pointer without bounds."""
+    if out is None:
+        return np.zeros(shape, dtype)
+    if not (isinstance(out, np.ndarray) and out.shape == tuple(shape)
+            and out.dtype == dtype and out.flags.c_contiguous
+            and out.flags.writeable):
+        raise ValueError(
+            f"out must be a writable C-contiguous {np.dtype(dtype)} array of "
+            f"shape {tuple(shape)}")
+    return out
+
+
 def pack_spans(
     events: np.ndarray, spans, num_views: int, window: int,
-    packed: bool = True,
+    packed: bool = True, *, out: Optional[np.ndarray] = None,
 ) -> np.ndarray:
     """Gather window spans into the padded view tensor
     ([num_views, window, 3] int16 or [num_views, window, 4] float32),
-    zero-padded like host_ops.gather_event_windows."""
+    zero-padded like host_ops.gather_event_windows. With `out` (a zeroed,
+    writable, C-contiguous array of that shape and dtype, e.g. one
+    stream's slice of a request buffer) the spans' rows are written there
+    and `out` is returned; the library writes only those rows, so the
+    zeros are the caller's."""
     lib = _load()
     if lib is None:
         raise RuntimeError("native library unavailable; guard on available()")
@@ -259,11 +280,11 @@ def pack_spans(
                     or sp[:, 0].min() < 0 or sp[:, 1].max() > len(ev)):
         raise ValueError(f"span out of bounds for window={window}, "
                          f"n={len(ev)}: {sp.tolist()}")
-    _count("pack_spans")
     if packed:
-        out = np.zeros((num_views, window, 3), dtype=np.int16)
-        lib.ec_pack_spans(_ptr(ev), _ptr(sp), len(sp), window, _ptr(out))
+        cols, dtype, fn = 3, np.int16, lib.ec_pack_spans
     else:
-        out = np.zeros((num_views, window, 4), dtype=np.float32)
-        lib.ec_pack_spans_f32(_ptr(ev), _ptr(sp), len(sp), window, _ptr(out))
+        cols, dtype, fn = 4, np.float32, lib.ec_pack_spans_f32
+    out = out_buffer(out, (num_views, window, cols), dtype)
+    _count("pack_spans")
+    fn(_ptr(ev), _ptr(sp), len(sp), window, _ptr(out))
     return out

@@ -42,8 +42,10 @@ from __future__ import annotations
 import collections
 import copy
 import dataclasses
+import os
 import threading
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -67,7 +69,23 @@ from .ops.quant import calibrate_visual_amax, quantize_classifier_params
 from .ops.rasterize import RasterSpec, rasterize_for_clip
 from .parallel.local import LocalSplit, local_devices
 from .utils.config import load_params
-from .utils.spans import span
+from .utils.spans import carry, span
+
+# The events one worker of the host half must have for windowing a
+# request on more than one thread to pay: `gather_windows` uses one worker
+# per WORKER_EVENTS events, at most one a stream and one a core. On an
+# 8-core H100 host (scripts/host_window_sweep.py), requests of 0.72 M
+# events gained nothing past 3 workers, requests of 5.2 M up to 8.
+WORKER_EVENTS = 250_000
+
+_POOL_LOCK = threading.Lock()
+
+
+def _n_events(stream) -> int:
+    try:
+        return len(stream)
+    except TypeError:  # not a stream; `_canonical` says why
+        return 0
 
 
 class Predictor:
@@ -90,6 +108,10 @@ class Predictor:
         split each batch into equal parts over them; `batch_size` is
         rounded down to a multiple of the part count.
     """
+
+    # the host half's worker threads, made at the first request that uses
+    # more than one and shared by every later request and handler thread
+    _pool: Optional[ThreadPoolExecutor] = None
 
     def __init__(
         self,
@@ -225,10 +247,10 @@ class Predictor:
                 events[:, 3] = np.where(events[:, 3] <= 0.5, -1.0, 1.0)
         # view subsampling must be deterministic and independent of the
         # stream's position in the request: seed from the stream content
+        # (the C-order bytes, whatever the order of the copy above)
         with span("serve.seed"):
             rng = np.random.default_rng(
-                zlib.crc32(np.ascontiguousarray(events).tobytes())
-            )
+                zlib.crc32(np.ascontiguousarray(events)))
         return events, rng
 
     def _prep(self, events: np.ndarray) -> tuple:
@@ -237,26 +259,46 @@ class Predictor:
         with span("serve.centre"):
             return prepare_stream(events, self.resolution), rng
 
-    def _windows(self, events: np.ndarray) -> tuple:
+    def _gather(self, events: np.ndarray, rng, wins: np.ndarray,
+                valids: np.ndarray) -> None:
+        w, valids[...] = gather_event_windows(
+            events, self.window, self.views, rng=rng, packed=True, out=wins)
+        if w is not wins:  # a wrapped windowing may return its own array
+            wins[...] = w
+
+    def _windows(self, events: np.ndarray, wins: np.ndarray,
+                 valids: np.ndarray) -> None:
+        """One stream -> its windows and mask, written into its slices of
+        the request buffer ([V, N, 3] int16, [V] bool)."""
         events, rng = self._prep(events)
         with span("serve.window"):
-            return gather_event_windows(
-                events, self.window, self.views, rng=rng, packed=True
-            )
+            self._gather(events, rng, wins, valids)
 
-    def _windows_tta(self, events: np.ndarray) -> tuple:
-        """4 variants -> ([4, V, N, 3] int16, [4, V] bool) in the order
-        identity, h-flip, t-flip, both; the 4 gathers consume ONE
+    def _windows_tta(self, events: np.ndarray, wins: np.ndarray,
+                     valids: np.ndarray) -> None:
+        """4 variants -> wins [4, V, N, 3] int16 and valids [4, V] bool in
+        the order identity, h-flip, t-flip, both; the 4 gathers consume ONE
         content-seeded rng in sequence (the dataset's TTA draw order)."""
         events, rng = self._prep(events)
         with span("serve.window"):
-            pairs = [
-                gather_event_windows(v, self.window, self.views, rng=rng,
-                                     packed=True)
-                for v in tta_variants(events, self.resolution)
-            ]
-            return (np.stack([w for w, _ in pairs]),
-                    np.stack([m for _, m in pairs]))
+            for k, v in enumerate(tta_variants(events, self.resolution)):
+                self._gather(v, rng, wins[k], valids[k])
+
+    def _workers(self, event_streams) -> int:
+        """How many threads window this request: one per WORKER_EVENTS
+        events, at most one a stream and one a core this process may run
+        on."""
+        total = sum(_n_events(e) for e in event_streams)
+        return max(1, min(len(event_streams), len(os.sched_getaffinity(0)),
+                          -(-total // WORKER_EVENTS)))
+
+    def _worker_pool(self) -> ThreadPoolExecutor:
+        with _POOL_LOCK:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(
+                    len(os.sched_getaffinity(0)),
+                    thread_name_prefix="serve-windows")
+            return self._pool
 
     # -- public API ----------------------------------------------------------
 
@@ -284,23 +326,59 @@ class Predictor:
             return self.predict_windows(wins, valids, top_k=top_k)
 
     def gather_windows(self, event_streams) -> tuple:
-        """Host half: validate + window every stream -> stacked
-        ([B, V, N, 3] int16, [B, V] bool); with tta=True every stream
-        contributes 4 consecutive variant rows ([B*4, ...])."""
+        """Host half: validate + window every stream -> ([B, V, N, 3] int16,
+        [B, V] bool), each stream written into its slice of one fresh
+        request buffer; with tta=True every stream contributes 4
+        consecutive variant rows ([B*4, ...]). The streams are windowed on
+        `_workers` threads of the predictor's pool (on the calling thread
+        when that is one); each draws its views from its own content, so
+        the schedule never changes an answer. A bad stream raises
+        ValueError for the lowest such index."""
+        n = len(event_streams)
+        rows = (n, 4, self.views) if self.tta else (n, self.views)
         windower = self._windows_tta if self.tta else self._windows
-        with span("serve.gather_windows"):
-            pairs = []
-            for i, e in enumerate(event_streams):
-                try:
-                    pairs.append(windower(e))
-                except (ValueError, AssertionError) as err:
-                    raise ValueError(f"event_streams[{i}]: {err}") from None
-            with span("serve.stack"):
-                wins, valids = zip(*pairs)
-                wins, valids = np.stack(wins), np.stack(valids)
-            if self.tta:  # [B, 4, V, ...] -> [B*4, V, ...], variant-major
-                wins = wins.reshape((-1,) + wins.shape[2:])
-                valids = valids.reshape((-1,) + valids.shape[2:])
+        with span("serve.gather_windows") as s:
+            # fresh every call: a caller may still hold the last one's
+            wins = np.zeros(rows + (self.window, 3), np.int16)
+            valids = np.zeros(rows, bool)
+            workers = self._workers(event_streams)
+            if s:
+                s.count(streams=n, workers=workers)
+            # on the pool the longest streams go first, so that the last
+            # one to finish is short
+            order = range(n) if workers == 1 else sorted(
+                range(n), key=lambda i: -_n_events(event_streams[i]))
+            todo, lock, errors = iter(order), threading.Lock(), {}
+
+            def work():
+                while True:
+                    with lock:
+                        i = next(todo, None)
+                        if i is None:
+                            return
+                        if errors and i > min(errors):
+                            continue  # a lower index has failed already
+                    try:
+                        windower(event_streams[i], wins[i], valids[i])
+                    except Exception as err:  # raised below, lowest first
+                        with lock:
+                            errors[i] = err
+
+            if workers == 1:
+                work()
+            else:
+                job, pool = carry(work), self._worker_pool()
+                for f in [pool.submit(job) for _ in range(workers)]:
+                    f.result()
+            if errors:
+                i = min(errors)
+                if isinstance(errors[i], (ValueError, AssertionError)):
+                    raise ValueError(
+                        f"event_streams[{i}]: {errors[i]}") from None
+                raise errors[i]
+        if self.tta:  # [B, 4, V, ...] -> [B*4, V, ...], variant-major
+            wins = wins.reshape((-1,) + wins.shape[2:])
+            valids = valids.reshape((-1,) + valids.shape[2:])
         return wins, valids
 
     def predict_windows(self, wins: np.ndarray, valids: np.ndarray,

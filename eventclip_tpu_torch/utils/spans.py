@@ -20,8 +20,10 @@ boolean test, so counts that cost work can be skipped: `if s: ...`).
 Each recorded `Span` holds its name, start and end (epoch ns), its own
 id, its parent's id (the innermost span open on the same thread, else
 None), the id of its root (the outermost one; a root's is its own), and
-integer counts given at either boundary. Parents never cross threads:
-spans opened on two handler threads at once form two trees. Both ends
+integer counts given at either boundary. Parents cross threads only
+through `carry`: a job handed to a worker thread opens its spans under
+the span that was open where it was handed over, so one request stays one
+tree; spans opened on two handler threads at once form two. Both ends
 are read from `time.time_ns()`. The newest `CAPACITY` spans stay in
 memory (`records()`, `clear()`): a reader that finds the ring full cannot
 tell whether older spans were dropped. Nothing is written to a file. No
@@ -119,6 +121,29 @@ def span(name: str, **counts: int):
     if _enabled or _profiler._is_profiler_enabled:
         return _Open(name, counts)
     return _OFF
+
+
+def carry(fn):
+    """`fn`, to be run on another thread with the innermost span open on
+    this one as the parent of the spans it opens there (the caller keeps
+    that span open until `fn` returns); `fn` itself when no span is open
+    here, as while nothing records."""
+    stack = getattr(_local, "stack", None)
+    if not stack:
+        return fn
+    parent = stack[-1]
+
+    def under_parent(*args, **kwargs):
+        own = getattr(_local, "stack", None)
+        if own is None:
+            own = _local.stack = []
+        own.append(parent)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            own.pop()
+
+    return under_parent
 
 
 def enable() -> None:

@@ -339,6 +339,67 @@ def test_pack_spans_rejects_bad_spans():
         native.pack_spans(ev, [(-10, 40)], 2, 100)  # negative start
 
 
+@pytest.mark.parametrize("packed", [True, False])
+def test_pack_spans_into_a_slice_of_a_larger_buffer(packed):
+    """`out=`: the allocating call's bytes land in the zeroed slice, the
+    slice itself is returned, and the neighbouring slices keep theirs."""
+    ev = random_stream(np.random.default_rng(9), 2600)
+    spans = [(1000, 2000), (0, 1000), (2000, 2600)]
+    want = native.pack_spans(ev, spans, 4, 1000, packed=packed)
+    buf = np.full((3,) + want.shape, 7, want.dtype)
+    buf[1] = 0
+    got = native.pack_spans(ev, spans, 4, 1000, packed=packed, out=buf[1])
+    assert got.base is buf
+    np.testing.assert_array_equal(buf[1], want)
+    assert (buf[0] == 7).all() and (buf[2] == 7).all()
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "strided", "read_only",
+                                 "list"])
+def test_pack_spans_refuses_a_bad_out(bad):
+    ev = random_stream(np.random.default_rng(10), 300)
+    good = np.zeros((2, 100, 3), np.int16)
+    out = {
+        "shape": np.zeros((3, 100, 3), np.int16),
+        "dtype": np.zeros((2, 100, 3), np.float32),
+        "strided": np.zeros((4, 100, 3), np.int16)[::2],
+        "read_only": good.copy(),
+        "list": good.tolist(),
+    }[bad]
+    if bad == "read_only":
+        out.flags.writeable = False
+    with pytest.raises(ValueError, match="out must be"):
+        native.pack_spans(ev, [(0, 100)], 2, 100, packed=True, out=out)
+    # nothing was written, and the allocating call still works
+    if isinstance(out, np.ndarray):
+        assert not out.any()
+    assert native.pack_spans(ev, [(0, 100)], 2, 100).shape == good.shape
+
+
+def test_gather_windows_into_out_on_both_routes(force_path):
+    """`gather_event_windows(..., out=)` writes the windows it would
+    return into `out` on the numpy and the native route alike, and both
+    refuse a wrong buffer."""
+    ev = random_stream(np.random.default_rng(12), 950)
+    want = host_ops.gather_event_windows(ev, 100, 5,
+                                         rng=np.random.default_rng(1),
+                                         packed=True)
+    for mode in ("numpy", "native"):
+        force_path(mode)
+        buf = np.zeros((2, 5, 100, 3), np.int16)
+        w, v = host_ops.gather_event_windows(
+            ev, 100, 5, rng=np.random.default_rng(1), packed=True,
+            out=buf[1])
+        assert w.base is buf
+        np.testing.assert_array_equal(buf[1], want[0])
+        np.testing.assert_array_equal(v, want[1])
+        assert not buf[0].any()
+        with pytest.raises(ValueError, match="out must be"):
+            host_ops.gather_event_windows(
+                ev, 100, 5, rng=np.random.default_rng(1), packed=True,
+                out=np.zeros((5, 100, 4), np.float32))
+
+
 def _reference_npz_chain(ev):
     out = np.stack(
         [ev["x"], ev["y"], ev["t"], ev["p"].astype(np.uint8)], 1

@@ -121,7 +121,7 @@ def test_one_request_makes_the_span_tree(pred, pred_tta, tta):
     assert root.parent is None and root.root == root.id
     assert {r.root for r in recs} == {root.id}
     assert len({r.id for r in recs}) == len(recs)
-    assert len(recs) == 1 + 1 + 4 * len(streams) + 1 + 1 + 3 * chunks + 1
+    assert len(recs) == 1 + 1 + 4 * len(streams) + 1 + 3 * chunks + 1
 
     gather = _only(recs, "serve.gather_windows")
     device = _only(recs, "serve.predict_windows")
@@ -129,7 +129,7 @@ def test_one_request_makes_the_span_tree(pred, pred_tta, tta):
     under_gather = sorted(r.name for r in _children(recs, gather))
     assert under_gather == sorted(
         ["serve.canonical", "serve.seed", "serve.centre", "serve.window"]
-        * len(streams) + ["serve.stack"])
+        * len(streams))
     under_device = sorted(r.name for r in _children(recs, device))
     assert under_device == sorted(
         ["serve.pack", "serve.place", "serve.enqueue"] * chunks
@@ -141,9 +141,14 @@ def test_one_request_makes_the_span_tree(pred, pred_tta, tta):
             up = by_id[r.parent]
             assert up.start_ns <= r.start_ns and r.end_ns <= up.end_ns
 
-    # the packing counts equal the batch's; no other span counts
+    # the packing counts equal the batch's, the host half counts its
+    # streams and workers (a request under WORKER_EVENTS: one); no other
+    # span counts
     wins, valids = p.gather_windows(streams)
-    assert not [r for r in recs if r.counts and r.name != "serve.pack"]
+    assert sum(map(len, streams)) < serve.WORKER_EVENTS
+    assert gather.counts == {"streams": len(streams), "workers": 1}
+    assert not [r for r in recs if r.counts
+                and r.name not in ("serve.pack", "serve.gather_windows")]
     packs = [r for r in recs if r.name == "serve.pack"]
     bs = p.batch_size
     for i, pk in enumerate(packs):
@@ -294,7 +299,7 @@ def test_two_threads_keep_their_own_parents_and_roots(pred, monkeypatch):
     for root in roots:
         tree = [r for r in recs if r.root == root.id and r is not root]
         n = sum(r.name == "serve.canonical" for r in tree)
-        assert len(tree) == 4 * n + 1
+        assert len(tree) == 4 * n
         assert all(by_id[r.parent].root == root.id for r in tree)
         assert all(r.parent == root.id for r in tree)
         per_root.append(n)
